@@ -1,0 +1,333 @@
+"""Smoke run of the PyTorch / CUDA port (pcaudio_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+0. prints the card (name, power limit), torch and CUDA versions, and turns
+   TF32 off for the plain references;
+1. builds the three kernels from pcaudio_torch/csrc (nvcc, sm_90a);
+2. holds each kernel against its plain PyTorch version on the card at the
+   serving path's shapes (featurize B=64 x 5 s clips; select on that grid and
+   on a tie-heavy grid; the ST on the resulting 64*43 clouds, and with the
+   trained FST checkpoint on ragged-masked 2-D clouds);
+3. serves three requests (64, 17 and 100 ragged clips) through
+   AudioClassifier with a full-width 3ST made from a seed and the bench's
+   pipeline config, checks that each kernel was launched, that the logits
+   are finite and that the labels agree with the plain path on the card;
+4. times each kernel and its plain version, and the end-to-end path, at the
+   bench shape (B=1024 clips of 5 s, 44,032 chunk clouds).
+
+Any failure raises, so the exit code is non-zero.  The second-to-last line
+of output is the kernels' JSON record, the last one the device record.
+"""
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from pcaudio_torch.checkpoint import load_reference_pth
+from pcaudio_torch.eval import (
+    TemporalPipelineConfig, extract_chunk_clouds, make_temporal_classifier)
+from pcaudio_torch.nn import ST
+from pcaudio_torch.ops.kernels import _build
+from pcaudio_torch.ops.kernels.featurize import (
+    fused_chunk_mag2, fused_chunk_mag2_plain)
+from pcaudio_torch.ops.kernels.fused_st import (
+    fused_st_forward, fused_st_forward_plain)
+from pcaudio_torch.ops.kernels.select import (
+    exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.serve import AudioClassifier
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FS = 44100
+L = 220672            # 5 s at 44.1 kHz, as bench.py
+BENCH_B = 1024
+TOP_K = 128
+CFG = TemporalPipelineConfig(fs=FS, n_fft=1024, num_frames=10, top_k=TOP_K,
+                             extraction="exact", featurize="fused",
+                             stft_precision="default",
+                             compute_dtype="bfloat16")
+KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
+    "fused_chunk_mag2": (fused_chunk_mag2, "pcaudio_torch/csrc/featurize.cu",
+                         "pcaudio/ops/kernels/featurize.py:285"),
+    "exact_topk_chunks": (exact_topk_chunks, "pcaudio_torch/csrc/select.cu",
+                          "pcaudio/ops/kernels/select.py:435"),
+    "fused_st_forward": (fused_st_forward, "pcaudio_torch/csrc/fused_st.cu",
+                         "pcaudio/ops/kernels/fused_st.py:554"),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def seeded_st(din, seed):
+    """Full-width ST (64 hidden, 64 inducing points, 8 heads) with weights
+    drawn from a numpy seed, U(±1/sqrt(fan_in))."""
+    model = ST(dim_input=din, dim_output=10, num_inds=64, dim_hidden=64,
+               num_heads=8)
+    rng = np.random.default_rng(seed)
+    sd = {k: torch.from_numpy(rng.uniform(-1, 1, v.shape).astype(np.float32)
+                              / np.sqrt(v.shape[-1]))
+          for k, v in model.state_dict().items()}
+    model.load_state_dict(sd)
+    return model.cuda().eval()
+
+
+def synthetic_waves(B, rng):
+    """Tones plus noise at 44.1 kHz, length 220500, with the edge cases the
+    featurize kernel must keep finite and masked."""
+    t = np.arange(L, dtype=np.float32) / FS
+    f0 = rng.uniform(100.0, 4000.0, (B, 1)).astype(np.float32)
+    w = (0.3 * np.sin(2 * np.pi * f0 * t) * rng.uniform(0.1, 1.0, (B, 1))
+         + 0.02 * rng.standard_normal((B, L))).astype(np.float32)
+    lengths = np.full(B, 220500, np.int32)
+    w[1, :FS] = 0.0                  # 1 s of leading and trailing silence
+    w[1, 220500 - FS:] = 0.0
+    lengths[2] = 700                 # shorter than n_fft
+    lengths[3] = 1
+    w[:, 220500:] = 0.0
+    return w, lengths
+
+
+def cuda_ms(fn, iters):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def paired_ms(kernel, plain, iters, plain_iters):
+    """plain, kernel, kernel, plain in one process on one card."""
+    p0 = cuda_ms(plain, plain_iters)
+    k0 = cuda_ms(kernel, iters)
+    k1 = cuda_ms(kernel, iters)
+    p1 = cuda_ms(plain, plain_iters)
+    return (k0 + k1) / 2, (p0 + p1) / 2
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def tie_aware_argmax(got, ref):
+    """Rows whose reference top-2 gap is below twice the largest deviation
+    are excused; every other row must agree.  Returns (agree, decided, dev)."""
+    dev = (got - ref).abs().max().item()
+    top2 = ref.sort(dim=-1).values[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
+    agree = (got.argmax(-1) == ref.argmax(-1))
+    check(bool(agree[decided].all()), f"argmax disagrees on a decided row "
+          f"(max logit dev {dev:.3e})")
+    return int(agree.sum()), int(decided.sum()), dev
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # ---- 0. the card -------------------------------------------------------
+    name_limit = card()
+    log(name_limit)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    # ---- 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.library()
+    log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"[ptxas] {line.strip()}")
+
+    # ---- 2. each kernel vs its plain version at main-path shapes ------------
+    rng = np.random.default_rng(0)
+    w_np, len_np = synthetic_waves(64, rng)
+    waves = torch.from_numpy(w_np).to(dev)
+    lengths = torch.from_numpy(len_np).to(dev)
+    errs = {}
+
+    grids = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g, gm = fused_chunk_mag2(waves, lengths, out_dtype=dt)
+        r, rm = fused_chunk_mag2_plain(waves, lengths, out_dtype=dt)
+        torch.cuda.synchronize()
+        check(torch.equal(gm, rm), f"K3 {dt}: chunk masks differ")
+        check(bool(torch.isfinite(g.float()).all()), f"K3 {dt}: non-finite")
+        check(not gm[2].any() and not gm[3].any(),
+              "K3: sub-n_fft clips must be fully masked")
+        # f32 summation order (radix-2 FFT vs cuFFT): 1e-5 of the chunk's
+        # largest |X|² + rtol 1e-4; one bf16 step when stored in bf16
+        gv, rv = g.float()[rm], r.float()[rm]
+        rtol = 1e-4 + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
+        atol = 1e-5 * rv.amax(dim=(1, 2), keepdim=True)
+        err = (gv - rv).abs()
+        check(bool((err <= atol + rtol * rv.abs()).all()),
+              f"K3 {dt}: |X|² outside tolerance (max err {err.max():.3e})")
+        log(f"[K3] {dt}: max |err| {err.max().item():.3e} "
+            f"(max rel to chunk max {(err / rv.amax(dim=(1, 2), keepdim=True)).max().item():.3e}), "
+            f"valid chunks {int(rm.sum())}/{rm.numel()}")
+        if dt == torch.float32:
+            errs["fused_chunk_mag2"] = err.max().item()
+        grids[dt] = g
+
+    tie_grid = torch.floor(torch.rand(512, 10, 512, device=dev,
+                                      generator=torch.Generator(dev).manual_seed(1)
+                                      ) * 16) / 4
+    sel_err = 0.0
+    for label, m in (("f32 grid", grids[torch.float32]),
+                     ("bf16 grid", grids[torch.bfloat16]),
+                     ("tie-heavy", tie_grid),
+                     ("tie-heavy bf16", tie_grid.bfloat16())):
+        m = m.reshape(-1, 10, 512)
+        v, i = exact_topk_chunks(m, TOP_K)
+        rv, ri = exact_topk_chunks_plain(m, TOP_K)
+        torch.cuda.synchronize()
+        check(torch.equal(i, ri), f"K2 {label}: selected indices differ")
+        check(torch.equal(v, rv), f"K2 {label}: values differ")
+        sel_err = max(sel_err, (v - rv).abs().max().item())
+        log(f"[K2] {label} {tuple(m.shape)}: identical sets and values")
+    errs["exact_topk_chunks"] = sel_err
+
+    model = seeded_st(3, seed=0)
+    cloud, _ = extract_chunk_clouds(waves, lengths, CFG)
+    got = fused_st_forward(model, cloud.points, None)
+    ref = fused_st_forward_plain(model, cloud.points, None)
+    torch.cuda.synchronize()
+    check(got.shape == (64 * 43, 10), f"K1: logits shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "K1: non-finite logits")
+    st_err = (got - ref).abs().max().item()
+    # f32 both sides; the kernel's sum order and __expf differ: 1e-3
+    check(st_err <= 1e-3, f"K1 3ST: max |err| {st_err:.3e} > 1e-3")
+    log(f"[K1] 3ST {tuple(cloud.points.shape)} bf16 points, mask None: "
+        f"max |err| {st_err:.3e}")
+    fst = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
+             num_heads=8)
+    fst.load_state_dict(load_reference_pth(
+        os.path.join(ROOT, "artifacts", "roundtrip", "FST_roundtrip_net.pth")))
+    fst = fst.to(dev).eval()
+    pts = torch.from_numpy(rng.uniform(-1, 1, (512, 128, 2)).astype(
+        np.float32)).to(dev)
+    counts = torch.from_numpy(rng.integers(0, 129, 512)).to(dev)
+    counts[:2] = torch.tensor([128, 0], device=dev)
+    mask = torch.arange(128, device=dev)[None, :] < counts[:, None]
+    got = fused_st_forward(fst, pts, mask)
+    ref = fused_st_forward_plain(fst, pts, mask)
+    torch.cuda.synchronize()
+    fst_err = (got - ref).abs().max().item()
+    check(bool(torch.isfinite(got).all()), "K1 FST: non-finite logits")
+    check(fst_err <= 1e-3, f"K1 FST: max |err| {fst_err:.3e} > 1e-3")
+    log(f"[K1] FST checkpoint, ragged mask (incl. an all-masked cloud): "
+        f"max |err| {fst_err:.3e}")
+    errs["fused_st_forward"] = max(st_err, fst_err)
+    del grids, cloud, got, ref
+
+    # ---- 3. the slice: AudioClassifier answers three requests ---------------
+    clf = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
+                          buffer_len=L, device="cuda")
+    plain_clf = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
+                                buffer_len=L, device="cuda", plain=True)
+    requests = []
+    for n in (64, 17, 100):
+        wr, _ = synthetic_waves(n, rng)
+        lens = rng.integers(FS // 2, 220500, n)
+        requests.append([wr[i, :lens[i]] for i in range(n)])
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+    served = [clf.logits(req) for req in requests]
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, (fn, _, _) in KERNELS.items()}
+    log(f"[serve] launches in the three requests: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the main path")
+    for req, lg in zip(requests, served):
+        check(lg.shape == (len(req), 10), f"served logits shape {lg.shape}")
+        check(bool(np.isfinite(lg).all()), "served logits not finite")
+        ref = plain_clf.logits(req)
+        agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lg),
+                                                torch.from_numpy(ref))
+        log(f"[serve] {len(req)} clips: labels {lg.argmax(-1).tolist()}")
+        log(f"[serve] {len(req)} clips: argmax agrees with the plain path on "
+            f"{agree}/{len(req)} ({decided} decided rows all agree), "
+            f"max logit dev {ldev:.3e}")
+
+    # ---- 4. timings at the bench shape --------------------------------------
+    gen = torch.Generator(dev).manual_seed(0)
+    bw = 0.1 * torch.randn(BENCH_B, L, device=dev, generator=gen)
+    bl = torch.full((BENCH_B,), 220500, dtype=torch.int32, device=dev)
+    times = {}
+    times["fused_chunk_mag2"] = paired_ms(
+        lambda: fused_chunk_mag2(bw, bl, out_dtype=torch.bfloat16),
+        lambda: fused_chunk_mag2_plain(bw, bl, out_dtype=torch.bfloat16), 10, 3)
+    grid, _ = fused_chunk_mag2(bw, bl, out_dtype=torch.bfloat16)
+    grid = grid.reshape(-1, 10, 512)
+    times["exact_topk_chunks"] = paired_ms(
+        lambda: exact_topk_chunks(grid, TOP_K),
+        lambda: exact_topk_chunks_plain(grid, TOP_K), 10, 3)
+    cloud, _ = extract_chunk_clouds(bw, bl, CFG)
+    pts = cloud.points
+    del grid, cloud
+    torch.cuda.empty_cache()
+    # the plain ST holds a few [N, 8, 128, 64] f32 attention tensors
+    free, _ = torch.cuda.mem_get_info()
+    fits = 3 * pts.shape[0] * 8 * 128 * 64 * 4 < 0.6 * free
+    plain_b = BENCH_B if fits else 256
+    if not fits:
+        log(f"[time] the plain ST does not fit at {pts.shape[0]} clouds: the "
+            f"ST and the plain e2e path are timed at B={plain_b}")
+    sp = pts[:plain_b * 43].contiguous()
+    times["fused_st_forward"] = paired_ms(
+        lambda: fused_st_forward(model, sp, None),
+        lambda: fused_st_forward_plain(model, sp, None), 5, 2)
+    del pts, sp
+    torch.cuda.empty_cache()
+    e2e = make_temporal_classifier(model, CFG, use_fused_st=True)
+    e2e_plain = make_temporal_classifier(model, CFG, use_fused_st=True,
+                                         plain=True)
+    e2e_ms = cuda_ms(lambda: e2e(bw, bl), 5)
+    e2e_plain_ms = cuda_ms(lambda: e2e_plain(bw[:plain_b], bl[:plain_b]), 2)
+    for k, (ms, plain_ms) in times.items():
+        b = plain_b if k == "fused_st_forward" else BENCH_B
+        log(f"[time] {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+            f"(B={b} x 5 s; {name_limit})")
+    log(f"[time] e2e: kernels B={BENCH_B} {e2e_ms:.3f} ms = "
+        f"{BENCH_B / e2e_ms * 1e3:.1f} clips/s, plain B={plain_b} "
+        f"{e2e_plain_ms:.3f} ms = {plain_b / e2e_plain_ms * 1e3:.1f} clips/s "
+        f"({name_limit})")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k], "max_abs_err": errs[k],
+         "ms": times[k][0], "plain_ms": times[k][1]}
+        for k, (_, src, rep) in KERNELS.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

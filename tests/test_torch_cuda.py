@@ -1,0 +1,178 @@
+"""Each CUDA kernel of pcaudio_torch == its plain PyTorch version, on the
+card, at small shapes; and the kernel path == the plain path end to end.
+This file imports no jax, so it runs where only PyTorch is installed:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+Every test needs an NVIDIA GPU and skips elsewhere.
+"""
+import numpy as np
+import pytest
+import torch
+
+from pcaudio_torch.eval import TemporalPipelineConfig, make_temporal_classifier
+from pcaudio_torch.nn import ST
+from pcaudio_torch.ops.kernels.featurize import (
+    fused_chunk_mag2, fused_chunk_mag2_plain)
+from pcaudio_torch.ops.kernels.fused_st import (
+    fused_st_forward, fused_st_forward_plain)
+from pcaudio_torch.ops.kernels.select import (
+    exact_topk_chunks, exact_topk_chunks_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _full_st(din, device):
+    torch.manual_seed(0)
+    return ST(dim_input=din, dim_output=10, num_inds=64, dim_hidden=64,
+              num_heads=8).to(device).eval()
+
+
+@pytest.mark.parametrize("din,K,pattern", [(3, 128, "full"), (3, 64, "ragged"),
+                                           (2, 100, "all_masked")])
+def test_fused_st_kernel_matches_plain(cuda, din, K, pattern):
+    """K1 vs the plain ST, both f32 on the card: 1e-3 (the kernel's
+    summation order and __expf differ from cuBLAS and torch.exp)."""
+    model = _full_st(din, cuda)
+    rng = np.random.default_rng(4)
+    B = 6
+    pts = torch.from_numpy(rng.standard_normal((B, K, din)).astype(np.float32)).to(cuda)
+    if pattern == "full":
+        mask = None
+    else:
+        counts = torch.tensor([K, K - 5, 10, 3, 1, K // 2])
+        if pattern == "all_masked":
+            counts[1] = counts[-1] = 0
+        mask = (torch.arange(K)[None, :] < counts[:, None]).to(cuda)
+    before = fused_st_forward.launches
+    got = fused_st_forward(model, pts, mask)
+    torch.cuda.synchronize()
+    assert fused_st_forward.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, fused_st_forward_plain(model, pts, mask),
+                               atol=1e-3, rtol=0)
+    # bf16 points are widened exactly
+    got16 = fused_st_forward(model, pts.bfloat16(), mask)
+    torch.testing.assert_close(
+        got16, fused_st_forward_plain(model, pts.bfloat16(), mask),
+        atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("K,F", [(128, 512), (64, 512), (128, 130), (256, 1025)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "subnormal"])
+def test_select_kernel_matches_plain(cuda, K, F, dtype, kind):
+    """K2 == the plain version exactly, ties and subnormals included."""
+    rng = np.random.default_rng(1)
+    m = np.abs(rng.standard_normal((5, 10, F))).astype(np.float32)
+    if kind == "ties":
+        m = np.floor(m * 5.0).clip(0, 15).astype(np.float32) / 4.0
+    elif kind == "zeros":
+        m = np.zeros_like(m)
+        m[1, 3, 7] = 1.0
+    elif kind == "subnormal":
+        m = m * np.float32(1e-39)
+    x = torch.from_numpy(m).to(device=cuda, dtype=dtype)
+    before = exact_topk_chunks.launches
+    gv, gi = exact_topk_chunks(x, K)
+    torch.cuda.synchronize()
+    assert exact_topk_chunks.launches == before + 1
+    rv, ri = exact_topk_chunks_plain(x, K)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("trim", [True, False])
+def test_featurize_kernel_matches_plain(cuda, out_dtype, trim):
+    """K3 vs the plain version: equal masks; |X|² on valid chunks within
+    1e-5·chunk max + rtol 1e-4 (radix-2 FFT vs cuFFT summation order), plus
+    one bf16 step (at most 2^-7 relative) when stored in bf16, where a value
+    near a rounding boundary can round either way."""
+    rng = np.random.default_rng(5)
+    B, L = 5, 40960
+    waves = (0.2 * rng.standard_normal((B, L))).astype(np.float32)
+    waves[1, :8000] = 1e-6 * rng.standard_normal(8000)   # trimmed lead-in
+    waves[2, -6000:] = 0.0                               # trimmed tail
+    lengths = torch.tensor([L, 30000, L, 700, 1], dtype=torch.int32).to(cuda)
+    w = torch.from_numpy(waves).to(cuda)
+    before = fused_chunk_mag2.launches
+    got, gm = fused_chunk_mag2(w, lengths, trim=trim, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fused_chunk_mag2.launches == before + 1
+    ref, rm = fused_chunk_mag2_plain(w, lengths, trim=trim, out_dtype=out_dtype)
+    assert torch.equal(gm, rm)
+    assert torch.isfinite(got.float()).all()
+    rtol = 1e-4 + (2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0)
+    g, r = got.float()[rm], ref.float()[rm]
+    atol = 1e-5 * r.amax(dim=(1, 2), keepdim=True)
+    assert ((g - r).abs() <= atol + rtol * r.abs()).all()
+
+
+def test_featurize_kernel_edge_lengths(cuda):
+    """Trim bounds at edge lengths (0, 1, around 512 and 1024 multiples,
+    the full buffer) and quiet or silent stretches: the kernel's chunk masks
+    and valid |X|² equal the plain version's."""
+    rng = np.random.default_rng(6)
+    B, L = 64, 24576
+    lens = rng.integers(0, L + 1, B)
+    lens[:10] = [0, 1, 511, 512, 513, 1023, 1024, 2560, L - 1, L]
+    waves = np.zeros((B, L), np.float32)
+    for i, n in enumerate(lens):
+        x = rng.standard_normal(n) * 10 ** rng.uniform(-3, 0)
+        if i % 4 == 1:
+            x[: n // 3] *= 1e-5
+        elif i % 4 == 2:
+            x[n - n // 3:] *= 1e-5
+        elif i % 4 == 3:
+            x[:] = 0.0
+        waves[i, :n] = x
+    w = torch.from_numpy(waves).to(cuda)
+    ln = torch.from_numpy(lens.astype(np.int32)).to(cuda)
+    got, gm = fused_chunk_mag2(w, ln, out_dtype=torch.float32)
+    ref, rm = fused_chunk_mag2_plain(w, ln, out_dtype=torch.float32)
+    assert torch.equal(gm, rm)
+    assert torch.isfinite(got).all()
+    g, r = got[rm], ref[rm]
+    atol = 1e-5 * r.amax(dim=(1, 2), keepdim=True)
+    assert ((g - r).abs() <= atol + 1e-4 * r.abs()).all()
+
+
+def test_kernel_path_matches_plain_path(cuda):
+    """Full-width 3ST, bf16 serving config, the three kernels vs their plain
+    versions end to end.  Argmax must agree except where the plain path's
+    top-2 gap is below twice the largest logit deviation; logits within
+    5e-2 (on bf16 grids a value at a rounding boundary can move a near-tie
+    winner)."""
+    model = _full_st(3, cuda)
+    cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
+                                 compute_dtype="bfloat16")
+    rng = np.random.default_rng(3)
+    B, L = 4, 65536
+    t = np.arange(L) / 44100.0
+    f0 = rng.uniform(200.0, 3000.0, (B, 1))
+    waves = (0.3 * np.sin(2 * np.pi * f0 * t)
+             + 0.05 * rng.standard_normal((B, L))).astype(np.float32)
+    w = torch.from_numpy(waves).to(cuda)
+    ln = torch.tensor([60000, 42000, L, 900], dtype=torch.int32).to(cuda)
+    fns = (fused_chunk_mag2, exact_topk_chunks, fused_st_forward)
+    counts = [f.launches for f in fns]
+    got = make_temporal_classifier(model, cfg, use_fused_st=True)(w, ln)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    ref = make_temporal_classifier(model, cfg, use_fused_st=True,
+                                   plain=True)(w, ln)
+    dev = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and dev <= 5e-2
+    top2 = ref.sort(dim=-1).values[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
+    assert torch.equal(got.argmax(-1)[decided], ref.argmax(-1)[decided])

@@ -1,0 +1,100 @@
+"""pcaudio_torch stands alone: it never imports jax, its kernels are built
+by nvcc or not at all, and its wrappers send CPU tensors to their plain
+versions."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from pcaudio_torch.eval import TemporalPipelineConfig
+from pcaudio_torch.nn import ST
+from pcaudio_torch.ops.kernels import _build
+from pcaudio_torch.ops.kernels.featurize import (
+    fused_chunk_mag2, fused_chunk_mag2_plain)
+from pcaudio_torch.ops.kernels.fused_st import (
+    fused_st_forward, fused_st_forward_plain)
+from pcaudio_torch.ops.kernels.select import (
+    exact_topk_chunks, exact_topk_chunks_plain)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_never_imports_jax():
+    """A fresh interpreter builds the full-width 3ST classifier and serves
+    one request on the CPU without loading jax."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import torch
+        from pcaudio_torch.eval import TemporalPipelineConfig
+        from pcaudio_torch.nn import ST
+        from pcaudio_torch.serve import AudioClassifier
+        import pcaudio_torch.core, pcaudio_torch.checkpoint, pcaudio_torch.dsp
+
+        torch.manual_seed(0)
+        model = ST(dim_input=3, dim_output=10, num_inds=64, dim_hidden=64,
+                   num_heads=8)
+        cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
+                                     compute_dtype="bfloat16")
+        clf = AudioClassifier(model=model, pipeline=cfg, batch_size=2)
+        clip = (0.1 * np.random.default_rng(0).standard_normal(220500)
+                ).astype(np.float32)
+        lg = clf.logits([clip])
+        assert lg.shape == (1, 10) and np.isfinite(lg).all(), lg
+        assert "jax" not in sys.modules, "pcaudio_torch imported jax"
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build()
+
+
+def test_wrappers_send_cpu_tensors_to_plain_versions():
+    counts = [f.launches for f in (fused_chunk_mag2, exact_topk_chunks,
+                                   fused_st_forward)]
+    rng = np.random.default_rng(0)
+    waves = torch.from_numpy((0.1 * rng.standard_normal((2, 16384))
+                              ).astype(np.float32))
+    lengths = torch.tensor([16384, 9000], dtype=torch.int32)
+    m2, cm = fused_chunk_mag2(waves, lengths)
+    r2, rm = fused_chunk_mag2_plain(waves, lengths)
+    assert torch.equal(m2, r2) and torch.equal(cm, rm)
+
+    mags = m2.reshape(-1, *m2.shape[2:])
+    v, i = exact_topk_chunks(mags, 64)
+    rv, ri = exact_topk_chunks_plain(mags, 64)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+
+    torch.manual_seed(0)
+    model = ST(dim_input=3, dim_output=10, num_inds=8, dim_hidden=16,
+               num_heads=4).eval()
+    pts = torch.randn(4, 64, 3)
+    mask = torch.arange(64)[None, :] < torch.tensor([64, 10, 1, 0])[:, None]
+    assert torch.equal(fused_st_forward(model, pts, mask),
+                       fused_st_forward_plain(model, pts, mask))
+    assert [f.launches for f in (fused_chunk_mag2, exact_topk_chunks,
+                                 fused_st_forward)] == counts
+
+
+@pytest.mark.parametrize("field,value", [("featurize", "xla"),
+                                         ("extraction", "approx"),
+                                         ("target_fs", 16000)])
+def test_unported_pipeline_options_raise(field, value):
+    cfg = TemporalPipelineConfig(top_k=64, **{field: value})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cfg.check_ported()

@@ -14,20 +14,38 @@
    pipeline config, checks that each kernel was launched, that the logits
    are finite and that the labels agree with the plain path on the card;
 4. times each kernel and its plain version, and the end-to-end path, at the
-   bench shape (B=1024 clips of 5 s, 44,032 chunk clouds).
+   bench shape (B=1024 clips of 5 s, 44,032 chunk clouds);
+5. holds K4 (the trainable attention, forward and backward) against its
+   plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
+   1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points) and on
+   ragged masks with an all-masked sample;
+6. trains through ``pcaudio_torch.cli train`` on a generated synthetic ESC-10
+   corpus (cut to CLIPS_PER_CLASS clips per class): one epoch of the FST
+   recipe at full width (dim 64, 64 inducing points, 8 heads, batch 128
+   frames of 1025 points), checking finite, falling losses, that K4 ran, and
+   one batch's loss and gradients against the plain path; then 20 steps of
+   the 3ST recipe at full width (batch 16 chunks of 5120 points), whose saved
+   checkpoint AudioClassifier.from_reference_checkpoint loads and serves
+   through K1-K3;
+7. times K4 and its plain pair at the FST attends, and the FST recipe step
+   (forward + backward + Adam) on the kernel and the plain path.
 
 Any failure raises, so the exit code is non-zero.  The second-to-last line
 of output is the kernels' JSON record, the last one the device record.
 """
 import json
 import os
+import shutil
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from pcaudio_torch import cli
 from pcaudio_torch.checkpoint import load_reference_pth
+from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves
 from pcaudio_torch.eval import (
     TemporalPipelineConfig, extract_chunk_clouds, make_temporal_classifier)
 from pcaudio_torch.nn import ST
@@ -36,9 +54,14 @@ from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
     fused_st_forward, fused_st_forward_plain)
+from pcaudio_torch.ops.kernels.mha import (
+    fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.serve import AudioClassifier
+from pcaudio_torch.train import (
+    RECIPES, build_trainer, make_train_step, prepare_framewise_data,
+    prepare_temporal_data)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FS = 44100
@@ -56,7 +79,20 @@ KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
                           "pcaudio/ops/kernels/select.py:435"),
     "fused_st_forward": (fused_st_forward, "pcaudio_torch/csrc/fused_st.cu",
                          "pcaudio/ops/kernels/fused_st.py:554"),
+    "fused_mha_fwd": (fused_mha_fwd, "pcaudio_torch/csrc/mha.cu",
+                      "pcaudio/ops/kernels/mha.py:377"),
+    "fused_mha_bwd": (fused_mha_bwd, "pcaudio_torch/csrc/mha.cu",
+                      "pcaudio/ops/kernels/mha.py:377"),
 }
+SERVE_KERNELS = ("fused_chunk_mag2", "exact_topk_chunks", "fused_st_forward")
+TRAIN_KERNELS = ("fused_mha_fwd", "fused_mha_bwd")
+# K4 at the recipes' attends, (queries, keys), dv 64 in 8 heads of 8; one
+# FST step runs MAB0 and MAB1 twice (two ISABs) and PMA once
+FST_ATTENDS = {"MAB0": (64, 1025), "MAB1": (1025, 64), "PMA": (1, 1025)}
+ST3_ATTENDS = {"MAB0": (64, 5120), "MAB1": (5120, 64), "PMA": (1, 5120)}
+FST_STEP_ATTENDS = {"MAB0": 2, "MAB1": 2, "PMA": 1}
+HEADS, DV = 8, 64
+CLIPS_PER_CLASS = 8   # of the corpus' 40: about 100 FST steps per epoch
 
 
 def log(msg):
@@ -126,6 +162,49 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def k4_err(got, ref, what):
+    """K4's tolerance, f32 on both sides: |err| <= 1e-4·max|ref| +
+    1e-4·|ref| (online softmax, __expf, another summation order)."""
+    err = (got - ref).abs()
+    bound = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+    check(bool((err <= bound).all()),
+          f"{what}: |err| {err.max().item():.3e} outside 1e-4·max|ref| + "
+          f"1e-4·|ref| (max |ref| {ref.abs().max().item():.3e})")
+    return err.max().item()
+
+
+def mha_inputs(B, N, M, gen, ragged=False):
+    dev = torch.device("cuda")
+    q, k, v, g = (torch.randn(B, r, DV, device=dev, generator=gen)
+                  for r in (N, M, M, N))
+    mask = None
+    if ragged:
+        counts = torch.randint(1, M + 1, (B,), device=dev, generator=gen)
+        counts[0], counts[1] = M, 0      # a full and an all-masked sample
+        mask = torch.arange(M, device=dev)[None, :] < counts[:, None]
+    return q, k, v, mask, g
+
+
+def k4_check(B, N, M, gen, ragged=False):
+    """K4 forward and backward vs the plain pair; returns (fwd, bwd) max
+    |err|."""
+    q, k, v, mask, g = mha_inputs(B, N, M, gen, ragged)
+    scale = 1.0 / DV ** 0.5
+    out, lse = fused_mha_fwd(q, k, v, mask, HEADS, scale)
+    grads = fused_mha_bwd(q, k, v, mask, out, lse, g, HEADS, scale)
+    torch.cuda.synchronize()
+    what = f"K4 B={B} {N}x{M}{' ragged' if ragged else ''}"
+    fwd = k4_err(out, fused_mha_plain(q, k, v, mask, HEADS, scale),
+                 f"{what} out")
+    ref = fused_mha_bwd_plain(q, k, v, mask, g, HEADS, scale)
+    bwd = max(k4_err(a, r, f"{what} d{n}")
+              for a, r, n in zip(grads, ref, "qkv"))
+    if ragged:
+        check(not out[1].any() and not any(x[1].any() for x in grads),
+              f"{what}: the all-masked sample must give zeros")
+    return fwd, bwd
+
+
 def tie_aware_argmax(got, ref):
     """Rows whose reference top-2 gap is below twice the largest deviation
     are excused; every other row must agree.  Returns (agree, decided, dev)."""
@@ -136,6 +215,113 @@ def tie_aware_argmax(got, ref):
     check(bool(agree[decided].all()), f"argmax disagrees on a decided row "
           f"(max logit dev {dev:.3e})")
     return int(agree.sum()), int(decided.sum()), dev
+
+
+def recipe_batch(tag, csv, audio, dev):
+    """One batch of the recipe from its first test clips, on the card."""
+    cfg = RECIPES[tag]()
+    prep = prepare_framewise_data if tag == "FST" else prepare_temporal_data
+    waves, lengths, labels = load_esc_split_waves(csv, audio, cfg.numpy_seed,
+                                                  split="test")
+    data = prep(waves[:8], lengths[:8], labels[:8], cfg, device=dev)
+    n = cfg.batch_size
+    check(len(data["labels"]) >= n, f"{tag}: fewer than {n} test clouds")
+    return cfg, {"points": torch.from_numpy(data["points"][:n]).to(dev),
+                 "labels": torch.from_numpy(data["labels"][:n]).long().to(dev)}
+
+
+def train_phase(work, dev):
+    """Phase 6.  Returns the K4 launches of the FST training run, and per
+    recipe the trained weights and one batch (phase 7 times their steps)."""
+    t0 = time.perf_counter()
+    csv, audio = generate_esc_corpus(os.path.join(work, "corpus"),
+                                     clips_per_class=CLIPS_PER_CLASS)
+    log(f"[train] synthetic ESC-10 corpus: {CLIPS_PER_CLASS} clips per class "
+        f"(cut from the corpus' 40 to keep the run short), written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    fst_dir, st3_dir = os.path.join(work, "fst"), os.path.join(work, "3st")
+    common = ["--esc-csv", csv, "--esc-audio", audio, "--epochs", "1",
+              "--device", "cuda"]
+
+    for k in TRAIN_KERNELS:
+        KERNELS[k][0].launches = 0
+    t0 = time.perf_counter()
+    state, hist = cli.main(["train", "FST", "--out-dir", fst_dir, *common])
+    torch.cuda.synchronize()
+    launches = {k: KERNELS[k][0].launches for k in TRAIN_KERNELS}
+    log(f"[train] FST launches: {launches}")
+    for k, n in launches.items():
+        check(n > 0, f"{k} was not launched on the training path")
+    losses = hist[0]["step_losses"]
+    check(bool(np.isfinite(losses).all()), "FST: a step loss is not finite")
+    tail = float(np.mean(losses[-10:]))
+    check(tail < losses[0], f"FST: the last 10 steps' mean loss {tail:.4f} is "
+          f"not below the first step's {losses[0]:.4f}")
+    log(f"[train] FST full width, 1 epoch = {len(losses)} steps of 128 in "
+        f"{time.perf_counter() - t0:.1f} s: first loss {losses[0]:.4f}, mean "
+        f"of the last 10 {tail:.4f}, test accuracy "
+        f"{hist[0]['test_accuracy']:.4f}")
+
+    weights, batches = {}, {}
+    weights["FST"] = {k: v.clone() for k, v in state.model.state_dict().items()}
+    cfg, batch = batches["FST"] = recipe_batch("FST", csv, audio, dev)
+    res = {}
+    for fused in (True, False):
+        model, apply_fn, _ = build_trainer(cfg, dev, fused_attn=fused)
+        model.load_state_dict(weights["FST"])
+        loss = torch.nn.functional.cross_entropy(apply_fn(batch),
+                                                 batch["labels"])
+        loss.backward()
+        res[fused] = loss.item(), dict(model.named_parameters())
+    rel = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    check(rel <= 1e-4, f"FST batch loss: kernel {res[True][0]:.6f} vs plain "
+          f"{res[False][0]:.6f}")
+    # one bound for the whole gradient vector: the fc_k biases' gradients
+    # are zero in exact arithmetic (a softmax ignores a shift shared by all
+    # keys), so a bound relative to each tensor would judge rounding noise
+    gerr = k4_err(torch.cat([p.grad.flatten() for p in res[True][1].values()]),
+                  torch.cat([res[False][1][n].grad.flatten()
+                             for n in res[True][1]]), "FST parameter grads")
+    log(f"[train] one FST batch, kernel vs plain path: loss {res[True][0]:.6f} "
+        f"vs {res[False][0]:.6f} (rel {rel:.2e}), parameter grads max |err| "
+        f"{gerr:.3e}")
+
+    t0 = time.perf_counter()
+    state3, hist3 = cli.main(["train", "3ST", "--out-dir", st3_dir,
+                              "--max-steps", "20", *common])
+    losses3 = hist3[0]["step_losses"]
+    check(len(losses3) == 20 and bool(np.isfinite(losses3).all()),
+          f"3ST: {len(losses3)} steps, losses {losses3}")
+    log(f"[train] 3ST full width, 20 steps of 16 x 5120 points in "
+        f"{time.perf_counter() - t0:.1f} s: losses {losses3[0]:.4f} -> "
+        f"{losses3[-1]:.4f}")
+    weights["3ST"] = {k: v.clone() for k, v in state3.model.state_dict().items()}
+    batches["3ST"] = recipe_batch("3ST", csv, audio, dev)
+
+    clf = AudioClassifier.from_reference_checkpoint(
+        os.path.join(st3_dir, "reference_config.json"),
+        os.path.join(st3_dir, "3ST_net.pth"), top_k=TOP_K, batch_size=16,
+        device="cuda")
+    cfg3 = RECIPES["3ST"]()
+    w3, n3, _ = load_esc_split_waves(csv, audio, cfg3.numpy_seed, split="test")
+    clips = [w3[i, :n3[i]] for i in range(10)]
+    for k in SERVE_KERNELS:
+        KERNELS[k][0].launches = 0
+    lg = clf.logits(clips)
+    torch.cuda.synchronize()
+    served = {k: KERNELS[k][0].launches for k in SERVE_KERNELS}
+    for k, n in served.items():
+        check(n > 0, f"{k} was not launched serving the trained 3ST")
+    check(lg.shape == (10, 10) and bool(np.isfinite(lg).all()),
+          f"served 3ST logits {lg.shape}")
+    ref = AudioClassifier(model=clf.model, pipeline=clf.pipeline,
+                          batch_size=16, device="cuda", plain=True).logits(clips)
+    agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lg),
+                                            torch.from_numpy(ref))
+    log(f"[train] the saved 3ST served from 3ST_net.pth through K1-K3 "
+        f"({served}): labels {lg.argmax(-1).tolist()}, {agree}/10 agree with "
+        f"the plain path ({decided} decided), max logit dev {ldev:.3e}")
+    return {"launches": launches, "weights": weights, "batches": batches}
 
 
 def main():
@@ -255,11 +441,11 @@ def main():
         wr, _ = synthetic_waves(n, rng)
         lens = rng.integers(FS // 2, 220500, n)
         requests.append([wr[i, :lens[i]] for i in range(n)])
-    for fn, _, _ in KERNELS.values():
-        fn.launches = 0
+    for k in SERVE_KERNELS:
+        KERNELS[k][0].launches = 0
     served = [clf.logits(req) for req in requests]
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, (fn, _, _) in KERNELS.items()}
+    launches = {k: KERNELS[k][0].launches for k in SERVE_KERNELS}
     log(f"[serve] launches in the three requests: {launches}")
     for k, n in launches.items():
         check(n > 0, f"{k} was not launched on the main path")
@@ -317,6 +503,67 @@ def main():
         f"{BENCH_B / e2e_ms * 1e3:.1f} clips/s, plain B={plain_b} "
         f"{e2e_plain_ms:.3f} ms = {plain_b / e2e_plain_ms * 1e3:.1f} clips/s "
         f"({name_limit})")
+    del bw, bl, e2e, e2e_plain, clf, plain_clf
+    torch.cuda.empty_cache()
+
+    # ---- 5. K4 vs its plain pair at the recipes' attends --------------------
+    gen = torch.Generator(dev).manual_seed(5)
+    k4_fwd_err = k4_bwd_err = 0.0
+    cases = ([(128, N, M, False) for N, M in FST_ATTENDS.values()]
+             + [(16, N, M, False) for N, M in ST3_ATTENDS.values()]
+             + [(6, 64, 300, True), (6, 300, 9, True), (6, 1, 37, True)])
+    for B, N, M, ragged in cases:
+        f_err, b_err = k4_check(B, N, M, gen, ragged)
+        k4_fwd_err, k4_bwd_err = max(k4_fwd_err, f_err), max(k4_bwd_err, b_err)
+        log(f"[K4] B={B} {N} queries x {M} keys{' ragged' if ragged else ''}: "
+            f"out max |err| {f_err:.3e}, dq/dk/dv max |err| {b_err:.3e}")
+    errs["fused_mha_fwd"], errs["fused_mha_bwd"] = k4_fwd_err, k4_bwd_err
+
+    # ---- 6. training through the CLI ----------------------------------------
+    work = tempfile.mkdtemp(prefix="pcaudio_smoke_")
+    try:
+        train_out = train_phase(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches.update(train_out["launches"])
+
+    # ---- 7. K4 and the FST step, timed --------------------------------------
+    scale = 1.0 / DV ** 0.5
+    k4_ms = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    for name, (N, M) in FST_ATTENDS.items():
+        q, k, v, _, g = mha_inputs(128, N, M, gen)
+        out, lse = fused_mha_fwd(q, k, v, None, HEADS, scale)
+        fwd = paired_ms(lambda: fused_mha_fwd(q, k, v, None, HEADS, scale),
+                        lambda: fused_mha_plain(q, k, v, None, HEADS, scale),
+                        20, 20)
+        bwd = paired_ms(
+            lambda: fused_mha_bwd(q, k, v, None, out, lse, g, HEADS, scale),
+            lambda: fused_mha_bwd_plain(q, k, v, None, g, HEADS, scale), 20, 20)
+        for key, t in (("fwd", fwd), ("bwd", bwd)):
+            for i in range(2):
+                k4_ms[key][i] += FST_STEP_ATTENDS[name] * t[i]
+        log(f"[time] K4 FST {name} B=128 {N}x{M}: fwd kernel {fwd[0]:.3f} ms, "
+            f"plain {fwd[1]:.3f} ms; bwd kernel {bwd[0]:.3f} ms, plain "
+            f"{bwd[1]:.3f} ms ({name_limit})")
+    times["fused_mha_fwd"] = tuple(k4_ms["fwd"])
+    times["fused_mha_bwd"] = tuple(k4_ms["bwd"])
+    log(f"[time] K4 over one FST step's five attends: fwd kernel "
+        f"{k4_ms['fwd'][0]:.3f} ms, plain {k4_ms['fwd'][1]:.3f} ms; bwd "
+        f"kernel {k4_ms['bwd'][0]:.3f} ms, plain {k4_ms['bwd'][1]:.3f} ms "
+        f"({name_limit})")
+    for tag, (cfg, batch) in train_out["batches"].items():
+        steps = {}
+        for fused in (True, False):
+            model, apply_fn, opt = build_trainer(cfg, dev, fused_attn=fused)
+            model.load_state_dict(train_out["weights"][tag])
+            steps[fused] = make_train_step(apply_fn, opt)
+        k_ms, p_ms = paired_ms(lambda: steps[True](batch),
+                               lambda: steps[False](batch), 20, 20)
+        n = cfg.batch_size
+        log(f"[time] {tag} recipe step (fwd + bwd + Adam), batch {n} x "
+            f"{batch['points'].shape[1]} points: kernel path {k_ms:.3f} ms = "
+            f"{n / k_ms * 1e3:.1f} clouds/s, plain path {p_ms:.3f} ms = "
+            f"{n / p_ms * 1e3:.1f} clouds/s ({name_limit})")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -4,15 +4,21 @@ The JAX package ``pcaudio`` is the reference; this package keeps its module
 names so each counterpart is easy to find, and never imports ``jax``.  The
 serving path (wave → trimmed STFT |X|² chunks → exact top-K clouds → Set
 Transformer → clip logits) runs through three hand-written CUDA kernels
-(``pcaudio_torch/csrc``), each with a plain PyTorch version beside it that
-CPU tensors take.
+(``pcaudio_torch/csrc``), and the FST/3ST training path through a fourth,
+the trainable masked attention (forward and backward); each has a plain
+PyTorch version beside it that CPU tensors take.
 
-Subpackages:
-  core        PointCloud dataclass, reference config JSON reader
+Subpackages and modules:
+  core        PointCloud dataclass, reference config JSON round-trip
   nn          masked MAB/SAB/ISAB/PMA and the ST classifier
-  dsp         trim / STFT / temporal chunking (plain PyTorch)
-  ops         the CUDA kernels' wrappers and their plain versions
+  dsp         trim / STFT / featurizer / temporal chunking (plain PyTorch)
+  ops         point-cloud builders; the CUDA kernels' wrappers and their
+              plain versions
   eval        the temporal serving pipeline
+  train       FST/3ST recipes, train and eval steps, the epoch loop
+  checkpoint  weights across the stacks, training checkpoints, .pth export
+  data        the JAX package's numpy-only ESC loaders and synthetic corpus
+  cli         ``python -m pcaudio_torch.cli train {FST,3ST} ...``
 """
 
 __version__ = "0.1.0"

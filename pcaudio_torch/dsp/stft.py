@@ -1,5 +1,6 @@
-"""Centered, reflect-padded STFT power of trimmed clips (counterpart of
-``pcaudio/dsp/stft.py`` + the centered framing of ``pcaudio/dsp/framing.py``).
+"""Centered, reflect-padded STFT of trimmed clips: |X|² and the
+log-magnitude (counterpart of ``pcaudio/dsp/stft.py`` + the centered framing
+of ``pcaudio/dsp/framing.py``).
 
 librosa 0.8 conventions: periodic Hann window, ``center=True`` with
 'reflect' padding by ``n_fft//2``, ``n_fft``-point real transform.  The
@@ -10,6 +11,7 @@ then clamped into the window), as ``pcaudio.dsp.framing.reflect_index``.
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import torch
 
@@ -41,3 +43,24 @@ def trimmed_stft_mag2(waves: torch.Tensor, start: torch.Tensor,
     frames = torch.where(n > 0, frames, 0.0) * stft_window(n_fft, dev)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
     return spec.real ** 2 + spec.imag ** 2
+
+
+def stft_logmag(waves: torch.Tensor, start: torch.Tensor, tlen: torch.Tensor,
+                n_fft: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched log-magnitude STFT of each trimmed clip
+    ``waves[b, start : start + tlen]`` with hop ``n_fft // 2`` and an
+    ``n_fft`` window (the reference's ``log(1e-8 + |X| / n_fft)``,
+    ``Code/settransformer.py:45-52``).
+
+    Returns ``(logmag [B, T_max, n_fft//2 + 1], frame_mask [B, T_max])``
+    with ``T_max = 1 + L // hop``; frame t is valid iff
+    ``t < 1 + tlen // hop`` (librosa ``center=True``).
+    """
+    B, L = waves.shape
+    hop = n_fft // 2
+    t_max = 1 + L // hop
+    mag2 = trimmed_stft_mag2(waves, start, tlen, n_fft, t_max)
+    logmag = torch.log(1.0e-8 + torch.sqrt(mag2) / n_fft)
+    mask = (torch.arange(t_max, device=waves.device)[None, :]
+            < 1 + tlen.to(waves.device)[:, None] // hop)
+    return logmag, mask

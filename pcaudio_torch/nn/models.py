@@ -19,20 +19,21 @@ class ST(nn.Module):
 
     Output is ``[B, dim_output]`` when ``num_outputs == 1`` (the reference's
     ``.squeeze()``), else ``[B, num_outputs, dim_output]``.
+    ``fused_attn=True`` runs every attend through kernel K4 (training).
     """
 
     def __init__(self, dim_input: int = 2, num_outputs: int = 1,
                  dim_output: int = 10, num_inds: int = 4, dim_hidden: int = 4,
-                 num_heads: int = 2):
+                 num_heads: int = 2, fused_attn: bool = False):
         super().__init__()
         self.num_outputs = num_outputs
         self.num_heads = num_heads
         self.enc = nn.Sequential(
-            ISAB(dim_input, dim_hidden, num_heads, num_inds),
-            ISAB(dim_hidden, dim_hidden, num_heads, num_inds),
+            ISAB(dim_input, dim_hidden, num_heads, num_inds, fused_attn),
+            ISAB(dim_hidden, dim_hidden, num_heads, num_inds, fused_attn),
         )
         self.dec = nn.Sequential(
-            PMA(dim_hidden, num_heads, num_outputs),
+            PMA(dim_hidden, num_heads, num_outputs, fused_attn),
             nn.Linear(dim_hidden, dim_output),
         )
 

@@ -2,7 +2,8 @@
 
 All kernels live in ``pcaudio_torch/csrc/*.cu`` behind a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  The first
-call compiles them for Hopper (``sm_90a``) into one shared library under
+call compiles them for Hopper (``sm_90a``), one ``nvcc`` per source, all
+started together, and links them into one shared library under
 ``build/pcaudio_torch/`` at the repository root, named by a hash of the
 sources and flags, so an edited source rebuilds.  The compiler's output,
 register and shared-memory counts included, is kept in ``build.log`` there.
@@ -21,9 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
-SOURCES = ("featurize.cu", "select.cu", "fused_st.cu")
+SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "mha.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,8 @@ _SIGNATURES = {
     "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
     "pcaudio_fused_st": [_P, _I, _P, _P, ctypes.c_longlong, _P,
                          _I, _I, _I, _I, _I, _P],
+    "pcaudio_mha_fwd": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    "pcaudio_mha_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 
@@ -62,14 +65,28 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, srcs)], capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    failed = [(src.name, p.returncode) for src, p in zip(srcs, procs)
+              if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed ({failed}):\n{''.join(logs)[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

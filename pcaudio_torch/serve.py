@@ -14,9 +14,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pcaudio.data.audio_io import pad_batch
 from pcaudio_torch.checkpoint import load_reference_pth
 from pcaudio_torch.core.config import ARCH_3ST, ExperimentConfig
+from pcaudio_torch.data import pad_batch
 from pcaudio_torch.eval.pipeline import (
     TemporalPipelineConfig, make_temporal_classifier)
 from pcaudio_torch.nn import ST

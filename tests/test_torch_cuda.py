@@ -1,5 +1,6 @@
 """Each CUDA kernel of pcaudio_torch == its plain PyTorch version, on the
-card, at small shapes; and the kernel path == the plain path end to end.
+card, at small shapes (K4 also at the FST and 3ST recipes' attends, at a
+small batch); and the kernel path == the plain path end to end.
 This file imports no jax, so it runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q
@@ -16,6 +17,9 @@ from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
     fused_st_forward, fused_st_forward_plain)
+from pcaudio_torch.ops.kernels.mha import (
+    fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
+    fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 
@@ -176,3 +180,71 @@ def test_kernel_path_matches_plain_path(cuda):
     top2 = ref.sort(dim=-1).values[:, -2:]
     decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
     assert torch.equal(got.argmax(-1)[decided], ref.argmax(-1)[decided])
+
+
+def _close_k4(got, ref, what):
+    """K4's tolerance, f32 on both sides: 1e-4 of the largest |ref| plus
+    1e-4 relative (online softmax, __expf and a different summation order)."""
+    err = (got - ref).abs()
+    bound = 1e-4 * ref.abs().max() + 1e-4 * ref.abs()
+    assert bool((err <= bound).all()), (
+        f"{what}: max |err| {err.max().item():.3e}, max |ref| "
+        f"{ref.abs().max().item():.3e}")
+
+
+@pytest.mark.parametrize("B,N,M,pattern,h", [
+    (6, 64, 1025, "full", 8),     # FST MAB0: inducing points over the frame
+    (6, 1025, 64, "full", 8),     # FST MAB1: the frame over the summaries
+    (6, 1, 1025, "full", 8),      # FST PMA: one seed
+    (2, 64, 5120, "full", 8),     # 3ST MAB0
+    (2, 5120, 64, "full", 8),     # 3ST MAB1
+    (2, 1, 5120, "full", 8),      # 3ST PMA
+    (5, 64, 300, "ragged", 8),    # ragged keys, one sample all masked
+    (5, 1, 37, "ragged", 8),
+    (5, 300, 9, "ragged", 8),
+    (5, 70, 300, "ragged", 16),   # head width 4
+    (5, 70, 300, "ragged", 4),    # head width 16
+], ids=lambda x: str(x))
+def test_mha_kernels_match_plain(cuda, B, N, M, pattern, h):
+    """K4 forward and backward vs the plain pair: out, and dq, dk, dv both
+    from the autograd.Function and from autograd through the plain
+    forward."""
+    dv = 64
+    scale = 1.0 / dv ** 0.5
+    rng = np.random.default_rng(7)
+
+    def t(*shape):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    q, k, v, g = t(B, N, dv), t(B, M, dv), t(B, M, dv), t(B, N, dv)
+    mask = None
+    if pattern == "ragged":
+        counts = torch.tensor([M, M - 3, M // 2, 1, 0])[:B]
+        mask = (torch.arange(M)[None, :] < counts[:, None]).to(cuda)
+    f0, b0 = fused_mha_fwd.launches, fused_mha_bwd.launches
+    out, lse = fused_mha_fwd(q, k, v, mask, h, scale)
+    dq, dk, dvv = fused_mha_bwd(q, k, v, mask, out, lse, g, h, scale)
+    torch.cuda.synchronize()
+    assert (fused_mha_fwd.launches, fused_mha_bwd.launches) == (f0 + 1, b0 + 1)
+    _close_k4(out, fused_mha_plain(q, k, v, mask, h, scale), "out")
+    ref = fused_mha_bwd_plain(q, k, v, mask, g, h, scale)
+    for got, r, name in zip((dq, dk, dvv), ref, ("dq", "dk", "dv")):
+        _close_k4(got, r, name)
+    if pattern == "ragged":   # the all-masked sample: zeros, not NaN
+        assert not out[4].any() and not dq[4].any() and not dk[4].any()
+
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (fused_mha(*leaves, mask, h, scale) * g).sum().backward()
+    auto = [x.clone().requires_grad_() for x in (q, k, v)]
+    (fused_mha_plain(*auto, mask, h, scale) * g).sum().backward()
+    for a, r, name in zip(leaves, auto, ("dq", "dk", "dv")):
+        _close_k4(a.grad, r.grad, f"autograd {name}")
+
+
+def test_mha_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(2, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="head width"):
+        fused_mha(q, q, q, None, 2, 0.125)           # dh 32
+    with pytest.raises(TypeError, match="float32"):
+        fused_mha(q.double(), q.double(), q.double(), None, 8, 0.125)

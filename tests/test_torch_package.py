@@ -25,8 +25,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_port_never_imports_jax():
     """A fresh interpreter builds the full-width 3ST classifier and serves
-    one request on the CPU without loading jax."""
+    one request, and takes two train steps through K4's route, on the CPU
+    without loading jax."""
     code = textwrap.dedent("""
+        import dataclasses
         import sys
         import numpy as np
         import torch
@@ -34,6 +36,9 @@ def test_port_never_imports_jax():
         from pcaudio_torch.nn import ST
         from pcaudio_torch.serve import AudioClassifier
         import pcaudio_torch.core, pcaudio_torch.checkpoint, pcaudio_torch.dsp
+        import pcaudio_torch.cli, pcaudio_torch.ops.cloud
+        from pcaudio_torch.train import (
+            RECIPES, TrainState, build_trainer, fit, make_train_step)
 
         torch.manual_seed(0)
         model = ST(dim_input=3, dim_output=10, num_inds=64, dim_hidden=64,
@@ -45,6 +50,16 @@ def test_port_never_imports_jax():
                 ).astype(np.float32)
         lg = clf.logits([clip])
         assert lg.shape == (1, 10) and np.isfinite(lg).all(), lg
+
+        cfg = dataclasses.replace(RECIPES["FST"](), dhidden=8, nheads=2,
+                                  ninds=4, batch_size=4)
+        model, apply_fn, opt = build_trainer(cfg, fused_attn=True)
+        data = {"points": np.zeros((8, 16, 2), np.float32),
+                "labels": np.zeros(8, np.int32)}
+        state, hist = fit(TrainState(model, opt),
+                          make_train_step(apply_fn, opt), data, batch_size=4,
+                          epochs=1, log=lambda s: None)
+        assert state.step == 2 and np.isfinite(hist[0]["train_loss"])
         assert "jax" not in sys.modules, "pcaudio_torch imported jax"
         print("ok")
     """)

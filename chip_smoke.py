@@ -4,7 +4,7 @@
 
 0. prints the card (name, power limit), torch and CUDA versions, and turns
    TF32 off for the plain references;
-1. builds the three kernels from pcaudio_torch/csrc (nvcc, sm_90a);
+1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a);
 2. holds each kernel against its plain PyTorch version on the card at the
    serving path's shapes (featurize B=64 x 5 s clips; select on that grid and
    on a tie-heavy grid; the ST on the resulting 64*43 clouds, and with the
@@ -28,7 +28,19 @@
    checkpoint AudioClassifier.from_reference_checkpoint loads and serves
    through K1-K3;
 7. times K4 and its plain pair at the FST attends, and the FST recipe step
-   (forward + backward + Adam) on the kernel and the plain path.
+   (forward + backward + Adam) on the kernel and the plain path;
+8. runs the K1-family probes (``pcaudio_torch.probes``: the batched dot,
+   int8 vs bf16 tensor-core products, the int8 attend, 64- vs 128-wide
+   chains, K1 relaunched bare / with weights repacked / through its
+   wrapper) at their TPU scripts' shapes, holding each probe kernel against
+   its plain version (the integer products exactly) and printing each
+   probe's answer beside the card's name and power limit.
+
+Beside each kernel's time at the main path's shapes it prints the least
+time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
+or operations over the type's peak) and, where one PyTorch call computes
+the same function, that call's time (``library_ms``, a yardstick the port
+never calls).
 
 Any failure raises, so the exit code is non-zero.  The second-to-last line
 of output is the kernels' JSON record, the last one the device record.
@@ -36,12 +48,12 @@ of output is the kernels' JSON record, the last one the device record.
 import json
 import os
 import shutil
-import subprocess
 import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pcaudio_torch import cli
 from pcaudio_torch.checkpoint import load_reference_pth
@@ -58,6 +70,10 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.probes import PROBES
+from pcaudio_torch.probes.st_launch import st_flops
+from pcaudio_torch.probes.timing import (
+    bound_ms, card, cuda_ms, describe, paired_ms)
 from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
     RECIPES, build_trainer, make_train_step, prepare_framewise_data,
@@ -92,18 +108,12 @@ FST_ATTENDS = {"MAB0": (64, 1025), "MAB1": (1025, 64), "PMA": (1, 1025)}
 ST3_ATTENDS = {"MAB0": (64, 5120), "MAB1": (5120, 64), "PMA": (1, 5120)}
 FST_STEP_ATTENDS = {"MAB0": 2, "MAB1": 2, "PMA": 1}
 HEADS, DV = 8, 64
+N_FFT, HOP = 1024, 512
 CLIPS_PER_CLASS = 8   # of the corpus' 40: about 100 FST steps per epoch
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def seeded_st(din, seed):
@@ -135,26 +145,8 @@ def synthetic_waves(B, rng):
     return w, lengths
 
 
-def cuda_ms(fn, iters):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def paired_ms(kernel, plain, iters, plain_iters):
-    """plain, kernel, kernel, plain in one process on one card."""
-    p0 = cuda_ms(plain, plain_iters)
-    k0 = cuda_ms(kernel, iters)
-    k1 = cuda_ms(kernel, iters)
-    p1 = cuda_ms(plain, plain_iters)
-    return (k0 + k1) / 2, (p0 + p1) / 2
+def nbytes(*tensors):
+    return float(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def check(cond, msg):
@@ -464,18 +456,38 @@ def main():
     gen = torch.Generator(dev).manual_seed(0)
     bw = 0.1 * torch.randn(BENCH_B, L, device=dev, generator=gen)
     bl = torch.full((BENCH_B,), 220500, dtype=torch.int32, device=dev)
-    times = {}
+    times, bounds, lib_ms = {}, {}, {}
     times["fused_chunk_mag2"] = paired_ms(
         lambda: fused_chunk_mag2(bw, bl, out_dtype=torch.bfloat16),
         lambda: fused_chunk_mag2_plain(bw, bl, out_dtype=torch.bfloat16), 10, 3)
-    grid, _ = fused_chunk_mag2(bw, bl, out_dtype=torch.bfloat16)
+    grid, gmask = fused_chunk_mag2(bw, bl, out_dtype=torch.bfloat16)
+    n_frames = BENCH_B * grid.shape[1] * grid.shape[2]
+    # a real FFT of n points: 2.5·n·log2(n) f32 operations
+    bounds["fused_chunk_mag2"] = bound_ms(
+        {"f32": 2.5 * N_FFT * np.log2(N_FFT) * n_frames}, nbytes(bw, bl, grid, gmask))
+    # yardstick: torch.fft.rfft of the same Hann-windowed frames (reflect
+    # padded, hop 512, no trim), then |X|²
+    frames = (F.pad(bw[:, None], (HOP, HOP), mode="reflect")[:, 0]
+              .unfold(-1, N_FFT, HOP)[:, :grid.shape[1] * grid.shape[2]]
+              * torch.hann_window(N_FFT, periodic=True, device=dev))
+
+    def rfft_mag2():
+        X = torch.fft.rfft(frames)
+        return X.real.square() + X.imag.square()
+    lib_ms["fused_chunk_mag2"] = cuda_ms(rfft_mag2, 10)
+    del frames
+    torch.cuda.empty_cache()
     grid = grid.reshape(-1, 10, 512)
     times["exact_topk_chunks"] = paired_ms(
         lambda: exact_topk_chunks(grid, TOP_K),
         lambda: exact_topk_chunks_plain(grid, TOP_K), 10, 3)
+    bounds["exact_topk_chunks"] = bound_ms({}, nbytes(grid, *exact_topk_chunks(grid, TOP_K)))
+    # yardstick: torch.topk of each flattened chunk (its tie order differs)
+    flat = grid.reshape(grid.shape[0], -1)
+    lib_ms["exact_topk_chunks"] = cuda_ms(lambda: torch.topk(flat, TOP_K), 10)
     cloud, _ = extract_chunk_clouds(bw, bl, CFG)
     pts = cloud.points
-    del grid, cloud
+    del grid, flat, cloud
     torch.cuda.empty_cache()
     # the plain ST holds a few [N, 8, 128, 64] f32 attention tensors
     free, _ = torch.cuda.mem_get_info()
@@ -488,6 +500,11 @@ def main():
     times["fused_st_forward"] = paired_ms(
         lambda: fused_st_forward(model, sp, None),
         lambda: fused_st_forward_plain(model, sp, None), 5, 2)
+    # K1 computes in f32 on the SIMT units; no one library call is an ST
+    bounds["fused_st_forward"] = bound_ms(
+        {"f32": float(sp.shape[0] * st_flops(sp.shape[1], 3, DV, 64, 10))},
+        nbytes(sp, *model.parameters()) + 4.0 * sp.shape[0] * 10)
+    lib_ms["fused_st_forward"] = None
     del pts, sp
     torch.cuda.empty_cache()
     e2e = make_temporal_classifier(model, CFG, use_fused_st=True)
@@ -497,7 +514,9 @@ def main():
     e2e_plain_ms = cuda_ms(lambda: e2e_plain(bw[:plain_b], bl[:plain_b]), 2)
     for k, (ms, plain_ms) in times.items():
         b = plain_b if k == "fused_st_forward" else BENCH_B
-        log(f"[time] {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        lib = "none" if lib_ms[k] is None else f"{lib_ms[k]:.3f} ms"
+        log(f"[time] {k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+            f"{lib}, bound {bounds[k][0]:.3f} ms by {bounds[k][1]} "
             f"(B={b} x 5 s; {name_limit})")
     log(f"[time] e2e: kernels B={BENCH_B} {e2e_ms:.3f} ms = "
         f"{BENCH_B / e2e_ms * 1e3:.1f} clips/s, plain B={plain_b} "
@@ -530,9 +549,30 @@ def main():
     # ---- 7. K4 and the FST step, timed --------------------------------------
     scale = 1.0 / DV ** 0.5
     k4_ms = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    k4_lib = {"fwd": 0.0, "bwd": 0.0}
+    k4_work = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}  # f32 operations, bytes
     for name, (N, M) in FST_ATTENDS.items():
         q, k, v, _, g = mha_inputs(128, N, M, gen)
         out, lse = fused_mha_fwd(q, k, v, None, HEADS, scale)
+        n = FST_STEP_ATTENDS[name]
+        # fwd: Q·Kᵀ and A·V; bwd: dV, dP, dQ, dK (the least, without
+        # recomputing A); each tensor read or written once
+        k4_work["fwd"][0] += n * 4.0 * 128 * N * M * DV
+        k4_work["fwd"][1] += n * nbytes(q, k, v, out, lse)
+        k4_work["bwd"][0] += n * 8.0 * 128 * N * M * DV
+        k4_work["bwd"][1] += n * nbytes(q, k, v, out, lse, g, q, k, v)
+        # yardstick: F.scaled_dot_product_attention over the same heads (the
+        # FST attends carry no mask), its backward through autograd
+        heads = [x.view(128, -1, HEADS, DV // HEADS).transpose(1, 2)
+                 for x in (q, k, v, g)]
+        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *heads[:3], scale=scale), 20)
+        leaves = [x.detach().requires_grad_() for x in heads[:3]]
+        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, heads[3], retain_graph=True), 20)
+        k4_lib["fwd"] += n * lib_f
+        k4_lib["bwd"] += n * lib_b
         fwd = paired_ms(lambda: fused_mha_fwd(q, k, v, None, HEADS, scale),
                         lambda: fused_mha_plain(q, k, v, None, HEADS, scale),
                         20, 20)
@@ -543,13 +583,19 @@ def main():
             for i in range(2):
                 k4_ms[key][i] += FST_STEP_ATTENDS[name] * t[i]
         log(f"[time] K4 FST {name} B=128 {N}x{M}: fwd kernel {fwd[0]:.3f} ms, "
-            f"plain {fwd[1]:.3f} ms; bwd kernel {bwd[0]:.3f} ms, plain "
-            f"{bwd[1]:.3f} ms ({name_limit})")
-    times["fused_mha_fwd"] = tuple(k4_ms["fwd"])
-    times["fused_mha_bwd"] = tuple(k4_ms["bwd"])
+            f"plain {fwd[1]:.3f} ms, sdpa {lib_f:.3f} ms; bwd kernel {bwd[0]:.3f} "
+            f"ms, plain {bwd[1]:.3f} ms, sdpa {lib_b:.3f} ms ({name_limit})")
+        del leaves, lib_out, heads
+    for key in ("fwd", "bwd"):
+        times[f"fused_mha_{key}"] = tuple(k4_ms[key])
+        lib_ms[f"fused_mha_{key}"] = k4_lib[key]
+        bounds[f"fused_mha_{key}"] = bound_ms({"f32": k4_work[key][0]}, k4_work[key][1])
     log(f"[time] K4 over one FST step's five attends: fwd kernel "
-        f"{k4_ms['fwd'][0]:.3f} ms, plain {k4_ms['fwd'][1]:.3f} ms; bwd "
-        f"kernel {k4_ms['bwd'][0]:.3f} ms, plain {k4_ms['bwd'][1]:.3f} ms "
+        f"{k4_ms['fwd'][0]:.3f} ms, plain {k4_ms['fwd'][1]:.3f} ms, sdpa "
+        f"{k4_lib['fwd']:.3f} ms, bound {bounds['fused_mha_fwd'][0]:.3f} ms by "
+        f"{bounds['fused_mha_fwd'][1]}; bwd kernel {k4_ms['bwd'][0]:.3f} ms, "
+        f"plain {k4_ms['bwd'][1]:.3f} ms, sdpa {k4_lib['bwd']:.3f} ms, bound "
+        f"{bounds['fused_mha_bwd'][0]:.3f} ms by {bounds['fused_mha_bwd'][1]} "
         f"({name_limit})")
     for tag, (cfg, batch) in train_out["batches"].items():
         steps = {}
@@ -564,13 +610,36 @@ def main():
             f"{batch['points'].shape[1]} points: kernel path {k_ms:.3f} ms = "
             f"{n / k_ms * 1e3:.1f} clouds/s, plain path {p_ms:.3f} ms = "
             f"{n / p_ms * 1e3:.1f} clouds/s ({name_limit})")
+
+    # ---- 8. the K1-family probes at their TPU scripts' shapes ---------------
+    # each probe is its own path: a probe kernel's count starts at 0 before
+    # its timed launches and is read after them (timing.measure)
+    probe_rows = []
+    for name, probe in PROBES.items():
+        t0 = time.perf_counter()
+        res = probe.run("cuda", seed=0)
+        for case, r in res.items():
+            check(r["launches"] > 0, f"probe {name} {case}: no launch of {r['kernel']}")
+            log(f"[probe] {name} {case}: {describe(r)} ({name_limit})")
+            probe_rows.append(
+                {"name": f"{r['kernel']} [{name}: {case}]", "route": r["route"],
+                 "source": r["source"], "replaces": r["replaces"],
+                 "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        for line in probe.summary(res):
+            log(f"[probe] {name}: {line} ({name_limit})")
+        log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
+        del res
+        torch.cuda.empty_cache()
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
-        for k, (_, src, rep) in KERNELS.items()]}))
+         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": lib_ms[k]}
+        for k, (_, src, rep) in KERNELS.items()] + probe_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

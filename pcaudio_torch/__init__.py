@@ -1,7 +1,8 @@
 """pcaudio_torch — the PyTorch / CUDA port of :mod:`pcaudio` for NVIDIA Hopper.
 
 The JAX package ``pcaudio`` is the reference; this package keeps its module
-names so each counterpart is easy to find, and never imports ``jax``.  The
+names so each counterpart is easy to find, and imports neither ``jax`` nor
+any module of ``pcaudio``.  The
 serving path (wave → trimmed STFT |X|² chunks → exact top-K clouds → Set
 Transformer → clip logits) runs through three hand-written CUDA kernels
 (``pcaudio_torch/csrc``), and the FST/3ST training path through a fourth,
@@ -17,7 +18,10 @@ Subpackages and modules:
   eval        the temporal serving pipeline
   train       FST/3ST recipes, train and eval steps, the epoch loop
   checkpoint  weights across the stacks, training checkpoints, .pth export
-  data        the JAX package's numpy-only ESC loaders and synthetic corpus
+  data        its own copies of the JAX package's numpy-only ESC loaders
+              and synthetic corpus
+  probes      timing probes of K1's design questions on the card
+              (``python -m pcaudio_torch.probes <name>``)
   cli         ``python -m pcaudio_torch.cli train {FST,3ST} ...``
 """
 

@@ -1,0 +1,105 @@
+// mma.sync building blocks shared by the probe kernels (probe_mma.cu,
+// probe_attend.cu): ldmatrix loads from shared memory, the bf16 and s8
+// tensor-core products, cp.async copies.
+//
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
+// with g = lane / 4 and t = lane % 4.  A tile is 16 rows x 32 bytes of K
+// (16 bf16 or 32 s8 values), B a tile of 8 columns x 32 bytes of K stored
+// column by column (K contiguous), C 16 x 8 f32 or s32:
+//   A regs 0..3: (row g, bytes 0-15), (row g+8, bytes 0-15),
+//                (row g, bytes 16-31), (row g+8, bytes 16-31); thread t holds
+//                bytes 4t..4t+3 of each;
+//   B regs 0..1: (column g, bytes 4t..4t+3), (column g, bytes 16+4t..);
+//   C regs 0..3: (row g, columns 2t, 2t+1), (row g+8, columns 2t, 2t+1).
+// The byte layout is the same for bf16 (k16) and s8 (k32), so one loader
+// serves both.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace pcaudio {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 matrices of 16-bit words; lane l gives the address of row l % 8
+// of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Address of lane `lane`'s row for an A fragment (16 rows x 32 bytes at
+// `tile`, rows `stride` bytes apart): rows 0-15, byte half lane / 16.
+__device__ __forceinline__ const uint8_t* a_frag_row(const uint8_t* tile, int stride,
+                                                     int lane) {
+  return tile + (lane & 15) * stride + (lane >> 4) * 16;
+}
+// ... and for two B fragments side by side (columns 0-7 and 8-15, 32 bytes
+// of K each): regs 0-1 of the x4 load are the first, regs 2-3 the second.
+__device__ __forceinline__ const uint8_t* b_frag_row(const uint8_t* tile, int stride,
+                                                     int lane) {
+  return tile + ((lane & 7) + ((lane >> 4) << 3)) * stride + ((lane >> 3) & 1) * 16;
+}
+
+struct MmaBf16 {  // mma.sync.aligned.m16n8k16, bf16 x bf16 -> f32
+  using Acc = float;
+  static constexpr const char* kName = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32";
+  __device__ __forceinline__ static void mma(float (&c)[4], const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+struct MmaS8 {  // mma.sync.aligned.m16n8k32, s8 x s8 -> s32
+  using Acc = int;
+  static constexpr const char* kName = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32";
+  __device__ __forceinline__ static void mma(int (&c)[4], const uint32_t* a,
+                                             const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+};
+
+// Two f32 as a bf16 pair (round to nearest even), the lower k first.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// Four s8 values (already integers in [-128, 127]) as one register, the
+// first in the lowest byte.
+__device__ __forceinline__ uint32_t pack_s8(int a, int b, int c, int d) {
+  return (uint32_t)(a & 0xff) | ((uint32_t)(b & 0xff) << 8) |
+         ((uint32_t)(c & 0xff) << 16) | ((uint32_t)(d & 0xff) << 24);
+}
+
+}  // namespace pcaudio

@@ -22,21 +22,27 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
-SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "mha.cu")
+SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "mha.cu", "probe_mma.cu",
+           "probe_attend.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: every pointer and the stream as void*, counts as int
 _SIGNATURES = {
     "pcaudio_trim_bounds": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "pcaudio_chunk_mag2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
-    "pcaudio_fused_st": [_P, _I, _P, _P, ctypes.c_longlong, _P,
+    "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P,
                          _I, _I, _I, _I, _I, _P],
     "pcaudio_mha_fwd": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
+    "pcaudio_probe_matmul": [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P],
+    "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
+    "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],
+    "pcaudio_probe_attend": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 

@@ -108,13 +108,23 @@ def fused_st_forward(model: ST, points: torch.Tensor,
         mask = mask.to(device=points.device, dtype=torch.bool).contiguous()
     w = _packed_weights(model, points.device)
     out = torch.empty((N, ncls), dtype=torch.float32, device=points.device)
+    launch_packed(points, mask, w, out, M)
+    return out
+
+
+def launch_packed(points: torch.Tensor, mask: Optional[torch.Tensor],
+                  w: torch.Tensor, out: torch.Tensor, num_inds: int) -> None:
+    """One launch of K1 on checked operands: ``points [N, K, din]``
+    contiguous on the card, ``mask`` contiguous bool or None, ``w`` from
+    :func:`_packed_weights`, ``out [N, ncls]`` f32.  Counts as a launch of
+    :func:`fused_st_forward`."""
+    N, K, din = points.shape
     _build.launch("pcaudio_fused_st", points.data_ptr(),
                   int(points.dtype == torch.bfloat16),
                   None if mask is None else mask.data_ptr(),
-                  w.data_ptr(), w.numel(), out.data_ptr(), N, K, din, M, ncls,
-                  _build.stream_of(points))
+                  w.data_ptr(), w.numel(), out.data_ptr(), N, K, din, num_inds,
+                  out.shape[1], _build.stream_of(points))
     fused_st_forward.launches += 1
-    return out
 
 
 fused_st_forward.launches = 0

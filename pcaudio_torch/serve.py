@@ -16,6 +16,7 @@ import torch
 
 from pcaudio_torch.checkpoint import load_reference_pth
 from pcaudio_torch.core.config import ARCH_3ST, ExperimentConfig
+from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.data import pad_batch
 from pcaudio_torch.eval.pipeline import (
     TemporalPipelineConfig, make_temporal_classifier)
@@ -31,12 +32,13 @@ class AudioClassifier:
     batch_size: int = 64
     buffer_len: int = 220672  # 5 s at 44.1 kHz
     use_fused_st: bool = True
-    device: str = "cpu"
+    device: str = "cuda"  # raises without a card; "cpu" only when asked
     # run the kernels' plain PyTorch versions (the reference they are held
     # against) whatever the device
     plain: bool = False
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         self.model = self.model.to(self.device).eval()
         self._fn = make_temporal_classifier(self.model, self.pipeline,
                                             use_fused_st=self.use_fused_st,

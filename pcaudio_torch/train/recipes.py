@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from pcaudio_torch.core.config import ARCH_3ST, ARCH_FST, ExperimentConfig
+from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.dsp.featurize import (
     FeaturizeConfig, batched_temporal_chunks, featurize_batch)
 from pcaudio_torch.ops.cloud import (
@@ -57,6 +58,7 @@ RECIPES = {"FST": fst_config, "FB": fb_config, "3ST": st3_config,
 def _featurized(waves, lengths, cfg: ExperimentConfig, device):
     """Yield ``(logmag [b, T, F], frame_mask [b, T], first clip)`` on
     ``device`` for groups of at most ``CLIPS_PER_PASS`` clips."""
+    device = resolve_device(device)
     fcfg = FeaturizeConfig(fs=cfg.sampling_rate, n_fft=cfg.window_size,
                            hop_factor=cfg.hop_factor, top_db=cfg.trim_dB)
     waves, lengths = torch.as_tensor(waves), torch.as_tensor(lengths)
@@ -68,7 +70,7 @@ def _featurized(waves, lengths, cfg: ExperimentConfig, device):
 
 
 def prepare_framewise_data(waves, lengths, labels, cfg: ExperimentConfig,
-                           device="cpu") -> Dict[str, np.ndarray]:
+                           device="cuda") -> Dict[str, np.ndarray]:
     """Waveforms → FST training clouds ``points [Nf, bins, 2]``: all valid
     frames pooled over clips, each with its clip's label
     (``Code/settransformer.py:43-68``).  Featurized on ``device``; returned
@@ -87,7 +89,7 @@ def prepare_framewise_data(waves, lengths, labels, cfg: ExperimentConfig,
 
 
 def prepare_temporal_data(waves, lengths, labels, cfg: ExperimentConfig,
-                          device="cpu") -> Dict[str, np.ndarray]:
+                          device="cuda") -> Dict[str, np.ndarray]:
     """Waveforms → 3ST training clouds ``points [Nc, Ntemp·(bins-1), 3]``:
     full ``Ntemp``-frame chunks pooled over clips
     (``Code/settransformertemp.py:50-59``).  Featurized on ``device``;
@@ -109,17 +111,18 @@ def prepare_temporal_data(waves, lengths, labels, cfg: ExperimentConfig,
             "labels": np.concatenate(ls).astype(np.int32)}
 
 
-def build_trainer(cfg: ExperimentConfig, device="cpu",
+def build_trainer(cfg: ExperimentConfig, device="cuda",
                   fused_attn: Optional[bool] = None) -> Tuple:
     """``(model, apply_fn, optimizer)`` for a recipe config, the model's
-    weights drawn from ``cfg.torch_seed`` and placed on ``device``.
+    weights drawn from ``cfg.torch_seed`` and placed on ``device`` (the
+    card unless the caller names the CPU; no card raises).
 
     ``fused_attn`` routes the attention through kernel K4; ``None`` means
     the kernel on a CUDA device and the plain version on the CPU.  The
     optimizer is the reference's ``torch.optim.Adam(lr, weight_decay)``,
     which the JAX package's ``adam_l2`` emulates.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if fused_attn is None:
         fused_attn = device.type == "cuda"
     with torch.random.fork_rng(devices=[]):

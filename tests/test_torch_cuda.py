@@ -248,3 +248,135 @@ def test_mha_kernel_rejects_what_it_does_not_take(cuda):
         fused_mha(q, q, q, None, 2, 0.125)           # dh 32
     with pytest.raises(TypeError, match="float32"):
         fused_mha(q.double(), q.double(), q.double(), None, 8, 0.125)
+
+
+# ---- the probe kernels (csrc/probe_mma.cu, csrc/probe_attend.cu) -----------
+
+from pcaudio_torch.ops.kernels.probes import (  # noqa: E402
+    attend_bound, exp_chain_bound, matmul_bound, probe_attend, probe_attend_plain,
+    probe_chain, probe_chain_plain, probe_exp_chain, probe_exp_chain_plain,
+    probe_matmul, probe_matmul_plain, signed_permutation)
+
+
+def _within(got, ref, bound, what):
+    """|got − ref| ≤ bound elementwise; equal values (infinities included)
+    count as equal."""
+    err = torch.where(got == ref, torch.zeros_like(ref), (got - ref).abs())
+    bound = torch.as_tensor(bound, dtype=torch.float32, device=ref.device)
+    assert bool((err <= bound).all()), (
+        f"{what}: max |err| {err.max().item():.3e}, bound there "
+        f"{bound.expand_as(err).flatten()[int(torch.argmax(err - bound))].item():.3e}")
+
+
+@pytest.mark.parametrize("a_shape,b_shape,reps,shift,repeats", [
+    ((8, 512, 64), (8, 64, 128), 1, 0, 1),        # P1: the batched dot
+    ((128, 128), (128, 128), 1, 0, 1),            # P2: the small product
+    ((256 + 8 * 3, 512), (512, 256), 4, 8, 3),    # P2: windows, odd repeats
+    ((1024 + 8 * 63, 128), (128, 128), 64, 8, 16),  # P2: the attend shape
+], ids=str)
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_probe_matmul_matches_plain(cuda, a_shape, b_shape, reps, shift, repeats,
+                                    dtype):
+    """Integer operands in [-4, 4): int8 → int32 and bf16 → f32 are both
+    exact; N(0, 1) bf16 operands within matmul_bound (f32 sums)."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    a = torch.randint(-4, 4, a_shape, generator=gen, device=cuda).to(dtype)
+    b = torch.randint(-4, 4, b_shape, generator=gen, device=cuda).to(dtype)
+    n0 = probe_matmul.launches
+    got = probe_matmul(a, b, reps, shift, repeats)
+    torch.cuda.synchronize()
+    assert probe_matmul.launches == n0 + 1
+    ref = probe_matmul_plain(a, b, reps, shift, repeats)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if dtype == torch.bfloat16:
+        a = torch.randn(a_shape, generator=gen, device=cuda).bfloat16()
+        b = torch.randn(b_shape, generator=gen, device=cuda).bfloat16()
+        _within(probe_matmul(a, b, reps, shift, repeats),
+                probe_matmul_plain(a, b, reps, shift, repeats),
+                matmul_bound(a, b, reps, shift, repeats), "bf16 N(0, 1)")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,repeats", [(256, 16), (1024, 256)])
+def test_probe_chain_matches_plain(cuda, d, n, repeats):
+    """P4a at a signed permutation w (every product exact, x keeps its
+    values through all 64 products, and a wrong step count gives another
+    result): equal, up to the probe's own shape.  The script's w decays x
+    to 0, where equality would show nothing."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(n, d, generator=gen, device=cuda).bfloat16()
+    w = signed_permutation(d, gen, cuda)
+    n0 = probe_chain.launches
+    got = probe_chain(x, w, 64, repeats)
+    torch.cuda.synchronize()
+    assert probe_chain.launches == n0 + 1
+    ref = probe_chain_plain(x, w, 64, repeats)
+    assert bool((ref != 0).all()) and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("reps", [1, 2])
+def test_probe_exp_chain_matches_plain(cuda, reps):
+    """N(0, 1) inputs stay finite for two steps (the third overflows)."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(1024, 96, generator=gen, device=cuda)
+    got = probe_exp_chain(x, reps, 8)
+    ref = probe_exp_chain_plain(x, reps, 8)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(ref).all())
+    _within(got, ref, exp_chain_bound(ref), "exp chain")
+
+
+@pytest.mark.parametrize("case,wrong", [
+    ("chain d=64", "one step short"), ("chain d=128", "writes zeros"),
+    ("exp d=64", "one step short"), ("exp d=128", "writes +inf")])
+def test_lane_width_check_catches_a_wrong_kernel(cuda, case, wrong):
+    """The lane-width probe's own check (chip_smoke phase 8), given a kernel
+    that is wrong in one of the ways the script's decaying or overflowing
+    values would hide, raises; given the kernel, it passes."""
+    from pcaudio_torch.probes import lane_width
+    from pcaudio_torch.probes.timing import measure, tf32_off
+    gen = torch.Generator(cuda).manual_seed(0)
+    with tf32_off():
+        c = {c.name: c for c in lane_width.cases(cuda, gen)}[case]
+        c.iters = c.plain_iters = 1
+        measure(c)  # raises outside the bound
+        args, plain = c.check[0].__defaults__, c.check[1]
+        wrong_kernel = {
+            "one step short": lambda: (
+                probe_chain(*args, lane_width.REPS - 1, lane_width.GRID)
+                if case.startswith("chain") else
+                probe_exp_chain(*args, lane_width.CHECK_EXP_REPS - 1, lane_width.GRID)),
+            "writes zeros": lambda: torch.zeros_like(plain()),
+            "writes +inf": lambda: torch.full_like(plain(), float("inf")),
+        }[wrong]
+        c.check = (wrong_kernel, plain)
+        with pytest.raises(AssertionError, match="outside its bound"):
+            measure(c)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_probe_attend_matches_plain(cuda, mode):
+    """P3 at the script's shapes, 32 grid steps instead of 1024, within
+    attend_bound (f32 sums; a bf16 or a8 rounding that a last-ulp
+    difference can flip)."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    iq = 1.5 * torch.randn(1024, 128, generator=gen, device=cuda)
+    kmat = 1.2 * torch.randn(2 * 8 * 128, 128, generator=gen, device=cuda)
+    n0 = probe_attend.launches
+    got = probe_attend(iq, kmat, mode, 8, 128, 32)
+    torch.cuda.synchronize()
+    assert probe_attend.launches == n0 + 1
+    _within(got, probe_attend_plain(iq, kmat, mode, 8, 128, 32),
+            attend_bound(iq, kmat, mode, 8, 128, 32), mode)
+
+
+def test_probe_kernels_reject_what_they_do_not_take(cuda):
+    a = torch.zeros(100, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiples"):
+        probe_matmul(a, torch.zeros(64, 128, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError, match="d 64 or 128"):
+        probe_chain(torch.zeros(64, 32, dtype=torch.bfloat16, device=cuda),
+                    torch.zeros(32, 32, dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError, match="keys"):
+        probe_attend(torch.zeros(128, 64, device=cuda), torch.zeros(2048, 64, device=cuda),
+                     "bf16")

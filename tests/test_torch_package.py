@@ -2,6 +2,7 @@
 by nvcc or not at all, and its wrappers send CPU tensors to their plain
 versions."""
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -24,14 +25,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter builds the full-width 3ST classifier and serves
-    one request, and takes two train steps through K4's route, on the CPU
-    without loading jax."""
+    """A fresh interpreter imports every module of the port, probes
+    included, builds the full-width 3ST classifier and serves one request,
+    and takes two train steps through K4's route, on the CPU without
+    loading jax or any module of the JAX package ``pcaudio``."""
     code = textwrap.dedent("""
         import dataclasses
+        import importlib
+        import pkgutil
         import sys
         import numpy as np
         import torch
+        import pcaudio_torch
+        mods = [m.name for m in pkgutil.walk_packages(pcaudio_torch.__path__,
+                                                      "pcaudio_torch.")]
+        assert "pcaudio_torch.probes.st_launch" in mods, mods
+        for name in mods:
+            importlib.import_module(name)
         from pcaudio_torch.eval import TemporalPipelineConfig
         from pcaudio_torch.nn import ST
         from pcaudio_torch.serve import AudioClassifier
@@ -45,7 +55,8 @@ def test_port_never_imports_jax():
                    num_heads=8)
         cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
                                      compute_dtype="bfloat16")
-        clf = AudioClassifier(model=model, pipeline=cfg, batch_size=2)
+        clf = AudioClassifier(model=model, pipeline=cfg, batch_size=2,
+                              device="cpu")
         clip = (0.1 * np.random.default_rng(0).standard_normal(220500)
                 ).astype(np.float32)
         lg = clf.logits([clip])
@@ -53,7 +64,7 @@ def test_port_never_imports_jax():
 
         cfg = dataclasses.replace(RECIPES["FST"](), dhidden=8, nheads=2,
                                   ninds=4, batch_size=4)
-        model, apply_fn, opt = build_trainer(cfg, fused_attn=True)
+        model, apply_fn, opt = build_trainer(cfg, "cpu", fused_attn=True)
         data = {"points": np.zeros((8, 16, 2), np.float32),
                 "labels": np.zeros(8, np.int32)}
         state, hist = fit(TrainState(model, opt),
@@ -61,6 +72,9 @@ def test_port_never_imports_jax():
                           epochs=1, log=lambda s: None)
         assert state.step == 2 and np.isfinite(hist[0]["train_loss"])
         assert "jax" not in sys.modules, "pcaudio_torch imported jax"
+        jaxpkg = [m for m in sys.modules
+                  if m == "pcaudio" or m.startswith("pcaudio.")]
+        assert not jaxpkg, f"pcaudio_torch imported {jaxpkg}"
         print("ok")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -69,6 +83,52 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_no_file_of_the_port_imports_jax_or_the_jax_package():
+    """Static check of every source file of the port and of chip_smoke.py:
+    no ``import jax`` / ``import pcaudio`` / ``from pcaudio.`` line."""
+    bad = re.compile(r"^\s*(import\s+(jax|pcaudio)\b(?!_)|from\s+(jax|pcaudio)(\.|\s))")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "pcaudio_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 30
+    hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
+            for f in files for i, line in enumerate(open(f), 1) if bad.match(line)]
+    assert not hits, hits
+    assert bad.match("from pcaudio.data import x") and bad.match("import jax.numpy")
+    assert not bad.match("from pcaudio_torch.data import x")
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """AudioClassifier, build_trainer and prepare_*_data run on "cuda"
+    unless the caller names the CPU; without a card they raise instead of
+    running on the CPU."""
+    import dataclasses
+    import inspect
+
+    from pcaudio_torch.serve import AudioClassifier
+    from pcaudio_torch.train import recipes
+
+    fns = (recipes.build_trainer, recipes.prepare_framewise_data,
+           recipes.prepare_temporal_data)
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    fields = {f.name: f.default for f in dataclasses.fields(AudioClassifier)}
+    assert fields["device"] == "cuda"
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = recipes.RECIPES["FST"]()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        recipes.build_trainer(cfg)
+    waves = np.zeros((1, 4096), np.float32)
+    lengths, labels = np.array([4096]), np.array([0])
+    for prep in fns[1:]:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            prep(waves, lengths, labels, recipes.RECIPES["3ST"]())
+    model = ST(dim_input=3, dim_output=10, num_inds=4, dim_hidden=8, num_heads=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AudioClassifier(model=model, pipeline=TemporalPipelineConfig(top_k=64))
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

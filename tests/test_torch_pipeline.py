@@ -140,7 +140,7 @@ def test_audio_classifier_full_width_ragged_request():
     cfg = TemporalPipelineConfig(top_k=TOP_K, stft_precision="default",
                                  compute_dtype="bfloat16")
     clf = AudioClassifier(model=model, pipeline=cfg, batch_size=4,
-                          buffer_len=32768)
+                          buffer_len=32768, device="cpu")
     rng = np.random.default_rng(2)
     clips = [(0.1 * rng.standard_normal(n)).astype(np.float32)
              for n in (32768, 20000, 9000)]   # 3 clips, one padded slot
@@ -174,7 +174,8 @@ def test_from_reference_checkpoint(tmp_path):
     pth = tmp_path / "3ST_net.pth"
     torch.save({f"module.{k}": v for k, v in tm.state_dict().items()}, pth)
     clf = AudioClassifier.from_reference_checkpoint(
-        str(cfg_path), str(pth), top_k=64, batch_size=2, buffer_len=32768)
+        str(cfg_path), str(pth), top_k=64, batch_size=2, buffer_len=32768,
+        device="cpu")
     for k, v in tm.state_dict().items():
         assert torch.equal(clf.model.state_dict()[k], v)
     assert clf.pipeline.n_fft == 1024 and clf.pipeline.top_k == 64
@@ -191,6 +192,6 @@ def test_from_reference_checkpoint(tmp_path):
     (tmp_path / "wide.json").write_text(json.dumps(wide))
     clf = AudioClassifier.from_reference_checkpoint(
         str(tmp_path / "wide.json"), str(pth), batch_size=1,
-        buffer_len=32768)
+        buffer_len=32768, device="cpu")
     with pytest.raises(ValueError, match="n_fft"):
         clf.logits([clip])

@@ -114,11 +114,11 @@ def test_prepared_data_matches_jax(recipe):
     cfg = recipes.RECIPES[recipe]()
     jcfg = jax_recipes.RECIPES[recipe]()
     if recipe == "FST":
-        got = recipes.prepare_framewise_data(waves, lengths, labels, cfg)
+        got = recipes.prepare_framewise_data(waves, lengths, labels, cfg, "cpu")
         ref = jax_recipes.prepare_framewise_data(waves, lengths, labels, jcfg,
                                                  as_clouds=True)
     else:
-        got = recipes.prepare_temporal_data(waves, lengths, labels, cfg)
+        got = recipes.prepare_temporal_data(waves, lengths, labels, cfg, "cpu")
         ref = jax_recipes.prepare_temporal_data(waves, lengths, labels, jcfg,
                                                 as_clouds=True)
     assert got["points"].shape == ref["points"].shape

@@ -145,7 +145,8 @@ def _tiny_fst():
 
 def _fit_tiny(cfg, data, ckpt, epochs, resume=False, seed_offset=0):
     model, apply_fn, opt = build_trainer(
-        dataclasses.replace(cfg, torch_seed=cfg.torch_seed + seed_offset))
+        dataclasses.replace(cfg, torch_seed=cfg.torch_seed + seed_offset),
+        "cpu")
     state, hist = fit(TrainState(model, opt), make_train_step(apply_fn, opt),
                       data, batch_size=cfg.batch_size, epochs=epochs,
                       seed=cfg.numpy_seed, checkpoint_dir=ckpt,
@@ -182,19 +183,19 @@ def test_saved_3st_serves_through_reference_checkpoint(tmp_path):
     it was saved from."""
     cfg = ExperimentConfig(architecture=ARCH_3ST, window_size=1024, Ntemp=10,
                            dhidden=16, nheads=4, ninds=8, batch_size=16)
-    model, _, opt = build_trainer(cfg)
+    model, _, opt = build_trainer(cfg, "cpu")
     save_checkpoint(str(tmp_path), TrainState(model, opt), cfg, step=1)
     export_reference_pth(model, str(tmp_path / "3ST_net.pth"))
     sd = torch.load(str(tmp_path / "3ST_net.pth"))
     assert all(k.startswith("module.") for k in sd)
     clf = AudioClassifier.from_reference_checkpoint(
         str(tmp_path / "reference_config.json"), str(tmp_path / "3ST_net.pth"),
-        top_k=64, batch_size=2, buffer_len=32768)
+        top_k=64, batch_size=2, buffer_len=32768, device="cpu")
     rng = np.random.default_rng(4)
     clips = [(0.2 * rng.standard_normal(n)).astype(np.float32)
              for n in (30000, 20000)]
     direct = AudioClassifier(model=model, pipeline=TemporalPipelineConfig(
-        top_k=64), batch_size=2, buffer_len=32768)
+        top_k=64), batch_size=2, buffer_len=32768, device="cpu")
     np.testing.assert_array_equal(clf.logits(clips), direct.logits(clips))
 
 
@@ -204,7 +205,7 @@ def test_fst_recipe_learns_synthetic_sets():
     cfg = dataclasses.replace(_tiny_fst(), dhidden=16, nheads=4, ninds=8,
                               batch_size=32)
     pts, lbl = _synthetic_sets(np.random.default_rng(1), 64)
-    model, apply_fn, opt = build_trainer(cfg, fused_attn=True)
+    model, apply_fn, opt = build_trainer(cfg, "cpu", fused_attn=True)
     state, hist = fit(TrainState(model, opt), make_train_step(apply_fn, opt),
                       {"points": pts, "labels": lbl}, batch_size=32,
                       epochs=30, eval_data={"points": pts, "labels": lbl},
@@ -216,9 +217,9 @@ def test_fst_recipe_learns_synthetic_sets():
 
 
 def test_build_trainer_routes_by_device():
-    model, _, _ = build_trainer(_tiny_fst())
+    model, _, _ = build_trainer(_tiny_fst(), "cpu")
     assert not any(getattr(m, "fused_attn", False) for m in model.modules())
-    model, _, _ = build_trainer(_tiny_fst(), fused_attn=True)
+    model, _, _ = build_trainer(_tiny_fst(), "cpu", fused_attn=True)
     assert all(m.fused_attn for m in model.modules() if hasattr(m, "fused_attn"))
 
 

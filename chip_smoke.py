@@ -29,12 +29,15 @@
    through K1-K3;
 7. times K4 and its plain pair at the FST attends, and the FST recipe step
    (forward + backward + Adam) on the kernel and the plain path;
-8. runs the K1-family probes (``pcaudio_torch.probes``: the batched dot,
-   int8 vs bf16 tensor-core products, the int8 attend, 64- vs 128-wide
-   chains, K1 relaunched bare / with weights repacked / through its
-   wrapper) at their TPU scripts' shapes, holding each probe kernel against
-   its plain version (the integer products exactly) and printing each
-   probe's answer beside the card's name and power limit.
+8. runs the probes (``pcaudio_torch.probes``) at their TPU scripts' shapes:
+   the K1 family (the batched dot, int8 vs bf16 tensor-core products, the
+   int8 attend, 64- vs 128-wide chains, K1 relaunched bare / with weights
+   repacked / through its wrapper) and the K3 family (int16 waves, the
+   frame -> chunk relayout, K3's DFT as a bf16 tensor-core product at G
+   clips a block, and with each clip's rows shifted by its trim start),
+   holding each probe kernel against its plain version (the integer
+   products and sums exactly, the DFT within a bound derived per element)
+   and printing each probe's answer beside the card's name and power limit.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -611,7 +614,7 @@ def main():
             f"{n / k_ms * 1e3:.1f} clouds/s, plain path {p_ms:.3f} ms = "
             f"{n / p_ms * 1e3:.1f} clouds/s ({name_limit})")
 
-    # ---- 8. the K1-family probes at their TPU scripts' shapes ---------------
+    # ---- 8. the probes at their TPU scripts' shapes ---------------------------
     # each probe is its own path: a probe kernel's count starts at 0 before
     # its timed launches and is read after them (timing.measure)
     probe_rows = []

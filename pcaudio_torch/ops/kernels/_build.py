@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
 SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "mha.cu", "probe_mma.cu",
-           "probe_attend.cu")
+           "probe_attend.cu", "probe_stream.cu", "probe_featurize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +43,10 @@ _SIGNATURES = {
     "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
     "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],
     "pcaudio_probe_attend": [_P] * 5 + [_I] * 5 + [_P],
+    "pcaudio_probe_int16_gram": [_P, _P, _I, _I, _P],
+    "pcaudio_probe_wave_sums": [_P, _P, _I, _I, _I, _P],
+    "pcaudio_probe_relayout": [_P, _P] + [_I] * 5 + [_P],
+    "pcaudio_probe_dft_mag2": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 

@@ -380,3 +380,165 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="keys"):
         probe_attend(torch.zeros(128, 64, device=cuda), torch.zeros(2048, 64, device=cuda),
                      "bf16")
+
+
+# ---- the K3-family probe kernels (csrc/probe_stream.cu, csrc/probe_featurize.cu)
+
+from pcaudio_torch.ops.kernels.featurize_probes import (  # noqa: E402
+    chunk_relayout, chunk_relayout_plain, dft_mag2, dft_mag2_bound, dft_mag2_plain,
+    dft_written, int16_gram, int16_gram_plain, wave_block_sums, wave_block_sums_plain)
+
+
+@pytest.mark.parametrize("n,L", [(64, 512), (5, 37)], ids=["script", "ragged"])
+def test_probe_int16_gram_matches_plain(cuda, n, L):
+    """P6a: int16 → f32·(1/32768) is exact; the f32 products within
+    matmul_bound (2·(L + 1)·2^-24·Σ|a||b|)."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    x = torch.randint(-32768, 32767, (n, L), generator=gen, device=cuda, dtype=torch.int16)
+    n0 = int16_gram.launches
+    got = int16_gram(x)
+    torch.cuda.synchronize()
+    assert int16_gram.launches == n0 + 1
+    xf = x.float() / 32768
+    _within(got, int16_gram_plain(x), matmul_bound(xf, xf.t()), "int16 gram")
+
+
+@pytest.mark.parametrize("shape", [(512, 432, 512), (3, 5, 24)], ids=["script", "small"])
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_probe_wave_sums_match_plain(cuda, shape, dtype):
+    """P6b on integers in [-4, 4): every partial sum is an integer below
+    2^24, so the sums are exact in any order; zeros give zeros."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = torch.randint(-4, 4, shape, generator=gen, device=cuda, dtype=dtype)
+    n0 = wave_block_sums.launches
+    got = wave_block_sums(x)
+    torch.cuda.synchronize()
+    assert wave_block_sums.launches == n0 + 1
+    ref = wave_block_sums_plain(x)
+    assert bool((ref[:, 0] != 0).any()) and torch.equal(got, ref)
+    z = torch.zeros(shape, dtype=dtype, device=cuda)
+    assert torch.equal(wave_block_sums(z), torch.zeros(shape[0], 2, device=cuda))
+
+
+@pytest.mark.parametrize("B,C,Nt,F", [(512, 43, 10, 512), (3, 5, 4, 96)],
+                         ids=["script", "small"])
+@pytest.mark.parametrize("reshape", [False, True])
+def test_probe_relayout_matches_plain(cuda, B, C, Nt, F, reshape):
+    """P7: x + 1 is exact, and both layouts hold the same bytes."""
+    gen = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(B, C * Nt, F, generator=gen, device=cuda)
+    n0 = chunk_relayout.launches
+    got = chunk_relayout(x, C, Nt, reshape)
+    torch.cuda.synchronize()
+    assert chunk_relayout.launches == n0 + 1
+    ref = chunk_relayout_plain(x, C, Nt, reshape)
+    assert got.shape == ref.shape and torch.equal(got, ref)
+
+
+DFT_FORMS = [("direct", 1, False), ("direct", 4, False), ("direct", 2, True),
+             ("direct", 8, True), ("shift", 1, False), ("shift", 2, False),
+             ("shift_nozero", 1, False), ("aligned", 1, False)]
+
+
+def _dft_inputs(cuda, B, R, hop, F, s0_high, seed=3):
+    gen = torch.Generator(cuda).manual_seed(seed)
+    x3 = (0.1 * torch.randn(B, R * hop, generator=gen, device=cuda)).view(B, R, hop)
+    w0, w1 = (torch.randn(hop, 2 * F, generator=gen, device=cuda).bfloat16()
+              for _ in range(2))
+    s0 = torch.randint(0, s0_high, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    s0[:2] = torch.tensor([0, s0_high - 1], dtype=torch.int32)
+    return x3, w0, w1, s0
+
+
+@pytest.mark.parametrize("B,R,hop,F,C,Nt,s0_high", [
+    (8, 21, 64, 64, 5, 4, 16),             # one row tile a clip
+    (8, 300, 128, 128, 29, 10, 40),        # three tiles, 290 of 299 frames
+    (32, 431, 512, 512, 43, 10, 40),       # the scripts' widths, 32 clips
+], ids=["small", "mid", "script"])
+@pytest.mark.parametrize("mode,G,stacked", DFT_FORMS, ids=str)
+def test_probe_dft_mag2_matches_plain(cuda, B, R, hop, F, C, Nt, s0_high, mode, G,
+                                      stacked):
+    """P8/P9: within dft_mag2_bound (f32 sums of bf16 products in another
+    order, carried through re² + im², one bf16 rounding a side) on the rows
+    the kernel writes; "shift" also zeroes the rows without a source frame,
+    which the plain version writes as 0."""
+    x3, w0, w1, s0 = _dft_inputs(cuda, B, R, hop, F, s0_high)
+    n0 = dft_mag2.launches
+    got = dft_mag2(x3, w0, w1, C, Nt, mode, s0, G=G, stacked=stacked)
+    torch.cuda.synchronize()
+    assert dft_mag2.launches == n0 + 1
+    from pcaudio_torch.probes.featurize_variants import masked
+    ref = dft_mag2_plain(x3, w0, w1, C, Nt, mode, s0)
+    got = masked(got, dft_written(x3, C, Nt, mode, s0))
+    assert bool((ref != 0).any()) and bool(torch.isfinite(ref.float()).all())
+    tol = dft_mag2_bound(x3, w0, w1, C, Nt, mode, s0)
+    _within(got.float(), ref.float(), tol, f"{mode} G={G} stacked={stacked}")
+    # the bound is rounding, not the size of the output
+    assert float((tol / ref.float().abs().clamp_min(1e-30))[ref != 0].median()) < 0.02
+
+
+@pytest.mark.parametrize("probe,case,wrong", [
+    ("featurize_variants", "v2 + zeroinit + switch", "s0 off by one"),
+    ("featurize_variants", "v3 switch, no zero-init", "s0 off by one"),
+    ("featurize_blockc", "G=1 unrolled", "frames off by one"),
+    ("featurize_blockc", "G=2 stacked", "a seam row written")])
+def test_probe_dft_check_catches_a_wrong_kernel(cuda, probe, case, wrong):
+    """The P8/P9 check (chip_smoke phase 8, ``timing.measure``) passes the
+    kernel and raises on one that shifts the rows by one frame, or that
+    writes a clip-seam frame (clip 0's last frame with clip 1's first) into
+    clip 1's row 0.  The probes' inputs are drawn again from the same seed."""
+    from pcaudio_torch.probes import featurize_blockc, featurize_variants
+    from pcaudio_torch.probes.featurize_blockc import C, NT, R
+    from pcaudio_torch.probes.timing import measure, tf32_off
+    batch = 16
+    mod = {"featurize_blockc": featurize_blockc, "featurize_variants": featurize_variants}[probe]
+    with tf32_off():
+        c = {c.name: c for c in mod.cases(cuda, torch.Generator(cuda).manual_seed(0),
+                                           batch=batch)}[case]
+        c.iters = c.plain_iters = 1
+        measure(c)  # raises outside the bound
+        gen = torch.Generator(cuda).manual_seed(0)
+        x3, w0, w1 = featurize_blockc.inputs(cuda, gen, batch)
+        kernel, plain = c.check or (c.kernel, c.plain)
+        if wrong == "s0 off by one":
+            s0 = featurize_variants.trim_starts(cuda, gen, batch)
+            mode = featurize_variants.VARIANTS[case][0]
+            written = dft_written(x3, C, NT, mode, s0)
+
+            def wrong_kernel():
+                return featurize_variants.masked(
+                    dft_mag2(x3, w0, w1, C, NT, mode, s0 + 1), written)
+        elif wrong == "frames off by one":
+            def wrong_kernel():
+                out = kernel().clone().view(batch, C * NT, -1)
+                out[:, :-1] = out[:, 1:].clone()
+                return out.view(batch, C, NT, -1)
+        else:
+            # frame R − 1 of clips 0 and 1 stacked is [x0[R − 1], x1[0]]
+            seam = dft_mag2_plain(x3[:2].reshape(1, 2 * R, -1), w0, w1, C, NT, "shift",
+                                  torch.tensor([R], dtype=torch.int32, device=cuda))
+            seam = seam.view(C * NT, -1)[0]
+
+            def wrong_kernel():
+                out = kernel().clone().view(batch, C * NT, -1)
+                out[1, 0] = seam
+                return out.view(batch, C, NT, -1)
+        c.check = (wrong_kernel, plain)
+        with pytest.raises(AssertionError, match="outside its bound"):
+            measure(c)
+
+
+def test_featurize_probe_kernels_reject_what_they_do_not_take(cuda):
+    x3 = torch.zeros(4, 21, 64, device=cuda)
+    w = torch.zeros(64, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of G"):
+        dft_mag2(x3, w, w, 5, 4, G=3)
+    with pytest.raises(ValueError, match="stacked"):
+        dft_mag2(x3, w, w, 5, 4, "shift", torch.zeros(4, dtype=torch.int32, device=cuda),
+                 stacked=True)
+    with pytest.raises(ValueError, match="frames"):
+        dft_mag2(x3, w, w, 6, 4)
+    with pytest.raises(ValueError, match="128"):
+        chunk_relayout(torch.zeros(2, 12, 20, device=cuda), 3, 4, True)
+    with pytest.raises(ValueError, match="L ≤"):
+        int16_gram(torch.zeros(2, 5000, dtype=torch.int16, device=cuda))

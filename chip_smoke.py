@@ -14,7 +14,12 @@
    pipeline config, checks that each kernel was launched, that the logits
    are finite and that the labels agree with the plain path on the card;
 4. times each kernel and its plain version, and the end-to-end path, at the
-   bench shape (B=1024 clips of 5 s, 44,032 chunk clouds);
+   bench shape (B=1024 clips of 5 s, 44,032 chunk clouds); times K3 a second
+   way, on ragged traffic (synthetic clips of random lengths with trimmed
+   lead-ins, checked against its plain version there too), prints the
+   device time of each of K3's two launches on both batches, and the serving
+   path's device time by kernel and the device's idle share
+   (``torch.profiler``);
 5. holds K4 (the trainable attention, forward and backward) against its
    plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
    1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points) and on
@@ -76,7 +81,7 @@ from pcaudio_torch.ops.kernels.select import (
 from pcaudio_torch.probes import PROBES
 from pcaudio_torch.probes.st_launch import st_flops
 from pcaudio_torch.probes.timing import (
-    bound_ms, card, cuda_ms, describe, paired_ms)
+    bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
 from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
     RECIPES, build_trainer, make_train_step, prepare_framewise_data,
@@ -146,6 +151,46 @@ def synthetic_waves(B, rng):
     lengths[3] = 1
     w[:, 220500:] = 0.0
     return w, lengths
+
+
+def ragged_waves(B, rng):
+    """synthetic_waves with the traffic the noise batch never sends: each
+    clip cut to a random length from 0.5 s to 5 s (zeros past it) and every
+    other clip led in by up to 1 s of near-silence (-100 dB) that the 60 dB
+    trim cuts, so trim starts and last frames fall anywhere."""
+    w, lengths = synthetic_waves(B, rng)
+    cut = rng.integers(FS // 2, 220500, B)
+    lead = rng.integers(0, FS, B)
+    for i in range(4, B):
+        lengths[i] = cut[i]
+        w[i, cut[i]:] = 0.0
+        if i % 2:
+            w[i, :lead[i]] *= 1e-5
+    return w, lengths
+
+
+def k3_check(g, gm, r, rm, dt, what):
+    """K3 against its plain grid: equal masks, finite values, and |X|² on
+    valid chunks within 1e-5 of the chunk's largest |X|² + rtol 1e-4 (f32
+    summation order, the real-input FFT vs cuFFT), plus one bf16 step when
+    stored in bf16.  Returns (max |err|, max |err| / chunk max)."""
+    check(torch.equal(gm, rm), f"K3 {what}: chunk masks differ")
+    check(bool(torch.isfinite(g.float()).all()), f"K3 {what}: non-finite")
+    gv, rv = g.float()[rm], r.float()[rm]
+    rtol = 1e-4 + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
+    atol = 1e-5 * rv.amax(dim=(1, 2), keepdim=True)
+    err = (gv - rv).abs()
+    check(bool((err <= atol + rtol * rv.abs()).all()),
+          f"K3 {what}: |X|² outside tolerance (max err {err.max():.3e})")
+    return err.max().item(), (err / rv.amax(dim=(1, 2), keepdim=True)).max().item()
+
+
+def k3_launch_ms(waves, lengths):
+    """Device ms a call of K3's two launches (torch.profiler, 5 calls)."""
+    per, _ = profile_device(
+        lambda: fused_chunk_mag2(waves, lengths, out_dtype=torch.bfloat16), 5)
+    return [sum(v for k, v in per.items() if name in k)
+            for name in ("trim_bounds_kernel", "frames_mag2_kernel")]
 
 
 def nbytes(*tensors):
@@ -356,23 +401,13 @@ def main():
         g, gm = fused_chunk_mag2(waves, lengths, out_dtype=dt)
         r, rm = fused_chunk_mag2_plain(waves, lengths, out_dtype=dt)
         torch.cuda.synchronize()
-        check(torch.equal(gm, rm), f"K3 {dt}: chunk masks differ")
-        check(bool(torch.isfinite(g.float()).all()), f"K3 {dt}: non-finite")
         check(not gm[2].any() and not gm[3].any(),
               "K3: sub-n_fft clips must be fully masked")
-        # f32 summation order (radix-2 FFT vs cuFFT): 1e-5 of the chunk's
-        # largest |X|² + rtol 1e-4; one bf16 step when stored in bf16
-        gv, rv = g.float()[rm], r.float()[rm]
-        rtol = 1e-4 + (2.0 ** -7 if dt == torch.bfloat16 else 0.0)
-        atol = 1e-5 * rv.amax(dim=(1, 2), keepdim=True)
-        err = (gv - rv).abs()
-        check(bool((err <= atol + rtol * rv.abs()).all()),
-              f"K3 {dt}: |X|² outside tolerance (max err {err.max():.3e})")
-        log(f"[K3] {dt}: max |err| {err.max().item():.3e} "
-            f"(max rel to chunk max {(err / rv.amax(dim=(1, 2), keepdim=True)).max().item():.3e}), "
+        err, rel = k3_check(g, gm, r, rm, dt, str(dt))
+        log(f"[K3] {dt}: max |err| {err:.3e} (max rel to chunk max {rel:.3e}), "
             f"valid chunks {int(rm.sum())}/{rm.numel()}")
         if dt == torch.float32:
-            errs["fused_chunk_mag2"] = err.max().item()
+            errs["fused_chunk_mag2"] = err
         grids[dt] = g
 
     tie_grid = torch.floor(torch.rand(512, 10, 512, device=dev,
@@ -480,6 +515,30 @@ def main():
     lib_ms["fused_chunk_mag2"] = cuda_ms(rfft_mag2, 10)
     del frames
     torch.cuda.empty_cache()
+    trim_ms, frames_ms = k3_launch_ms(bw, bl)
+    log(f"[time] K3 noise B={BENCH_B}: trim_bounds_kernel {trim_ms:.4f} ms + "
+        f"frames_mag2_kernel {frames_ms:.4f} ms of device time a call "
+        f"(torch.profiler); bound {bounds['fused_chunk_mag2'][0]:.3f} ms, "
+        f"{bound_ms({}, nbytes(bw, bl, grid, gmask, bw))[0]:.3f} ms with the "
+        f"trim pass's own read of the waves ({name_limit})")
+    # K3 a second way: ragged lengths and trimmed lead-ins at the bench shape
+    rw, rl = (torch.from_numpy(a).to(dev)
+              for a in ragged_waves(BENCH_B, np.random.default_rng(7)))
+    rag_ms = paired_ms(
+        lambda: fused_chunk_mag2(rw, rl, out_dtype=torch.bfloat16),
+        lambda: fused_chunk_mag2_plain(rw, rl, out_dtype=torch.bfloat16), 10, 3)
+    rtrim_ms, rframes_ms = k3_launch_ms(rw, rl)
+    rg, rgm = fused_chunk_mag2(rw, rl, out_dtype=torch.bfloat16)
+    rr, rrm = fused_chunk_mag2_plain(rw, rl, out_dtype=torch.bfloat16)
+    rag_err, rag_rel = k3_check(rg, rgm, rr, rrm, torch.bfloat16, "ragged")
+    log(f"[time] K3 ragged B={BENCH_B} (synthetic_waves, lengths 0.5-5 s, "
+        f"half led in by trimmed near-silence; {int(rrm.sum())}/{rrm.numel()} "
+        f"valid chunks): kernel {rag_ms[0]:.3f} ms, plain {rag_ms[1]:.3f} ms; "
+        f"trim_bounds_kernel {rtrim_ms:.4f} ms + frames_mag2_kernel "
+        f"{rframes_ms:.4f} ms of device time; bf16 max |err| {rag_err:.3e} "
+        f"(rel to chunk max {rag_rel:.3e}) ({name_limit})")
+    del rw, rl, rg, rgm, rr, rrm
+    torch.cuda.empty_cache()
     grid = grid.reshape(-1, 10, 512)
     times["exact_topk_chunks"] = paired_ms(
         lambda: exact_topk_chunks(grid, TOP_K),
@@ -515,6 +574,12 @@ def main():
                                          plain=True)
     e2e_ms = cuda_ms(lambda: e2e(bw, bl), 5)
     e2e_plain_ms = cuda_ms(lambda: e2e_plain(bw[:plain_b], bl[:plain_b]), 2)
+    per, idle = profile_device(lambda: e2e(bw, bl), 3)
+    log(f"[profile] e2e B={BENCH_B}, device ms a call by kernel (torch.profiler, "
+        f"3 calls): " + "; ".join(f"{k[:60]} {v:.4f}" for k, v in
+                                 list(per.items())[:6])
+        + f"; all {sum(per.values()):.4f}; device idle share {idle:.4f} "
+        f"({name_limit})")
     for k, (ms, plain_ms) in times.items():
         b = plain_b if k == "fused_st_forward" else BENCH_B
         lib = "none" if lib_ms[k] is None else f"{lib_ms[k]:.3f} ms"

@@ -22,6 +22,24 @@ def stft_window(n_fft: int, device=None) -> torch.Tensor:
     return 0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n_fft)
 
 
+def frame_positions(start: torch.Tensor, tlen: torch.Tensor, n_fft: int,
+                    num_frames: int) -> torch.Tensor:
+    """``[B, num_frames, n_fft]`` int64: the buffer position of each sample
+    of each centered frame of the trimmed clip ``[start, start + tlen)``
+    (hop ``n_fft // 2``, single-bounce reflection, clamped into the clip;
+    position ``start`` where ``tlen`` is 0)."""
+    dev = tlen.device
+    hop = n_fft // 2
+    t = torch.arange(num_frames, device=dev)[:, None]
+    j = torch.arange(n_fft, device=dev)[None, :]
+    p = (t * hop - n_fft // 2 + j)[None]                   # [1, T, n_fft]
+    n = tlen.to(dtype=torch.int64)[:, None, None]
+    p = torch.where(p < 0, -p, p)
+    p = torch.where(p >= n, 2 * n - 2 - p, p)
+    p = torch.minimum(p.clamp_min(0), (n - 1).clamp_min(0))
+    return start.to(device=dev, dtype=torch.int64)[:, None, None] + p
+
+
 def trimmed_stft_mag2(waves: torch.Tensor, start: torch.Tensor,
                       tlen: torch.Tensor, n_fft: int,
                       num_frames: int) -> torch.Tensor:
@@ -29,15 +47,8 @@ def trimmed_stft_mag2(waves: torch.Tensor, start: torch.Tensor,
     f32 (unnormalised, Nyquist kept).  Frames past the clip's last frame
     ``tlen // hop`` hold clamped-reflection garbage (finite)."""
     dev = waves.device
-    hop = n_fft // 2
-    t = torch.arange(num_frames, device=dev)[:, None]
-    j = torch.arange(n_fft, device=dev)[None, :]
-    p = (t * hop - n_fft // 2 + j)[None]                   # [1, T, n_fft]
+    idx = frame_positions(start.to(dev), tlen.to(dev), n_fft, num_frames)
     n = tlen.to(device=dev, dtype=torch.int64)[:, None, None]
-    p = torch.where(p < 0, -p, p)
-    p = torch.where(p >= n, 2 * n - 2 - p, p)
-    p = torch.minimum(p.clamp_min(0), (n - 1).clamp_min(0))
-    idx = start.to(device=dev, dtype=torch.int64)[:, None, None] + p
     frames = torch.gather(waves.float(), 1,
                           idx.reshape(waves.shape[0], -1)).view(idx.shape)
     frames = torch.where(n > 0, frames, 0.0) * stft_window(n_fft, dev)

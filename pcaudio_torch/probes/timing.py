@@ -69,6 +69,33 @@ def paired_ms(kernel, plain, iters: int, plain_iters: int):
     return (k0 + k1) / 2, (p0 + p1) / 2
 
 
+def profile_device(fn, iters: int):
+    """``torch.profiler`` over ``iters`` calls of ``fn`` after one warm-up:
+    returns ``({kernel name: device ms per call}, idle share)``, the names
+    by falling time, the idle share over the window from the first device
+    activity's start to the last one's end.  Raises where the trace holds no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    per: Dict[str, float] = {}
+    for e in dev:
+        per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev))
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    return dict(sorted(per.items(), key=lambda kv: -kv[1])), 1.0 - busy / span
+
+
 def bound_ms(ops: Dict[str, float], nbytes: float):
     """The least time the card could take for the work: the larger of the
     bytes over the memory rate (each input read once, each output written

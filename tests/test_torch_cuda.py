@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pcaudio_torch.dsp import stft_window, trim_bounds
 from pcaudio_torch.eval import TemporalPipelineConfig, make_temporal_classifier
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels.featurize import (
@@ -149,6 +150,126 @@ def test_featurize_kernel_edge_lengths(cuda):
     g, r = got[rm], ref[rm]
     atol = 1e-5 * r.amax(dim=(1, 2), keepdim=True)
     assert ((g - r).abs() <= atol + 1e-4 * r.abs()).all()
+
+
+def _k3_within(got, gm, ref, rm, out_dtype):
+    """K3's bar, as in the two tests above: equal masks, finite values, and
+    |X|² on valid chunks within 1e-5·chunk max + rtol 1e-4, plus one bf16
+    step when stored in bf16."""
+    if not torch.equal(gm, rm) or not bool(torch.isfinite(got.float()).all()):
+        return False
+    rtol = 1e-4 + (2.0 ** -7 if out_dtype == torch.bfloat16 else 0.0)
+    g, r = got.float()[rm], ref.float()[rm]
+    atol = 1e-5 * r.amax(dim=(1, 2), keepdim=True)
+    return bool(((g - r).abs() <= atol + rtol * r.abs()).all())
+
+
+def _k3_pair(w, ln, out_dtype):
+    """The kernel's grid (one launch) and the plain version's."""
+    before = fused_chunk_mag2.launches
+    got, gm = fused_chunk_mag2(w, ln, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert fused_chunk_mag2.launches == before + 1
+    ref, rm = fused_chunk_mag2_plain(w, ln, out_dtype=out_dtype)
+    return got, gm, ref, rm
+
+
+def _lead_in_waves(s0, tails, t_last, L=40960, seed=7):
+    """One clip per tail in ``tails``: silence, then noise from (s0 + 1)·512
+    + 1 (out of reach of trim frame s0 - 1 and of frame 0's reflection) to
+    the clip's length s0·512 + t_last·512 + tail, so that the 60 dB trim
+    starts at s0·512 and keeps tlen = t_last·512 + tail.  Past each length
+    the buffer holds loud noise that no frame may read."""
+    rng = np.random.default_rng(seed)
+    waves = (5.0 * rng.standard_normal((len(tails), L))).astype(np.float32)
+    lengths = np.array([(s0 + t_last) * 512 + r for r in tails], np.int32)
+    on = (s0 + 1) * 512 + 1
+    for i, n in enumerate(lengths):
+        waves[i, :on] = 0.0
+        waves[i, on:n] = 0.3 * rng.standard_normal(n - on)
+    return waves, lengths
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s0,t_last", [(1, 69), (2, 69), (37, 39)])
+def test_featurize_kernel_trim_starts(cuda, s0, t_last, out_dtype):
+    """Trim starts of 1, 2 and 37 hops with tlen mod 512 in {0, 1, 511} and
+    frame t_last, whose window is reflected, the last frame of a valid
+    chunk (t_last = 9 mod 10)."""
+    waves, lengths = _lead_in_waves(s0, (0, 1, 511), t_last)
+    w = torch.from_numpy(waves).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    start, tlen = trim_bounds(w, ln, top_db=60.0)
+    assert (start == s0 * 512).all()
+    assert tlen.tolist() == [t_last * 512 + r for r in (0, 1, 511)]
+    got, gm, ref, rm = _k3_pair(w, ln, out_dtype)
+    assert rm[:, t_last // 10].all() and not rm[:, t_last // 10 + 1:].any()
+    assert _k3_within(got, gm, ref, rm, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(1, 24576), (300, 24576), (7, 24573)])
+def test_featurize_kernel_grid_sizes(cuda, B, L, out_dtype):
+    """One clip, 300 clips (900 blocks: more than one wave of the grid), and
+    rows of an odd length (not 16-byte aligned: the kernel stages them with
+    4-byte loads), with ragged lengths, quiet lead-ins of random hops and
+    loud samples past each length."""
+    rng = np.random.default_rng(8 + B)
+    waves = (5.0 * rng.standard_normal((B, L))).astype(np.float32)
+    lengths = rng.integers(0, L + 1, B).astype(np.int32)
+    lengths[0] = L - 300
+    for i, n in enumerate(lengths):
+        waves[i, :n] = 0.2 * rng.standard_normal(n)
+        lead = int(rng.integers(0, 8)) * 512 + int(rng.integers(0, 512))
+        waves[i, :min(lead, n)] *= 1e-5
+    got, gm, ref, rm = _k3_pair(torch.from_numpy(waves).to(cuda),
+                                torch.from_numpy(lengths).to(cuda), out_dtype)
+    assert rm.any()
+    assert _k3_within(got, gm, ref, rm, out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_featurize_kernel_silent_and_empty(cuda, out_dtype):
+    """A silent clip (kept whole by the trim: every frame 0), length 0 (no
+    frame, |X|² 0), length 1 and a short silent clip: every frame of the
+    silent and empty clips is exactly 0, as in the plain version, and the
+    rest agree."""
+    rng = np.random.default_rng(9)
+    L = 16384
+    waves = (5.0 * rng.standard_normal((5, L))).astype(np.float32)
+    lengths = np.array([L, 0, 1, 5000, 12000], np.int32)
+    waves[0] = 0.0
+    waves[3, :5000] = 0.0
+    waves[4, :12000] = 0.2 * rng.standard_normal(12000)
+    got, gm, ref, rm = _k3_pair(torch.from_numpy(waves).to(cuda),
+                                torch.from_numpy(lengths).to(cuda), out_dtype)
+    for b in (0, 1, 3):
+        assert not got[b].any() and not ref[b].any()
+    assert rm[0].all() and not rm[1].any() and not rm[2].any()
+    assert _k3_within(got, gm, ref, rm, out_dtype)
+
+
+@pytest.mark.parametrize("wrong", ["t_last_unreflected", "run_shifted"])
+def test_featurize_check_catches_a_wrong_kernel(cuda, wrong):
+    """The K3 comparison rejects the plain grid with frame t_last taken from
+    the raw window instead of its reflection, and with the frames of one
+    16-frame run shifted by one."""
+    s0, t_last = 2, 69
+    waves, lengths = _lead_in_waves(s0, (0,), t_last)
+    w = torch.from_numpy(waves).to(cuda)
+    ln = torch.from_numpy(lengths).to(cuda)
+    ref, rm = fused_chunk_mag2_plain(w, ln, out_dtype=torch.float32)
+    assert _k3_within(ref, rm, ref, rm, torch.float32)
+    bad = ref.clone()
+    frames = bad.view(1, -1, 512)
+    if wrong == "t_last_unreflected":
+        y0 = s0 * 512 + (t_last - 1) * 512
+        X = torch.fft.rfft(w[0, y0:y0 + 1024] * stft_window(1024, cuda))
+        frames[0, t_last] = (X.real ** 2 + X.imag ** 2)[:512]
+    else:
+        frames[0, 16:32] = ref.view(1, -1, 512)[0, 15:31]
+    assert not torch.equal(bad, ref)
+    assert not _k3_within(bad, rm, ref, rm, torch.float32)
 
 
 def test_kernel_path_matches_plain_path(cuda):

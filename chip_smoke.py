@@ -6,9 +6,11 @@
    TF32 off for the plain references;
 1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a);
 2. holds each kernel against its plain PyTorch version on the card at the
-   serving path's shapes (featurize B=64 x 5 s clips; select on that grid and
-   on a tie-heavy grid; the ST on the resulting 64*43 clouds, and with the
-   trained FST checkpoint on ragged-masked 2-D clouds);
+   serving path's shapes (featurize B=64 x 5 s clips; select on that grid, on
+   a tie-heavy grid and at K 512 and 5120; the ST on the resulting 64*43
+   clouds, at K 1, 17, 128, 256 and 1025 with din 2 and 3, f32 and bf16
+   points, no, ragged and all-masked masks, also against the f32 ST, and
+   with the trained FST checkpoint on 1025-point ragged-masked 2-D clouds);
 3. serves three requests (64, 17 and 100 ragged clips) through
    AudioClassifier with a full-width 3ST made from a seed and the bench's
    pipeline config, checks that each kernel was launched, that the logits
@@ -17,9 +19,10 @@
    bench shape (B=1024 clips of 5 s, 44,032 chunk clouds); times K3 a second
    way, on ragged traffic (synthetic clips of random lengths with trimmed
    lead-ins, checked against its plain version there too), prints the
-   device time of each of K3's two launches on both batches, and the serving
-   path's device time by kernel and the device's idle share
-   (``torch.profiler``);
+   device time of each of K3's two launches on both batches, K1's time split
+   by its three passes (launches cut after each) and K1 at 256 points a
+   cloud, and the serving path's device time by kernel and the device's
+   idle share (``torch.profiler``);
 5. holds K4 (the trainable attention, forward and backward) against its
    plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
    1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points) and on
@@ -31,7 +34,7 @@
    one batch's loss and gradients against the plain path; then 20 steps of
    the 3ST recipe at full width (batch 16 chunks of 5120 points), whose saved
    checkpoint AudioClassifier.from_reference_checkpoint loads and serves
-   through K1-K3;
+   through K1-K3 at its default top_k (256 points a cloud);
 7. times K4 and its plain pair at the FST attends, and the FST recipe step
    (forward + backward + Adam) on the kernel and the plain path;
 8. runs the probes (``pcaudio_torch.probes``) at their TPU scripts' shapes:
@@ -53,6 +56,7 @@ never calls).
 Any failure raises, so the exit code is non-zero.  The second-to-last line
 of output is the kernels' JSON record, the last one the device record.
 """
+import dataclasses
 import json
 import os
 import shutil
@@ -73,13 +77,13 @@ from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
-    fused_st_forward, fused_st_forward_plain)
+    _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed)
 from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.probes import PROBES
-from pcaudio_torch.probes.st_launch import st_flops
+from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
 from pcaudio_torch.probes.timing import (
     bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
 from pcaudio_torch.serve import AudioClassifier
@@ -116,6 +120,15 @@ FST_ATTENDS = {"MAB0": (64, 1025), "MAB1": (1025, 64), "PMA": (1, 1025)}
 ST3_ATTENDS = {"MAB0": (64, 5120), "MAB1": (5120, 64), "PMA": (1, 5120)}
 FST_STEP_ATTENDS = {"MAB0": 2, "MAB1": 2, "PMA": 1}
 HEADS, DV = 8, 64
+K1_POINTS = (1, 17, 128, 256, 1025)   # phase 2's clouds for K1
+# the JAX tests' bars for the bf16 fused ST (tests/test_fused_st.py), atol
+# = rtol: against the JAX kernel's own reference, and against the f32 model
+JAX_K1_TOL = 3e-2
+ST_F32_TOL = 5e-2
+# served logits against the plain path: bf16 serving sits about 5e-2 from
+# f32 (docs/ACCURACY.md); the kernel and its plain version share the
+# roundings, so they sit far closer
+SERVE_DEV_TOL = 5e-2
 N_FFT, HOP = 1024, 512
 CLIPS_PER_CLASS = 8   # of the corpus' 40: about 100 FST steps per epoch
 
@@ -245,10 +258,38 @@ def k4_check(B, N, M, gen, ragged=False):
     return fwd, bwd
 
 
+def k1_check(got, ref, what, tol=None):
+    """K1 against a reference: finite, of the same shape, |err| <= tol +
+    tol·|ref| (K1_TOL against its plain version, which rounds to bf16 at the
+    same places; ST_F32_TOL against the f32 ST).  Returns max |err|."""
+    tol = K1_TOL if tol is None else tol
+    check(got.shape == ref.shape, f"K1 {what}: shape {tuple(got.shape)} vs "
+          f"{tuple(ref.shape)}")
+    check(bool(torch.isfinite(got).all()), f"K1 {what}: non-finite logits")
+    err = (got - ref).abs()
+    check(bool((err <= tol + tol * ref.abs()).all()),
+          f"K1 {what}: max |err| {err.max().item():.3e} outside {tol} + "
+          f"{tol}·|ref|")
+    return err.max().item()
+
+
+def k1_bound(points, model):
+    """K1's bound on ``points``: the ST's products on bf16 tensor cores and
+    its softmax exps on the SFU, or its bytes (points, weights, logits)."""
+    n, k, din = points.shape
+    return bound_ms({"bf16": float(n * st_flops(k, din, DV, 64, 10)),
+                     "sfu": float(n * st_exps(k, 64, HEADS))},
+                    nbytes(points, *model.parameters()) + 4.0 * n * 10)
+
+
 def tie_aware_argmax(got, ref):
     """Rows whose reference top-2 gap is below twice the largest deviation
-    are excused; every other row must agree.  Returns (agree, decided, dev)."""
+    are excused; every other row must agree; the deviation itself must be
+    at most SERVE_DEV_TOL, so that a large one cannot excuse every row.
+    Returns (agree, decided, dev)."""
     dev = (got - ref).abs().max().item()
+    check(dev <= SERVE_DEV_TOL, f"max logit deviation {dev:.3e} from the plain "
+          f"path exceeds {SERVE_DEV_TOL}")
     top2 = ref.sort(dim=-1).values[:, -2:]
     decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
     agree = (got.argmax(-1) == ref.argmax(-1))
@@ -340,8 +381,9 @@ def train_phase(work, dev):
 
     clf = AudioClassifier.from_reference_checkpoint(
         os.path.join(st3_dir, "reference_config.json"),
-        os.path.join(st3_dir, "3ST_net.pth"), top_k=TOP_K, batch_size=16,
-        device="cuda")
+        os.path.join(st3_dir, "3ST_net.pth"), batch_size=16, device="cuda")
+    check(clf.pipeline.top_k == 256, f"the serving default top_k is "
+          f"{clf.pipeline.top_k}, not 256")
     cfg3 = RECIPES["3ST"]()
     w3, n3, _ = load_esc_split_waves(csv, audio, cfg3.numpy_seed, split="test")
     clips = [w3[i, :n3[i]] for i in range(10)]
@@ -358,8 +400,8 @@ def train_phase(work, dev):
                           batch_size=16, device="cuda", plain=True).logits(clips)
     agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lg),
                                             torch.from_numpy(ref))
-    log(f"[train] the saved 3ST served from 3ST_net.pth through K1-K3 "
-        f"({served}): labels {lg.argmax(-1).tolist()}, {agree}/10 agree with "
+    log(f"[train] the saved 3ST served from 3ST_net.pth with the default "
+        f"top_k {clf.pipeline.top_k} through K1-K3 ({served}): labels {lg.argmax(-1).tolist()}, {agree}/10 agree with "
         f"the plain path ({decided} decided), max logit dev {ldev:.3e}")
     return {"launches": launches, "weights": weights, "batches": batches}
 
@@ -426,6 +468,14 @@ def main():
         check(torch.equal(v, rv), f"K2 {label}: values differ")
         sel_err = max(sel_err, (v - rv).abs().max().item())
         log(f"[K2] {label} {tuple(m.shape)}: identical sets and values")
+    # K above the TPU kernel's 256 (expt 2's 512 and every bin, Nt·F = 5120)
+    for k in (512, 5120):
+        m = grids[torch.float32].reshape(-1, 10, 512)
+        v, i = exact_topk_chunks(m, k)
+        rv, ri = exact_topk_chunks_plain(m, k)
+        torch.cuda.synchronize()
+        check(torch.equal(i, ri) and torch.equal(v, rv), f"K2 K={k}: differs")
+        log(f"[K2] K={k} on {tuple(m.shape)}: identical sets and values")
     errs["exact_topk_chunks"] = sel_err
 
     model = seeded_st(3, seed=0)
@@ -434,31 +484,80 @@ def main():
     ref = fused_st_forward_plain(model, cloud.points, None)
     torch.cuda.synchronize()
     check(got.shape == (64 * 43, 10), f"K1: logits shape {tuple(got.shape)}")
-    check(bool(torch.isfinite(got).all()), "K1: non-finite logits")
-    st_err = (got - ref).abs().max().item()
-    # f32 both sides; the kernel's sum order and __expf differ: 1e-3
-    check(st_err <= 1e-3, f"K1 3ST: max |err| {st_err:.3e} > 1e-3")
-    log(f"[K1] 3ST {tuple(cloud.points.shape)} bf16 points, mask None: "
-        f"max |err| {st_err:.3e}")
+    st_err = k1_check(got, ref, f"3ST {tuple(cloud.points.shape)} bf16 points")
+    f32_err = k1_check(got, model(cloud.points.float()), "3ST vs the f32 ST",
+                       tol=ST_F32_TOL)
+    log(f"[K1] 3ST {tuple(cloud.points.shape)} bf16 points, mask None: max |err| "
+        f"{st_err:.3e} against the plain version (bar {K1_TOL} abs + rel), "
+        f"{f32_err:.3e} against the f32 ST (bar {ST_F32_TOL})")
+    errs["fused_st_forward"] = st_err
+    # every K the kernel must take: FST's 1025-point frames, the serving
+    # default 256, odd sizes; din 2 and 3; f32 and bf16 points; no mask,
+    # ragged masks (one cloud full, one empty) and every key masked
+    t0 = time.perf_counter()
+    worst = {"plain": 0.0, "f32": 0.0}
+    for din in (2, 3):
+        st_model = seeded_st(din, seed=din)
+        for K in K1_POINTS:
+            pts = torch.from_numpy(rng.standard_normal((32, K, din)).astype(
+                np.float32)).to(dev)
+            counts = torch.from_numpy(rng.integers(0, K + 1, 32)).to(dev)
+            counts[:2] = torch.tensor([K, 0], device=dev)
+            masks = {"full": None,
+                     "ragged": torch.arange(K, device=dev)[None, :] < counts[:, None],
+                     "all-masked": torch.zeros(32, K, dtype=torch.bool, device=dev)}
+            for dt in (torch.float32, torch.bfloat16):
+                x = pts.to(dt)
+                for mname, mask in masks.items():
+                    what = f"din {din} K {K} {str(dt)[6:]} {mname}"
+                    got = fused_st_forward(st_model, x, mask)
+                    torch.cuda.synchronize()
+                    worst["plain"] = max(worst["plain"], k1_check(
+                        got, fused_st_forward_plain(st_model, x, mask), what))
+                    worst["f32"] = max(worst["f32"], k1_check(
+                        got, st_model(x.float(), mask), f"{what} vs the f32 ST",
+                        tol=ST_F32_TOL))
+    errs["fused_st_forward"] = max(errs["fused_st_forward"], worst["plain"])
+    log(f"[K1] K in {K1_POINTS} x din 2, 3 x f32, bf16 points x full, ragged, "
+        f"all-masked (32 clouds each): max |err| {worst['plain']:.3e} against "
+        f"the plain version, {worst['f32']:.3e} against the f32 ST "
+        f"({time.perf_counter() - t0:.1f} s)")
     fst = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
              num_heads=8)
     fst.load_state_dict(load_reference_pth(
         os.path.join(ROOT, "artifacts", "roundtrip", "FST_roundtrip_net.pth")))
     fst = fst.to(dev).eval()
-    pts = torch.from_numpy(rng.uniform(-1, 1, (512, 128, 2)).astype(
+    pts = torch.from_numpy(rng.uniform(-1, 1, (512, 1025, 2)).astype(
         np.float32)).to(dev)
-    counts = torch.from_numpy(rng.integers(0, 129, 512)).to(dev)
-    counts[:2] = torch.tensor([128, 0], device=dev)
-    mask = torch.arange(128, device=dev)[None, :] < counts[:, None]
+    counts = torch.from_numpy(rng.integers(0, 1026, 512)).to(dev)
+    counts[:2] = torch.tensor([1025, 0], device=dev)
+    mask = torch.arange(1025, device=dev)[None, :] < counts[:, None]
+    fused_st_forward.launches = 0
     got = fused_st_forward(fst, pts, mask)
-    ref = fused_st_forward_plain(fst, pts, mask)
     torch.cuda.synchronize()
-    fst_err = (got - ref).abs().max().item()
-    check(bool(torch.isfinite(got).all()), "K1 FST: non-finite logits")
-    check(fst_err <= 1e-3, f"K1 FST: max |err| {fst_err:.3e} > 1e-3")
-    log(f"[K1] FST checkpoint, ragged mask (incl. an all-masked cloud): "
-        f"max |err| {fst_err:.3e}")
-    errs["fused_st_forward"] = max(st_err, fst_err)
+    check(fused_st_forward.launches == 1, "K1 FST: the 1025-point frames did "
+          "not go through the kernel")
+    ref = fused_st_forward_plain(fst, pts, mask)
+    # the trained checkpoint's bf16 function is ill-conditioned on a few
+    # frames (logits beyond 100; a rounding that flips either way moves
+    # them): held to the JAX tests' bar
+    fst_err = k1_check(got, ref, "FST checkpoint, 1025 points, ragged",
+                       tol=JAX_K1_TOL)
+    # this trained checkpoint's bf16 function itself (the plain version)
+    # sits beyond the 5e-2 bar from the f32 ST on some frames; K1 may sit
+    # no further than 1.25 x as far
+    f32 = fst(pts, mask)
+    bar = ST_F32_TOL + ST_F32_TOL * f32.abs()
+    plain_rel = ((ref - f32).abs() / bar).max().item()
+    k1_rel = ((got - f32).abs() / bar).max().item()
+    check(k1_rel <= 1.25 * max(plain_rel, 1.0), f"K1 FST: {k1_rel:.3f} x the "
+          f"f32 bar against the plain version's {plain_rel:.3f} x")
+    log(f"[K1] FST checkpoint, 512 frames of 1025 points, ragged mask (incl. "
+        f"an all-masked frame): max |err| {fst_err:.3e} against the plain "
+        f"version (bar {JAX_K1_TOL} abs + rel); against the f32 ST max |err| {(got - f32).abs().max().item():.3e}"
+        f" = {k1_rel:.3f} x the {ST_F32_TOL} bar (the plain version: "
+        f"{plain_rel:.3f} x; max |logit| {f32.abs().max().item():.1f})")
+    errs["fused_st_forward"] = max(errs["fused_st_forward"], fst_err)
     del grids, cloud, got, ref
 
     # ---- 3. the slice: AudioClassifier answers three requests ---------------
@@ -562,12 +661,29 @@ def main():
     times["fused_st_forward"] = paired_ms(
         lambda: fused_st_forward(model, sp, None),
         lambda: fused_st_forward_plain(model, sp, None), 5, 2)
-    # K1 computes in f32 on the SIMT units; no one library call is an ST
-    bounds["fused_st_forward"] = bound_ms(
-        {"f32": float(sp.shape[0] * st_flops(sp.shape[1], 3, DV, 64, 10))},
-        nbytes(sp, *model.parameters()) + 4.0 * sp.shape[0] * 10)
+    # K1's products run on bf16 tensor cores, its softmax exps on the SFU;
+    # the slower of the two bounds it.  No one library call is an ST.
+    bounds["fused_st_forward"] = k1_bound(sp, model)
     lib_ms["fused_st_forward"] = None
-    del pts, sp
+    w_k1 = _packed_weights(model, dev)
+    out_k1 = torch.empty(sp.shape[0], 10, device=dev)
+    split = [cuda_ms(lambda: launch_packed(sp, None, w_k1, out_k1, 64, p), 5)
+             for p in (1, 2, 3)]
+    log(f"[time] K1 B={plain_b} x {sp.shape[1]} points, stage split (launches "
+        f"cut after pass 1, 2, 3): ISAB 1 MAB0 {split[0]:.3f} ms, ISAB 1 MAB1 "
+        f"+ ISAB 2 MAB0 {split[1] - split[0]:.3f} ms, ISAB 2 MAB1 + PMA + "
+        f"Linear {split[2] - split[1]:.3f} ms ({name_limit})")
+    del pts, sp, out_k1
+    torch.cuda.empty_cache()
+    # K1 at the serving default's 256 points a cloud, the same clips
+    cfg256 = dataclasses.replace(CFG, top_k=256)
+    sp = extract_chunk_clouds(bw, bl, cfg256)[0].points
+    k256_ms = cuda_ms(lambda: fused_st_forward(model, sp, None), 5)
+    b256 = k1_bound(sp, model)
+    log(f"[time] K1 at top-K 256: {sp.shape[0]} clouds of {sp.shape[1]} "
+        f"points {k256_ms:.3f} ms, bound {b256[0]:.3f} ms by {b256[1]} "
+        f"({name_limit})")
+    del sp
     torch.cuda.empty_cache()
     e2e = make_temporal_classifier(model, CFG, use_fused_st=True)
     e2e_plain = make_temporal_classifier(model, CFG, use_fused_st=True,

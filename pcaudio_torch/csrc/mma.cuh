@@ -1,6 +1,6 @@
-// mma.sync building blocks shared by the probe kernels (probe_mma.cu,
-// probe_attend.cu): ldmatrix loads from shared memory, the bf16 and s8
-// tensor-core products, cp.async copies.
+// mma.sync building blocks shared by K1 (fused_st.cu) and the probe kernels
+// (probe_mma.cu, probe_attend.cu): ldmatrix loads from shared memory, the
+// bf16 and s8 tensor-core products, cp.async copies, the SFU's 2^x.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
 // with g = lane / 4 and t = lane % 4.  A tile is 16 rows x 32 bytes of K
@@ -93,6 +93,42 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// ldmatrix_x4 with each 8x8 matrix transposed: lane l then holds, of matrix
+// i, the words (rows 2(l%4), 2(l%4)+1; column l/4), the B fragment of a
+// row-major [k, n] tile.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a b, bf16 operands, f32 sums, without `volatile`, so the compiler may
+// schedule these freely (the probe kernels' MmaBf16 keeps program order).
+// m16n8k16: a as above, b = {b0, b1}.
+__device__ __forceinline__ void mma_bf16_k16(float (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// m16n8k8: A regs (row g, k 2t..2t+1), (row g+8, k 2t..2t+1); B (k 2t..2t+1,
+// column g); C as for k16.
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2],
+                                            uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// 2^x on the special-function unit (2 ulp; -inf gives +0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Four s8 values (already integers in [-128, 127]) as one register, the

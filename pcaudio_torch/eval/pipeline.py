@@ -27,8 +27,13 @@ from pcaudio_torch.ops.kernels.select import (
 
 @dataclasses.dataclass(frozen=True)
 class TemporalPipelineConfig:
-    """3ST pipeline config; fields and defaults as the JAX package's, except
-    ``featurize``, whose only ported value is ``"fused"``."""
+    """3ST pipeline config: the JAX package's fields and defaults, except
+    that ``featurize``'s only ported value is ``"fused"`` and that the JAX
+    package's ``approx_recall``, ``exact_kernel`` and ``st_block_b`` are
+    absent.  Those three tune the TPU kernels (``lax.approx_max_k``'s
+    recall, the Pallas select against ``lax.top_k``, the fused ST's clouds
+    per grid step) and have no counterpart here; a config that passes them
+    raises ``TypeError``."""
 
     fs: int = 44100
     target_fs: Optional[int] = None

@@ -35,8 +35,9 @@ _SIGNATURES = {
     "pcaudio_trim_bounds": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "pcaudio_chunk_mag2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
-    "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P,
-                         _I, _I, _I, _I, _I, _P],
+    "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P, _L, _P,
+                         _I, _I, _I, _I, _I, _I, _P],
+    "pcaudio_fused_st_max_points": [_I],
     "pcaudio_mha_fwd": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P],
@@ -96,7 +97,8 @@ def build() -> Path:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({failed}):\n{''.join(logs)[-4000:]}")
+        bad = "".join(log for src, p, log in zip(srcs, procs, logs) if p.returncode)
+        raise RuntimeError(f"nvcc failed ({failed}):\n{(bad or logs[-1])[-4000:]}")
     os.replace(tmp, lib)
     return lib
 

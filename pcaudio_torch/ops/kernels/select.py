@@ -14,7 +14,16 @@ import torch
 
 from pcaudio_torch.ops.kernels import _build
 
-MAX_K = 256
+# the kernel keeps a chunk's Nt·F keys (4 bytes each) in one block's shared
+# memory, beside 2 KB of its own (csrc/select.cu::pcaudio_topk_chunks)
+MAX_CHUNK = (227 * 1024 - 2048) // 4
+
+
+def max_k(chunk_len: int) -> int:
+    """The largest K the kernel takes for chunks of ``chunk_len`` = Nt·F
+    values: every value, while the chunk fits in shared memory (57,600
+    values), else 0 (no K)."""
+    return chunk_len if 1 <= chunk_len <= MAX_CHUNK else 0
 
 
 def _check(mags: torch.Tensor, K: int) -> None:
@@ -22,8 +31,12 @@ def _check(mags: torch.Tensor, K: int) -> None:
         raise ValueError(f"mags [N, Nt, F] expected, got {tuple(mags.shape)}")
     if mags.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mags must be float32 or bfloat16, got {mags.dtype}")
-    if not 1 <= K <= min(MAX_K, mags.shape[1] * mags.shape[2]):
-        raise ValueError(f"K={K} outside [1, min({MAX_K}, Nt·F)]")
+    L = mags.shape[1] * mags.shape[2]
+    if L > MAX_CHUNK:
+        raise ValueError(f"a chunk of Nt·F = {L} values exceeds the kernel's "
+                         f"{MAX_CHUNK} (its shared memory)")
+    if not 1 <= K <= max_k(L):
+        raise ValueError(f"K={K} outside [1, Nt·F = {L}]")
 
 
 def exact_topk_chunks_plain(mags: torch.Tensor, K: int

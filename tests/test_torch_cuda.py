@@ -7,17 +7,22 @@ This file imports no jax, so it runs where only PyTorch is installed:
 
 Every test needs an NVIDIA GPU and skips elsewhere.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from pcaudio_torch.dsp import stft_window, trim_bounds
 from pcaudio_torch.eval import TemporalPipelineConfig, make_temporal_classifier
+from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
+from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.fused_st import (
-    fused_st_forward, fused_st_forward_plain)
+    _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed,
+    max_points)
 from pcaudio_torch.ops.kernels.mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
     fused_mha_plain)
@@ -42,12 +47,19 @@ def _full_st(din, device):
               num_heads=8).to(device).eval()
 
 
-@pytest.mark.parametrize("din,K,pattern", [(3, 128, "full"), (3, 64, "ragged"),
-                                           (2, 100, "all_masked")])
-def test_fused_st_kernel_matches_plain(cuda, din, K, pattern):
-    """K1 vs the plain ST, both f32 on the card: 1e-3 (the kernel's
-    summation order and __expf differ from cuBLAS and torch.exp)."""
-    model = _full_st(din, cuda)
+@pytest.mark.parametrize("din,K,pattern,M", [
+    (3, 128, "full", 64), (3, 64, "ragged", 64), (2, 100, "all_masked", 64),
+    (3, 256, "full", 64), (2, 1025, "ragged", 64), (2, 1280, "ragged", 64),
+    (3, 17, "ragged", 20), (3, 200, "ragged", 128), (2, 1024, "full", 128)])
+def test_fused_st_kernel_matches_plain(cuda, din, K, pattern, M):
+    """K1 vs its plain version (both round to bf16 at the same places):
+    |err| <= 1e-2 + 1e-2·|ref| (a value at a rounding boundary can round
+    either way after another summation order or the online softmax's
+    rescaling); and vs the f32 ST within the JAX tests' 5e-2.  Up to the
+    kernel's point limit, with 4 warps (num_inds <= 64) and 8."""
+    torch.manual_seed(0)
+    model = ST(dim_input=din, dim_output=10, num_inds=M, dim_hidden=64,
+               num_heads=8).to(cuda).eval()
     rng = np.random.default_rng(4)
     B = 6
     pts = torch.from_numpy(rng.standard_normal((B, K, din)).astype(np.float32)).to(cuda)
@@ -58,18 +70,77 @@ def test_fused_st_kernel_matches_plain(cuda, din, K, pattern):
         if pattern == "all_masked":
             counts[1] = counts[-1] = 0
         mask = (torch.arange(K)[None, :] < counts[:, None]).to(cuda)
-    before = fused_st_forward.launches
-    got = fused_st_forward(model, pts, mask)
+    for x in (pts, pts.bfloat16()):
+        before = fused_st_forward.launches
+        got = fused_st_forward(model, x, mask)
+        torch.cuda.synchronize()
+        assert fused_st_forward.launches == before + 1
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, fused_st_forward_plain(model, x, mask),
+                                   atol=1e-2, rtol=1e-2)
+        torch.testing.assert_close(got, model(x.float(), mask), atol=5e-2, rtol=5e-2)
+
+
+def test_fused_st_limits_match_the_kernel(cuda):
+    """The wrapper's point limit is the kernel's own, and the kernel refuses
+    one point more."""
+    lib = _build.library()
+    for m in (1, 16, 64, 65, 128, 129):
+        assert lib.pcaudio_fused_st_max_points(m) == max_points(m)
+    model = _full_st(2, cuda)
+    pts = torch.zeros(1, max_points(64) + 1, 2, device=cuda)
+    w = _packed_weights(model, cuda)
+    out = torch.empty(1, 10, device=cuda)
+    with pytest.raises(RuntimeError, match="pcaudio_fused_st"):
+        launch_packed(pts, None, w, out, 64)
+
+
+def test_serve_default_top_k_through_kernel(cuda, tmp_path):
+    """from_reference_checkpoint's default top_k (256 points a cloud)
+    serves a full-width 3ST through K1-K3, as its plain path does."""
+    ref_cfg = {"architecture": "3ST (Set Transformer Temporal)",
+               "window_size": 1024, "hop_factor": 0.5, "trim_dB": 60,
+               "sampling_rate": 44100, "classes": 10, "dhidden": 64,
+               "nheads": 8, "ninds": 64, "Ntemp": 10, "np_seed": 1}
+    (tmp_path / "3ST_config.json").write_text(json.dumps(ref_cfg))
+    model = _full_st(3, "cpu")
+    torch.save({f"module.{k}": v for k, v in model.state_dict().items()},
+               tmp_path / "3ST_net.pth")
+    clf = AudioClassifier.from_reference_checkpoint(
+        str(tmp_path / "3ST_config.json"), str(tmp_path / "3ST_net.pth"),
+        batch_size=4, device="cuda")
+    assert clf.pipeline.top_k == 256
+    rng = np.random.default_rng(6)
+    clips = [(0.2 * rng.standard_normal(n)).astype(np.float32)
+             for n in (220500, 100000, 50000)]
+    fns = (fused_chunk_mag2, exact_topk_chunks, fused_st_forward)
+    counts = [f.launches for f in fns]
+    got = torch.from_numpy(clf.logits(clips))
+    assert all(f.launches > c for f, c in zip(fns, counts))
+    ref = torch.from_numpy(AudioClassifier(model=clf.model, pipeline=clf.pipeline,
+                                           batch_size=4, device="cuda",
+                                           plain=True).logits(clips))
+    dev = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and dev <= 5e-2
+    top2 = ref.sort(dim=-1).values[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
+    assert torch.equal(got.argmax(-1)[decided], ref.argmax(-1)[decided])
+
+
+@pytest.mark.parametrize("K", [512, 5120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_kernel_large_k(cuda, K, dtype):
+    """K2 above the TPU kernel's 256: expt 2's 512 and every bin of a
+    10 x 512 chunk, exactly its plain version, ties included."""
+    rng = np.random.default_rng(2)
+    m = np.floor(np.abs(rng.standard_normal((7, 10, 512))) * 5.0) / 4.0
+    x = torch.from_numpy(m.astype(np.float32)).to(device=cuda, dtype=dtype)
+    before = exact_topk_chunks.launches
+    gv, gi = exact_topk_chunks(x, K)
     torch.cuda.synchronize()
-    assert fused_st_forward.launches == before + 1
-    assert torch.isfinite(got).all()
-    torch.testing.assert_close(got, fused_st_forward_plain(model, pts, mask),
-                               atol=1e-3, rtol=0)
-    # bf16 points are widened exactly
-    got16 = fused_st_forward(model, pts.bfloat16(), mask)
-    torch.testing.assert_close(
-        got16, fused_st_forward_plain(model, pts.bfloat16(), mask),
-        atol=1e-3, rtol=0)
+    assert exact_topk_chunks.launches == before + 1
+    rv, ri = exact_topk_chunks_plain(x, K)
+    assert torch.equal(gi, ri) and torch.equal(gv, rv)
 
 
 @pytest.mark.parametrize("K,F", [(128, 512), (64, 512), (128, 130), (256, 1025)])

@@ -7,7 +7,8 @@
 1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a);
 2. holds each kernel against its plain PyTorch version on the card at the
    serving path's shapes (featurize B=64 x 5 s clips; select on that grid, on
-   a tie-heavy grid and at K 512 and 5120; the ST on the resulting 64*43
+   a tie-heavy grid, at K 512 and 5120, on a grid with -0.0 entries, at K 1
+   and K = Nt·F on a tie-heavy grid and on one chunk; the ST on the 64*43
    clouds, at K 1, 17, 128, 256 and 1025 with din 2 and 3, f32 and bf16
    points, no, ragged and all-masked masks, also against the f32 ST, and
    with the trained FST checkpoint on 1025-point ragged-masked 2-D clouds);
@@ -19,7 +20,9 @@
    bench shape (B=1024 clips of 5 s, 44,032 chunk clouds); times K3 a second
    way, on ragged traffic (synthetic clips of random lengths with trimmed
    lead-ins, checked against its plain version there too), prints the
-   device time of each of K3's two launches on both batches, K1's time split
+   device time of each of K3's two launches on both batches, K2 at K 256
+   and 5120 and on the f32 noise, ragged and tie-heavy grids (each held
+   against its plain version there first), K1's time split
    by its three passes (launches cut after each) and K1 at 256 points a
    cloud, and the serving path's device time by kernel and the device's
    idle share (``torch.profiler``);
@@ -83,6 +86,7 @@ from pcaudio_torch.ops.kernels.mha import (
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.probes import PROBES
+from pcaudio_torch.probes.clips import FS, L, negzero_grid, ragged_waves, synthetic_waves
 from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
 from pcaudio_torch.probes.timing import (
     bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
@@ -92,8 +96,6 @@ from pcaudio_torch.train import (
     prepare_temporal_data)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-FS = 44100
-L = 220672            # 5 s at 44.1 kHz, as bench.py
 BENCH_B = 1024
 TOP_K = 128
 CFG = TemporalPipelineConfig(fs=FS, n_fft=1024, num_frames=10, top_k=TOP_K,
@@ -148,38 +150,6 @@ def seeded_st(din, seed):
           for k, v in model.state_dict().items()}
     model.load_state_dict(sd)
     return model.cuda().eval()
-
-
-def synthetic_waves(B, rng):
-    """Tones plus noise at 44.1 kHz, length 220500, with the edge cases the
-    featurize kernel must keep finite and masked."""
-    t = np.arange(L, dtype=np.float32) / FS
-    f0 = rng.uniform(100.0, 4000.0, (B, 1)).astype(np.float32)
-    w = (0.3 * np.sin(2 * np.pi * f0 * t) * rng.uniform(0.1, 1.0, (B, 1))
-         + 0.02 * rng.standard_normal((B, L))).astype(np.float32)
-    lengths = np.full(B, 220500, np.int32)
-    w[1, :FS] = 0.0                  # 1 s of leading and trailing silence
-    w[1, 220500 - FS:] = 0.0
-    lengths[2] = 700                 # shorter than n_fft
-    lengths[3] = 1
-    w[:, 220500:] = 0.0
-    return w, lengths
-
-
-def ragged_waves(B, rng):
-    """synthetic_waves with the traffic the noise batch never sends: each
-    clip cut to a random length from 0.5 s to 5 s (zeros past it) and every
-    other clip led in by up to 1 s of near-silence (-100 dB) that the 60 dB
-    trim cuts, so trim starts and last frames fall anywhere."""
-    w, lengths = synthetic_waves(B, rng)
-    cut = rng.integers(FS // 2, 220500, B)
-    lead = rng.integers(0, FS, B)
-    for i in range(4, B):
-        lengths[i] = cut[i]
-        w[i, cut[i]:] = 0.0
-        if i % 2:
-            w[i, :lead[i]] *= 1e-5
-    return w, lengths
 
 
 def k3_check(g, gm, r, rm, dt, what):
@@ -476,6 +446,24 @@ def main():
         torch.cuda.synchronize()
         check(torch.equal(i, ri) and torch.equal(v, rv), f"K2 K={k}: differs")
         log(f"[K2] K={k} on {tuple(m.shape)}: identical sets and values")
+    # -0.0 ties with 0.0 (a tie grid, 99 % zeros, half of them -0.0, so
+    # that the top K reaches into the zeros); K 1 and every bin on a
+    # tie-heavy bf16 grid; one chunk, fewer than the SMs
+    negzero = torch.from_numpy(negzero_grid(512, 512, seed=3)).to(dev)
+    for label, m, k in (("-0.0 grid", negzero, TOP_K),
+                        ("-0.0 grid bf16", negzero.bfloat16(), TOP_K),
+                        ("tie-heavy bf16 K=1", tie_grid.bfloat16(), 1),
+                        ("tie-heavy bf16 K=Nt·F", tie_grid.bfloat16(), 5120),
+                        ("one chunk", grids[torch.float32].reshape(-1, 10, 512)[5:6], TOP_K),
+                        ("one chunk bf16 K=Nt·F", tie_grid[7:8].bfloat16(), 5120)):
+        v, i = exact_topk_chunks(m, k)
+        rv, ri = exact_topk_chunks_plain(m, k)
+        torch.cuda.synchronize()
+        check(torch.equal(i, ri), f"K2 {label}: selected indices differ")
+        check(torch.equal(v, rv), f"K2 {label}: values differ")
+        log(f"[K2] {label} {tuple(m.shape)} K={k}: identical sets and values"
+            + (f" ({int(torch.signbit(v).sum())} -0.0 values selected)"
+               if label.startswith("-0.0") else ""))
     errs["exact_topk_chunks"] = sel_err
 
     model = seeded_st(3, seed=0)
@@ -636,7 +624,7 @@ def main():
         f"trim_bounds_kernel {rtrim_ms:.4f} ms + frames_mag2_kernel "
         f"{rframes_ms:.4f} ms of device time; bf16 max |err| {rag_err:.3e} "
         f"(rel to chunk max {rag_rel:.3e}) ({name_limit})")
-    del rw, rl, rg, rgm, rr, rrm
+    del rw, rl, rgm, rr, rrm
     torch.cuda.empty_cache()
     grid = grid.reshape(-1, 10, 512)
     times["exact_topk_chunks"] = paired_ms(
@@ -646,6 +634,30 @@ def main():
     # yardstick: torch.topk of each flattened chunk (its tie order differs)
     flat = grid.reshape(grid.shape[0], -1)
     lib_ms["exact_topk_chunks"] = cuda_ms(lambda: torch.topk(flat, TOP_K), 10)
+
+    def k2_time(label, m, k):
+        v, i = exact_topk_chunks(m, k)
+        rv, ri = exact_topk_chunks_plain(m, k)
+        check(torch.equal(i, ri) and torch.equal(v, rv),
+              f"K2 {label} at the bench shape, K {k}: differs from the plain version")
+        del v, i, rv, ri
+        ms = cuda_ms(lambda: exact_topk_chunks(m, k), 10)
+        b = bound_ms({}, nbytes(m) + m.shape[0] * k * 8.0)[0]
+        log(f"[time] K2 {label}, {m.shape[0]} chunks of 10 x 512 "
+            f"{str(m.dtype)[6:]}, K {k} (identical to the plain version): {ms:.4f} ms, bound {b:.4f} ms by bytes "
+            f"({name_limit})")
+    # K2 on the other grids serving sends it, and at other K
+    for k in (256, 5120):
+        k2_time("noise", grid, k)
+    g32 = fused_chunk_mag2(bw, bl, out_dtype=torch.float32)[0].reshape(-1, 10, 512)
+    k2_time("noise", g32, TOP_K)
+    del g32
+    k2_time("ragged (K3 of ragged_waves)", rg.reshape(-1, 10, 512), TOP_K)
+    del rg
+    ties = (torch.floor(torch.rand(grid.shape, device=dev, generator=gen) * 16) / 4
+            ).bfloat16()
+    k2_time("tie-heavy (16 levels)", ties, TOP_K)
+    del ties
     cloud, _ = extract_chunk_clouds(bw, bl, CFG)
     pts = cloud.points
     del grid, flat, cloud

@@ -14,8 +14,9 @@ import torch
 
 from pcaudio_torch.ops.kernels import _build
 
-# the kernel keeps a chunk's Nt·F keys (4 bytes each) in one block's shared
-# memory, beside 2 KB of its own (csrc/select.cu::pcaudio_topk_chunks)
+# the kernel keeps a chunk's Nt·F values (4 bytes each in f32) in one block's
+# shared memory beside 1.6 KB of its own, and counts a digit's keys in 16
+# bits (csrc/select.cu::kMaxChunk; a test runs the kernel at this size)
 MAX_CHUNK = (227 * 1024 - 2048) // 4
 
 
@@ -43,10 +44,12 @@ def exact_topk_chunks_plain(mags: torch.Tensor, K: int
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: a stable descending sort of each flattened chunk (equal
     values keep flat order, unlike ``torch.topk``, whose tie order is
-    unspecified on CUDA), the first K, re-sorted by index."""
+    unspecified on CUDA), the first K, re-sorted by index.  The sort key is
+    ``value + 0.0``, which is the value except that -0.0 becomes 0.0, so
+    -0.0 ties with 0.0 whatever the sort's treatment of signed zeros."""
     _check(mags, K)
     flat = mags.reshape(mags.shape[0], -1).float()
-    order = torch.sort(flat, dim=-1, descending=True, stable=True).indices
+    order = torch.sort(flat + 0.0, dim=-1, descending=True, stable=True).indices
     idx = order[:, :K].sort(dim=-1).values
     return flat.gather(1, idx), idx.to(torch.int32)
 
@@ -57,7 +60,9 @@ def exact_topk_chunks(mags: torch.Tensor, K: int
     f32, flat_indices [N, K] int32)`` in ascending flat-index order.
 
     Values must be non-negative (squared magnitudes are): the kernel orders
-    values by their IEEE bit patterns.  CPU tensors take
+    values by their IEEE bit patterns with the sign cleared, so -0.0 is
+    taken as 0.0 (it ties with 0.0 in flat order), as in the JAX kernel; a
+    selected -0.0 comes back as -0.0.  CPU tensors take
     :func:`exact_topk_chunks_plain`; CUDA tensors the kernel.
     """
     if mags.device.type == "cpu":

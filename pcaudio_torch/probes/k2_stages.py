@@ -1,0 +1,198 @@
+"""Where K2's time goes, on the card: ``csrc/select.cu`` at the bench shape
+(44,032 chunks of 10 x 512 bf16 |X|² at K 128) as built, cut after its
+load (``kStopAfter = 1``) and once tau is found (``kStopAfter = 2``), on
+three grids: K3's grid of the bench's noise clips, a tie-heavy
+grid (16 levels) and K3's grid of ragged clips (``clips.ragged_waves``;
+about half the chunks invalid).  Given the source of an earlier design
+(``--old-source``, e.g. from ``git show
+472eb60:pcaudio_torch/csrc/select.cu``), it cuts and times that one the
+same way, on the same grids, in the same process, and runs both on a grid
+with -0.0 entries against the plain version.  Each variant is its own
+shared library, built with ``nvcc`` into ``build/k2_stages/``.
+
+    python -m pcaudio_torch.probes.k2_stages [--old-source PATH] [--old-only]
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from pcaudio_torch.ops.kernels import _build
+from pcaudio_torch.ops.kernels.featurize import fused_chunk_mag2
+from pcaudio_torch.ops.kernels.select import exact_topk_chunks_plain
+from pcaudio_torch.probes.clips import L, negzero_grid, ragged_waves
+from pcaudio_torch.probes.timing import bound_ms, card, cuda_ms
+
+B, NT, F, K = 1024, 10, 512, 128
+OUT = _build.BUILD_DIR.parent / "k2_stages"
+STAGES = ("load", "tau", "whole")   # each design's cuts
+Edit = Tuple[str, str]
+
+# the design built from csrc/select.cu: its stop constant
+CURRENT_EDITS: Dict[str, List[Edit]] = {
+    "load": [("constexpr int kStopAfter = 0;", "constexpr int kStopAfter = 1;")],
+    "tau": [("constexpr int kStopAfter = 0;", "constexpr int kStopAfter = 2;")],
+}
+
+# the design before this one (one 256-thread block a chunk, keys in shared
+# memory, 472eb60): returns after the load or
+# once tau is found, each reading what it computed so that the compiler
+# keeps it (the condition never holds for finite keys)
+_OLD_CONST = ("constexpr int kSelectThreads = 256;\n",
+              "constexpr int kSelectThreads = 256;\nconstexpr int kStopAfter = {n};\n")
+_OLD_LOAD = ("  unsigned prefix = 0, known = 0;  // digits found so far, and their bits\n",
+             "  if (kStopAfter == 1) {\n    __syncthreads();\n"
+             "    if (keys[(threadIdx.x * 7) % L] == 0xffffffffu) out_i[blockIdx.x] = 0;\n"
+             "    return;\n  }\n"
+             "  unsigned prefix = 0, known = 0;  // digits found so far, and their bits\n")
+_OLD_TAU = ("  const int need = krem;  // keys == tau to take; keys > tau number K - need\n",
+            "  const int need = krem;  // keys == tau to take; keys > tau number K - need\n"
+            "  if (kStopAfter == 2) {\n"
+            "    if (tau == 0xffffffffu && threadIdx.x == 0) out_i[blockIdx.x] = need;\n"
+            "    return;\n  }\n")
+OLD_EDITS: Dict[str, List[Edit]] = {
+    stage: [(_OLD_CONST[0], _OLD_CONST[1].format(n=n)), _OLD_LOAD, _OLD_TAU]
+    for stage, n in (("load", 1), ("tau", 2))}
+
+
+def apply_edits(text: str, edits: List[Edit], what: str) -> str:
+    """``text`` with each (old, new) replaced; raises ``ValueError`` naming
+    the missing text where an edit does not apply."""
+    for old, new in edits:
+        if old not in text:
+            raise ValueError(f"{what}: the text {old.strip()!r} is not in the source, "
+                             f"so this edit does not apply")
+        text = text.replace(old, new)
+    return text
+
+
+def stage_sources(text: str, edits: Dict[str, List[Edit]], what: str) -> Dict[str, str]:
+    """The variants of one design's ``select.cu``: one per edit list (cut
+    after the load, cut once tau is found, ...) and whole."""
+    out = {stage: apply_edits(text, e, f"{what}, stage {stage!r}")
+           for stage, e in edits.items()}
+    out["whole"] = text
+    return out
+
+
+def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
+    """One shared library a variant, all ``nvcc`` started together."""
+    procs = {}
+    for name, text in sources.items():
+        d = OUT / name.replace(" ", "_")
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "common.cuh").write_text((_build.CSRC / "common.cuh").read_text())
+        (d / "select.cu").write_text(text)
+        procs[name] = (d / "lib.so", subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "select.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (lib, p) in procs.items():
+        log = p.communicate()[0]
+        if p.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line) and name.endswith("whole"):
+                print(f"[ptxas] {name}: {line.strip()}")
+        fn = ctypes.CDLL(str(lib))
+        fn.pcaudio_topk_chunks.argtypes = _build._SIGNATURES["pcaudio_topk_chunks"]
+        fn.pcaudio_topk_chunks.restype = ctypes.c_int
+        libs[name] = fn
+    return libs
+
+
+def _select(lib: ctypes.CDLL, name: str, grid: torch.Tensor, k: int):
+    n = grid.shape[0]
+    vals = torch.empty(n, k, device=grid.device)
+    idx = torch.zeros(n, k, dtype=torch.int32, device=grid.device)
+
+    def launch():
+        code = lib.pcaudio_topk_chunks(
+            grid.data_ptr(), int(grid.dtype == torch.bfloat16), vals.data_ptr(),
+            idx.data_ptr(), n, grid.shape[1] * grid.shape[2], k,
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"{name}: launch failed ({code})")
+    return launch, vals, idx
+
+
+def grids(dev) -> Dict[str, torch.Tensor]:
+    """The bench shape's bf16 grids: K3 on the bench's noise clips, a
+    tie-heavy grid of 16 levels, K3 on ragged clips."""
+    gen = torch.Generator(dev).manual_seed(0)
+    lengths = torch.full((B,), 220500, dtype=torch.int32, device=dev)
+    waves = 0.1 * torch.randn(B, L, device=dev, generator=gen)
+    noise = fused_chunk_mag2(waves, lengths, out_dtype=torch.bfloat16)[0]
+    del waves
+    rw, rl = (torch.from_numpy(a).to(dev)
+              for a in ragged_waves(B, np.random.default_rng(7)))
+    ragged, rmask = fused_chunk_mag2(rw, rl, out_dtype=torch.bfloat16)
+    print(f"[K2 stages] ragged grid: {int(rmask.sum())} of {rmask.numel()} chunks valid")
+    del rw, rl
+    noise = noise.reshape(-1, NT, F)
+    ties = (torch.floor(torch.rand(noise.shape, device=dev, generator=gen) * 16) / 4
+            ).bfloat16()
+    return {"noise": noise, "tie-heavy": ties, "ragged": ragged.reshape(-1, NT, F)}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old-source", help="an earlier design's select.cu")
+    ap.add_argument("--old-only", action="store_true",
+                    help="time only the --old-source design")
+    args = ap.parse_args(argv)
+    if args.old_only and not args.old_source:
+        ap.error("--old-only needs --old-source")
+    dev = torch.device("cuda")
+    name_limit = card()
+    designs = {}
+    if not args.old_only:
+        designs["current"] = stage_sources((_build.CSRC / "select.cu").read_text(),
+                                           CURRENT_EDITS, "csrc/select.cu")
+    if args.old_source:
+        with open(args.old_source) as f:
+            designs["old"] = stage_sources(f.read(), OLD_EDITS, args.old_source)
+    libs = _build_all({f"{d} {s}": text for d, srcs in designs.items()
+                       for s, text in srcs.items()})
+
+    neg = torch.from_numpy(negzero_grid(512, F, seed=3)).to(dev)
+    for flat in (False, True):
+        x = neg.bfloat16() if flat else neg
+        rv, ri = exact_topk_chunks_plain(x, K)
+        for d in designs:
+            launch, v, i = _select(libs[f"{d} whole"], d, x, K)
+            launch()
+            torch.cuda.synchronize()
+            bad = int(((i != ri).any(1) | (v != rv).any(1)).sum())
+            print(f"[K2 stages] {d} design, -0.0 grid {tuple(x.shape)} {x.dtype}: "
+                  + ("identical to the plain version" if not bad else
+                     f"differs from the plain version on {bad} of {x.shape[0]} chunks"))
+            if d == "current" and bad:
+                raise AssertionError("the current K2 differs from its plain version "
+                                     "on the -0.0 grid")
+
+    for gname, grid in grids(dev).items():
+        n = grid.shape[0]
+        b = bound_ms({}, grid.numel() * grid.element_size() + n * K * 8.0)[0]
+        for d in designs:
+            t = {}
+            for s in STAGES:
+                launch, _, _ = _select(libs[f"{d} {s}"], f"{d} {s}", grid, K)
+                t[s] = cuda_ms(launch, 10)
+            print(f"[K2 stages] {d} design, {gname} grid, {n} chunks of {NT} x {F} "
+                  f"bf16, K {K}: load {t['load']:.4f} ms, histogram passes "
+                  f"{t['tau'] - t['load']:.4f} ms (cut at tau {t['tau']:.4f}), "
+                  f"compaction {t['whole'] - t['tau']:.4f} ms, whole {t['whole']:.4f} "
+                  f"ms; bound {b:.4f} ms by bytes ({name_limit})", flush=True)
+        del grid
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

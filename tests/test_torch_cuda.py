@@ -27,7 +27,8 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
     fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
-    exact_topk_chunks, exact_topk_chunks_plain)
+    MAX_CHUNK, exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.probes.clips import negzero_grid
 
 pytestmark = pytest.mark.cuda
 
@@ -143,25 +144,90 @@ def test_select_kernel_large_k(cuda, K, dtype):
     assert torch.equal(gi, ri) and torch.equal(gv, rv)
 
 
-@pytest.mark.parametrize("K,F", [(128, 512), (64, 512), (128, 130), (256, 1025)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "subnormal"])
-def test_select_kernel_matches_plain(cuda, K, F, dtype, kind):
-    """K2 == the plain version exactly, ties and subnormals included."""
-    rng = np.random.default_rng(1)
-    m = np.abs(rng.standard_normal((5, 10, F))).astype(np.float32)
+def _select_grid(N, F, kind, device, dtype, seed=1):
+    """[N, 10, F] non-negative grids for K2.  "negzero": ``negzero_grid``
+    (-0.0 entries); "equal": every chunk one non-zero value; "mixed":
+    all-zero, all-equal and noise chunks in turn."""
+    if kind == "negzero":
+        return torch.from_numpy(negzero_grid(N, F, seed)).to(device=device, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    m = np.abs(rng.standard_normal((N, 10, F))).astype(np.float32)
     if kind == "ties":
         m = np.floor(m * 5.0).clip(0, 15).astype(np.float32) / 4.0
-    elif kind == "zeros":
+    if kind == "zeros":
         m = np.zeros_like(m)
-        m[1, 3, 7] = 1.0
+        m[1 % N, 3, 7] = 1.0
     elif kind == "subnormal":
         m = m * np.float32(1e-39)
-    x = torch.from_numpy(m).to(device=cuda, dtype=dtype)
+    elif kind == "equal":
+        m = np.repeat(rng.uniform(0.5, 2.0, (N, 1, 1)), 10 * F).reshape(N, 10, F)
+    elif kind == "mixed":
+        m[0::3] = 0.0
+        m[1::3] = 0.75
+    return torch.from_numpy(m.astype(np.float32)).to(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("K", [128, 512, MAX_CHUNK])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_kernel_largest_chunk(cuda, K, dtype):
+    """K2 at the largest chunk it takes (Nt·F = MAX_CHUNK, one buffer and
+    the histograms fill a block's shared memory), exactly its plain
+    version."""
+    x = _select_grid(3, MAX_CHUNK // 10, "ties", cuda, dtype)
+    gv, gi = exact_topk_chunks(x, K)
+    torch.cuda.synchronize()
+    rv, ri = exact_topk_chunks_plain(x, K)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("K,F", [(128, 512), (64, 512), (128, 130), (256, 1025)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["random", "ties", "zeros", "subnormal", "negzero",
+                                  "equal"])
+def test_select_kernel_matches_plain(cuda, K, F, dtype, kind):
+    """K2 == the plain version exactly, ties and subnormals included; -0.0
+    ties with 0.0 in flat order; all-equal non-zero chunks take the first
+    K."""
+    x = _select_grid(5, F, kind, cuda, dtype)
     before = exact_topk_chunks.launches
     gv, gi = exact_topk_chunks(x, K)
     torch.cuda.synchronize()
     assert exact_topk_chunks.launches == before + 1
+    rv, ri = exact_topk_chunks_plain(x, K)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("N", [1, 133])
+@pytest.mark.parametrize("K", ["1", "all"])
+@pytest.mark.parametrize("F", [512, 130, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ties", "negzero"])
+def test_select_kernel_n_and_k_edges(cuda, N, K, F, dtype, kind):
+    """K2 == the plain version at K 1 and K = Nt·F, for one chunk (fewer
+    than the SMs) and 133 (not a multiple of the persistent grid), with
+    16-byte-aligned chunks (F 512 and 64) and unaligned ones (F 130)."""
+    x = _select_grid(N, F, kind, cuda, dtype, seed=N)
+    k = 1 if K == "1" else 10 * F
+    gv, gi = exact_topk_chunks(x, k)
+    torch.cuda.synchronize()
+    rv, ri = exact_topk_chunks_plain(x, k)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv, rv)
+
+
+@pytest.mark.parametrize("K", [128, 256])
+@pytest.mark.parametrize("F", [512, 130, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_kernel_walks_many_chunks(cuda, K, F, dtype):
+    """K2 == the plain version on 5,000 chunks, several a persistent block,
+    where all-zero and all-equal chunks (no radix pass) alternate with noise
+    chunks, so a block's next chunk arrives while its warps leave the last
+    one by different paths."""
+    x = _select_grid(5000, F, "mixed", cuda, dtype, seed=F)
+    gv, gi = exact_topk_chunks(x, K)
+    torch.cuda.synchronize()
     rv, ri = exact_topk_chunks_plain(x, K)
     assert torch.equal(gi, ri)
     assert torch.equal(gv, rv)

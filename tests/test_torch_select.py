@@ -9,12 +9,17 @@ import jax.numpy as jnp
 
 from pcaudio.ops.kernels.select import exact_topk_chunks as jax_topk
 from pcaudio_torch.ops.kernels.select import exact_topk_chunks_plain
+from pcaudio_torch.probes.clips import negzero_grid
 
 
 def _mags(N, F, kind, seed=0):
     """Non-negative [N, 10, F] grids; "ties" quantises to 16 levels so the
     K-th value is shared by many entries.  No subnormal values: the JAX
-    kernel's threshold search stops at 2^-126."""
+    kernel's threshold search stops at 2^-126.  "negzero" is the tie grid
+    with 99 % of its entries zeroed, half of those as -0.0, so that the
+    top K reaches into the zeros and -0.0 must tie with 0.0."""
+    if kind == "negzero":
+        return negzero_grid(N, F, seed)
     rng = np.random.default_rng(seed)
     m = np.abs(rng.standard_normal((N, 10, F))).astype(np.float32)
     if kind == "ties":
@@ -24,7 +29,7 @@ def _mags(N, F, kind, seed=0):
 
 @pytest.mark.parametrize("K,F", [(128, 512), (64, 512), (128, 130)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["random", "ties"])
+@pytest.mark.parametrize("kind", ["random", "ties", "negzero"])
 def test_plain_select_matches_jax_kernel(K, F, dtype, kind):
     m = _mags(3, F, kind)
     jm = jnp.asarray(m).astype(dtype)

@@ -48,7 +48,15 @@
    clips a block, and with each clip's rows shifted by its trim start),
    holding each probe kernel against its plain version (the integer
    products and sums exactly, the DFT within a bound derived per element)
-   and printing each probe's answer beside the card's name and power limit.
+   and printing each probe's answer beside the card's name and power limit;
+9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
+   batch 512) through ``AudioClassifier.classify_paths``: the native ring
+   with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
+   int16 staging gives the f32 staging's logits bit for bit, that both equal
+   ``logits`` on the clips decoded in memory, also for 12 batches of 64
+   through the ring's 6 slots, then runs the probe's timings
+   (``pcaudio_torch.probes.ingest``: decode-only and end-to-end clips/s,
+   H2D and compute ms a batch, the idle share, request latency p50/p99).
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -70,7 +78,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pcaudio_torch import cli
+from pcaudio_torch import cli, native
 from pcaudio_torch.checkpoint import load_reference_pth
 from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves
 from pcaudio_torch.eval import (
@@ -85,7 +93,7 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
-from pcaudio_torch.probes import PROBES
+from pcaudio_torch.probes import PROBES, ingest
 from pcaudio_torch.probes.clips import FS, L, negzero_grid, ragged_waves, synthetic_waves
 from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
 from pcaudio_torch.probes.timing import (
@@ -133,6 +141,7 @@ ST_F32_TOL = 5e-2
 SERVE_DEV_TOL = 5e-2
 N_FFT, HOP = 1024, 512
 CLIPS_PER_CLASS = 8   # of the corpus' 40: about 100 FST steps per epoch
+INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
 
 
 def log(msg):
@@ -374,6 +383,76 @@ def train_phase(work, dev):
         f"top_k {clf.pipeline.top_k} through K1-K3 ({served}): labels {lg.argmax(-1).tolist()}, {agree}/10 agree with "
         f"the plain path ({decided} decided), max logit dev {ldev:.3e}")
     return {"launches": launches, "weights": weights, "batches": batches}
+
+
+def ingest_phase(name_limit):
+    """Phase 9: the probe's corpus served from WAV files through the native
+    ring, K3-K2-K1 on the card; int16 staging == f32 staging, == the
+    in-memory path (also after slot reuse), then the probe's timings."""
+    work = tempfile.mkdtemp(prefix="pcaudio_ingest_")
+    try:
+        t0 = time.perf_counter()
+        paths = ingest.write_corpus(work, INGEST_FILES)
+        clips = ingest.decoded_clips(paths)
+        log(f"[ingest] corpus: {len(paths)} PCM16 files of 5 s "
+            f"({ingest.DISTINCT} distinct synth_clips), written in "
+            f"{time.perf_counter() - t0:.1f} s; the probe's full shape "
+            f"(2,048 files at batch {INGEST_BATCH})")
+        check(native.available(), "the native WAV loader does not build")
+        model = ingest.seeded_model(0)
+        clfs = {wd: AudioClassifier(model=model, pipeline=CFG,
+                                    batch_size=INGEST_BATCH, buffer_len=L,
+                                    device="cuda", wave_dtype=wd)
+                for wd in ingest.STAGING}
+        for k in SERVE_KERNELS:
+            KERNELS[k][0].launches = 0
+        lg = {wd: clf.logits_paths(paths) for wd, clf in clfs.items()}
+        torch.cuda.synchronize()
+        launches = {k: KERNELS[k][0].launches for k in SERVE_KERNELS}
+        log(f"[ingest] launches in logits_paths, the logits of classify_paths "
+            f"(f32 and int16 staging): {launches}")
+        for k, n in launches.items():
+            check(n > 0, f"{k} was not launched on the ingest path")
+        for wd, clf in clfs.items():
+            pf = clf._pf
+            check(pf is not None and pf.dtype == getattr(torch, wd)
+                  and pf.waves[0].is_pinned(),
+                  f"{wd}: classify_paths did not take the pinned native ring")
+            check(lg[wd].shape == (len(paths), 10)
+                  and bool(np.isfinite(lg[wd]).all()), f"{wd}: logits {lg[wd].shape}")
+        check(np.array_equal(lg["int16"], lg["float32"]),
+              "int16 staging differs from f32 staging: max |d| "
+              f"{np.abs(lg['int16'] - lg['float32']).max():.3e}")
+        ref = clfs["float32"].logits(clips)
+        exact = np.array_equal(lg["float32"], ref)
+        if not exact:
+            k1_check(torch.from_numpy(lg["float32"]), torch.from_numpy(ref),
+                     "classify_paths vs classify")
+        agree, decided, dev = tie_aware_argmax(torch.from_numpy(lg["float32"]),
+                                               torch.from_numpy(ref))
+        log(f"[ingest] {len(paths)} files: int16 staging bit-identical to f32; "
+            f"against classify on the clips in memory "
+            f"{'bit-identical' if exact else f'max |d| {dev:.3e}'}, labels agree "
+            f"on {agree}/{len(paths)} ({decided} decided)")
+        for clf in clfs.values():
+            clf.close()
+        # slot reuse under copies in flight: 12 batches through 6 slots
+        small = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
+                                buffer_len=L, device="cuda", wave_dtype="int16")
+        n12 = 12 * 64 - 5  # the last bucket padded
+        got = small.logits_paths(paths[:n12])
+        check(small._pf.depth == 6, f"ring depth {small._pf.depth}")
+        small.close()
+        ref12 = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
+                                buffer_len=L, device="cuda").logits(clips[:n12])
+        check(np.array_equal(got, ref12), "after slot reuse: classify_paths "
+              f"differs from classify, max |d| {np.abs(got - ref12).max():.3e}")
+        log(f"[ingest] {n12} files at batch 64 (12 batches through a ring of 6 "
+            f"slots): bit-identical to classify on the clips in memory")
+        ingest.measure(model, paths, INGEST_BATCH,
+                       lambda line: log(f"[ingest] {line} ({name_limit})"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def main():
@@ -828,6 +907,8 @@ def main():
         log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
         del res
         torch.cuda.empty_cache()
+    # ---- 9. the serving ingest: WAV files through classify_paths -----------
+    ingest_phase(name_limit)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -6,8 +6,8 @@ The reference decodes with ``librosa.load`` (audioread/soundfile) per clip in
 a Python loop.  ESC-50 ships 44.1 kHz WAVs, so a stdlib-``wave`` + numpy
 decoder covers the real data path.  Decoding happens once at ingest; the
 result is a ``[B, L]`` float32 buffer + lengths vector that the device
-pipeline (trim → STFT) consumes.  The JAX package's native (C++) decoder is
-not ported yet (ROADMAP Queue 1).
+pipeline (trim → STFT) consumes.  The native (C++) decoder,
+:mod:`pcaudio_torch.native`, slots in behind :func:`load_wav_batch`.
 """
 from __future__ import annotations
 
@@ -68,10 +68,13 @@ def load_wav_batch(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Decode many WAVs into one padded batch.
 
-    ``use_native`` = "auto" or "never" decode in Python; "always" asks for
-    the native C++ decoder, which the port does not have yet, and raises.
+    ``use_native`` = "auto" (the native C++ threaded decoder when it
+    builds, Python otherwise), "never", or "always" (native, or raise).
     """
-    if use_native == "always":
-        raise RuntimeError("native decoder requested but not ported "
-                           "(ROADMAP Queue 1)")
+    if use_native != "never":
+        from pcaudio_torch import native
+
+        # "always" lets the build's RuntimeError through
+        if use_native == "always" or native.available():
+            return native.decode_wav_batch(paths, buffer_len)
     return pad_batch([load_wav(p)[0] for p in paths], buffer_len)

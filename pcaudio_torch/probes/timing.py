@@ -73,8 +73,9 @@ def profile_device(fn, iters: int):
     """``torch.profiler`` over ``iters`` calls of ``fn`` after one warm-up:
     returns ``({kernel name: device ms per call}, idle share)``, the names
     by falling time, the idle share over the window from the first device
-    activity's start to the last one's end.  Raises where the trace holds no
-    device activity."""
+    activity's start to the last one's end, busy where any device activity
+    runs (copies on another stream overlap kernels).  Raises where the
+    trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -90,10 +91,23 @@ def profile_device(fn, iters: int):
     per: Dict[str, float] = {}
     for e in dev:
         per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / iters
-    span = (max(e.time_range.end for e in dev)
-            - min(e.time_range.start for e in dev))
-    busy = sum(e.time_range.elapsed_us() for e in dev)
-    return dict(sorted(per.items(), key=lambda kv: -kv[1])), 1.0 - busy / span
+    spans = [(e.time_range.start, e.time_range.end) for e in dev]
+    span = max(e for _, e in spans) - min(s for s, _ in spans)
+    return (dict(sorted(per.items(), key=lambda kv: -kv[1])),
+            1.0 - busy_time(spans) / span)
+
+
+def busy_time(intervals) -> float:
+    """The length of the union of ``(start, end)`` intervals."""
+    busy, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    return busy
 
 
 def bound_ms(ops: Dict[str, float], nbytes: float):

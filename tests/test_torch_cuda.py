@@ -440,6 +440,109 @@ def test_kernel_path_matches_plain_path(cuda):
     assert torch.equal(got.argmax(-1)[decided], ref.argmax(-1)[decided])
 
 
+def _wav_corpus(directory, n, seed=8):
+    """n PCM16 WAVs of 0.3-1.5 s of tones and noise, and the clips in memory
+    (the Python decoder)."""
+    from pcaudio_torch.data.audio_io import load_wav
+    from pcaudio_torch.data.synthetic import write_wav_pcm16
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        m = int(rng.integers(13000, 66000))
+        t = np.arange(m) / 44100.0
+        x = 0.3 * np.sin(2 * np.pi * rng.uniform(200.0, 3000.0) * t) \
+            + 0.05 * rng.standard_normal(m)
+        paths.append(str(directory / f"c{i:03d}.wav"))
+        write_wav_pcm16(paths[-1], x)
+    return paths, [load_wav(p)[0] for p in paths]
+
+
+def _ingest_clf(model, batch, **kw):
+    cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
+                                 compute_dtype="bfloat16")
+    return AudioClassifier(model=model, pipeline=cfg, batch_size=batch,
+                           buffer_len=65536, device="cuda", **kw)
+
+
+def test_classify_paths_int16_staging_equals_f32_through_kernels(cuda, tmp_path):
+    """The native ring on the card: K1-K3 launched, int16 slots give the f32
+    slots' logits bit for bit, and both equal logits() on the clips decoded
+    in memory (the same waves in the same buckets)."""
+    paths, clips = _wav_corpus(tmp_path, 11)
+    model = _full_st(3, cuda)
+    fns = (fused_chunk_mag2, exact_topk_chunks, fused_st_forward)
+    out = {}
+    for wd in ("float32", "int16"):
+        clf = _ingest_clf(model, 4, wave_dtype=wd)
+        counts = [f.launches for f in fns]
+        out[wd] = clf.logits_paths(paths)
+        assert all(f.launches >= c + 3 for f, c in zip(fns, counts))
+        clf.close()
+    assert np.isfinite(out["float32"]).all()
+    np.testing.assert_array_equal(out["int16"], out["float32"])
+    np.testing.assert_array_equal(out["float32"],
+                                  _ingest_clf(model, 4).logits(clips))
+
+
+@pytest.mark.parametrize("wave_dtype", ["float32", "int16"])
+def test_classify_paths_slots_are_pinned(cuda, tmp_path, wave_dtype):
+    paths, _ = _wav_corpus(tmp_path, 3)
+    clf = _ingest_clf(_full_st(3, cuda), 2, wave_dtype=wave_dtype)
+    labels, probs = clf.classify_paths(paths)
+    pf = clf._pf
+    assert pf.depth == clf.MAX_IN_FLIGHT + 2
+    assert all(w.is_pinned() and w.dtype == getattr(torch, wave_dtype)
+               for w in pf.waves)
+    assert all(x.is_pinned() for x in pf.lengths)
+    assert labels.shape == (3,) and np.allclose(probs.sum(-1), 1.0)
+    clf.close()
+
+
+def test_classify_paths_slot_reuse_matches_classify(cuda, tmp_path):
+    """12 batches through the ring's 6 slots: every slot is refilled while
+    copies and compute of earlier batches are in flight; the logits equal
+    logits() on the same clips in memory."""
+    paths, clips = _wav_corpus(tmp_path, 12 * 8 - 3, seed=9)
+    model = _full_st(3, cuda)
+    clf = _ingest_clf(model, 8, wave_dtype="int16")
+    got = clf.logits_paths(paths)
+    again = clf.logits_paths(paths[:20])  # the ring reused by a later call
+    clf.close()
+    ref = _ingest_clf(model, 8).logits(clips)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(again, ref[:20])
+
+
+def test_from_checkpoint_serves_on_the_card(cuda, tmp_path):
+    """A training checkpoint (step_*.pt + reference_config.json) served
+    through K1-K3 from WAV files, equal to the in-memory path."""
+    from pcaudio_torch.checkpoint import save_checkpoint
+    from pcaudio_torch.core import ExperimentConfig
+    from pcaudio_torch.train import TrainState
+
+    ref_cfg = {"architecture": "3ST (Set Transformer Temporal)",
+               "window_size": 1024, "hop_factor": 0.5, "trim_dB": 60,
+               "sampling_rate": 44100, "classes": 10, "dhidden": 64,
+               "nheads": 8, "ninds": 64, "Ntemp": 10, "np_seed": 1}
+    model = _full_st(3, "cpu")
+    state = TrainState(model, torch.optim.Adam(model.parameters()))
+    save_checkpoint(str(tmp_path / "ckpt"), state,
+                    ExperimentConfig.from_reference_json(ref_cfg), step=3)
+    clf = AudioClassifier.from_checkpoint(str(tmp_path / "ckpt"), top_k=128,
+                                          batch_size=4, buffer_len=65536,
+                                          device="cuda", wave_dtype="int16")
+    paths, clips = _wav_corpus(tmp_path, 6, seed=10)
+    counts = fused_st_forward.launches
+    got = clf.logits_paths(paths)
+    assert fused_st_forward.launches > counts
+    clf.close()
+    np.testing.assert_array_equal(got, clf.logits(clips))
+    ref = AudioClassifier(model=model, pipeline=clf.pipeline, batch_size=4,
+                          buffer_len=65536, device="cuda").logits(clips)
+    np.testing.assert_array_equal(got, ref)
+
+
 def _close_k4(got, ref, what):
     """K4's tolerance, f32 on both sides: 1e-4 of the largest |ref| plus
     1e-4 relative (online softmax, __expf and a different summation order)."""

@@ -3,14 +3,16 @@ package's ``pcaudio/data/{audio_io,esc,synthetic}.py``, which they copy:
 the same corpus byte for byte, the same seeded split, the same batches."""
 import filecmp
 import os
+import shutil
 
 import numpy as np
 import pytest
 
+from pcaudio import native as jax_native
 from pcaudio.data import audio_io as jax_audio_io
 from pcaudio.data import esc as jax_esc
 from pcaudio.data import synthetic as jax_synthetic
-from pcaudio_torch import data
+from pcaudio_torch import data, native
 from pcaudio_torch.data import audio_io, esc, synthetic
 
 
@@ -52,7 +54,8 @@ def test_split_waves_match_the_jax_package(corpora, split, seed):
     assert split_got == jax_esc.tt_split(rpaths, rlabels)
 
 
-def test_pad_batch_and_wav_decode_match_the_jax_package(corpora, tmp_path):
+def test_pad_batch_and_wav_decode_match_the_jax_package(corpora, tmp_path,
+                                                        monkeypatch):
     rng = np.random.default_rng(0)
     clips = [rng.standard_normal(n).astype(np.float32) for n in (5, 300, 1000, 0)]
     for buffer_len in (512, 1000):
@@ -74,6 +77,15 @@ def test_pad_batch_and_wav_decode_match_the_jax_package(corpora, tmp_path):
     for g, r in zip(audio_io.load_wav_batch(paths, 220672),
                     jax_audio_io.load_wav_batch(paths, 220672, use_native="never")):
         np.testing.assert_array_equal(g, r)
+    # "always": the native decoder, == the JAX package's where g++ builds
+    # both; it raises "native" where the build fails, never falling back
+    if shutil.which("g++") is not None and jax_native.available():
+        for g, r in zip(audio_io.load_wav_batch(paths, 220672, use_native="always"),
+                        jax_native.decode_wav_batch(paths, 220672)):
+            assert g.dtype == r.dtype
+            np.testing.assert_array_equal(g, r)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "CXX", str(tmp_path / "no-such-g++"))
     with pytest.raises(RuntimeError, match="native"):
         audio_io.load_wav_batch(paths, 220672, use_native="always")
     assert esc.ESC10_CATEGORIES == jax_esc.ESC10_CATEGORIES

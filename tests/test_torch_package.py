@@ -25,8 +25,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter imports every module of the port, probes
-    included, builds the full-width 3ST classifier and serves one request,
+    """A fresh interpreter imports every module of the port, probes and
+    the native loader included, builds the full-width 3ST classifier and
+    serves one request of clips and one of WAV files,
     and takes two train steps through K4's route, on the CPU without
     loading jax or any module of the JAX package ``pcaudio``."""
     code = textwrap.dedent("""
@@ -40,6 +41,7 @@ def test_port_never_imports_jax():
         mods = [m.name for m in pkgutil.walk_packages(pcaudio_torch.__path__,
                                                       "pcaudio_torch.")]
         assert "pcaudio_torch.probes.st_launch" in mods, mods
+        assert "pcaudio_torch.native" in mods, mods
         for name in mods:
             importlib.import_module(name)
         from pcaudio_torch.eval import TemporalPipelineConfig
@@ -61,6 +63,13 @@ def test_port_never_imports_jax():
                 ).astype(np.float32)
         lg = clf.logits([clip])
         assert lg.shape == (1, 10) and np.isfinite(lg).all(), lg
+        import os, tempfile
+        from pcaudio_torch.data.synthetic import write_wav_pcm16
+        wav = os.path.join(tempfile.mkdtemp(), "clip.wav")
+        write_wav_pcm16(wav, clip)
+        labels, probs = clf.classify_paths([wav])
+        clf.close()
+        assert labels.shape == (1,) and np.isfinite(probs).all()
 
         cfg = dataclasses.replace(RECIPES["FST"](), dhidden=8, nheads=2,
                                   ninds=4, batch_size=4)
@@ -87,17 +96,28 @@ def test_port_never_imports_jax():
 
 def test_no_file_of_the_port_imports_jax_or_the_jax_package():
     """Static check of every source file of the port and of chip_smoke.py:
-    no ``import jax`` / ``import pcaudio`` / ``from pcaudio.`` line."""
+    no ``import jax`` / ``import pcaudio`` / ``from pcaudio.`` line, and no
+    C++ or CUDA source that includes a file of the JAX package."""
     bad = re.compile(r"^\s*(import\s+(jax|pcaudio)\b(?!_)|from\s+(jax|pcaudio)(\.|\s))")
+    bad_c = re.compile(r"^\s*#\s*include\s*[<\"](\.\./)*pcaudio/")
     files = [os.path.join(REPO, "chip_smoke.py")]
+    c_files = []
     for root, _, names in os.walk(os.path.join(REPO, "pcaudio_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+        c_files += [os.path.join(root, n) for n in names
+                    if n.endswith((".cpp", ".cu", ".cuh"))]
     assert len(files) > 30
+    assert os.path.join(REPO, "pcaudio_torch", "native", "__init__.py") in files
+    assert os.path.join(REPO, "pcaudio_torch", "native", "wav_loader.cpp") in c_files
     hits = [f"{os.path.relpath(f, REPO)}:{i}: {line.strip()}"
-            for f in files for i, line in enumerate(open(f), 1) if bad.match(line)]
+            for pattern, group in ((bad, files), (bad_c, c_files))
+            for f in group for i, line in enumerate(open(f), 1)
+            if pattern.match(line)]
     assert not hits, hits
     assert bad.match("from pcaudio.data import x") and bad.match("import jax.numpy")
     assert not bad.match("from pcaudio_torch.data import x")
+    assert bad_c.match('#include "pcaudio/native/x.h"')
+    assert not bad_c.match('#include "common.cuh"')
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):

@@ -56,7 +56,22 @@
    ``logits`` on the clips decoded in memory, also for 12 batches of 64
    through the ring's 6 slots, then runs the probe's timings
    (``pcaudio_torch.probes.ingest``: decode-only and end-to-end clips/s,
-   H2D and compute ms a batch, the idle share, request latency p50/p99).
+   H2D and compute ms a batch, the idle share, request latency p50/p99);
+10. runs the paper's evaluation on the card: generates the synthetic ESC-10
+   corpus at its full 40 clips per class, classifies the FST recipe's
+   17,280 test clouds with the trained FST checkpoint
+   (artifacts/roundtrip/FST_roundtrip_net.pth) three ways (K4, K1 and the
+   f32 plain ST; the f32 accuracy must round to the 0.9828 the JAX package
+   measured, and K4 and K1 must agree with it tie-aware), then runs
+   ``pcaudio_torch.cli eval --experiments expt1 expt2`` on that checkpoint
+   at the default lists (4 rates x 13 windows; 21 K x (1 + 10 runs))
+   through K4 and holds each file against the JAX package's results
+   (artifacts/roundtrip/FST_*.json: the same keys and lists, every expt 1
+   and maxK cell and every randK mean within 0.01), times each experiment,
+   counts K4's launches and profiles one expt-2 microbatch for K4's share
+   of the device time; then runs a seeded full-width 3ST's expt 1 and expt 2
+   (8 clips, K 1, 2561 and 5120, 2 runs) on both engines, whose logits
+   must agree tie-aware.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -82,7 +97,11 @@ from pcaudio_torch import cli, native
 from pcaudio_torch.checkpoint import load_reference_pth
 from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves
 from pcaudio_torch.eval import (
-    TemporalPipelineConfig, extract_chunk_clouds, make_temporal_classifier)
+    TemporalPipelineConfig, extract_chunk_clouds, make_3st_chunk_classifier,
+    make_cloud_classifier, make_temporal_classifier, temporal_expt1,
+    temporal_expt2)
+from pcaudio_torch.eval.experiments import (
+    _MB_FRAMES, _prefix_mask_counts, default_list_K)
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.featurize import (
@@ -141,6 +160,10 @@ ST_F32_TOL = 5e-2
 SERVE_DEV_TOL = 5e-2
 N_FFT, HOP = 1024, 512
 CLIPS_PER_CLASS = 8   # of the corpus' 40: about 100 FST steps per epoch
+FST_PTH = os.path.join(ROOT, "artifacts", "roundtrip", "FST_roundtrip_net.pth")
+SWEEP_TOL = 0.01      # |port - JAX package| of a sweep cell (phase 10)
+ANCHOR_ACC = 0.9828   # the f32 ST on the 17,280 test clouds (roundtrip_report.json)
+EVAL_3ST_CLIPS, EVAL_3ST_K, EVAL_3ST_RUNS = 8, [1, 2561, 5120], 2
 INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
 
 
@@ -261,14 +284,14 @@ def k1_bound(points, model):
                     nbytes(points, *model.parameters()) + 4.0 * n * 10)
 
 
-def tie_aware_argmax(got, ref):
+def tie_aware_argmax(got, ref, tol=SERVE_DEV_TOL):
     """Rows whose reference top-2 gap is below twice the largest deviation
     are excused; every other row must agree; the deviation itself must be
-    at most SERVE_DEV_TOL, so that a large one cannot excuse every row.
+    at most ``tol``, so that a large one cannot excuse every row.
     Returns (agree, decided, dev)."""
     dev = (got - ref).abs().max().item()
-    check(dev <= SERVE_DEV_TOL, f"max logit deviation {dev:.3e} from the plain "
-          f"path exceeds {SERVE_DEV_TOL}")
+    check(dev <= tol, f"max logit deviation {dev:.3e} from the plain "
+          f"path exceeds {tol}")
     top2 = ref.sort(dim=-1).values[:, -2:]
     decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
     agree = (got.argmax(-1) == ref.argmax(-1))
@@ -455,6 +478,213 @@ def ingest_phase(name_limit):
         shutil.rmtree(work, ignore_errors=True)
 
 
+def fst_checkpoint(fused_attn):
+    """The trained FST (artifacts/roundtrip) on the card."""
+    model = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
+               num_heads=8, fused_attn=fused_attn)
+    model.load_state_dict(load_reference_pth(FST_PTH))
+    return model.cuda().eval()
+
+
+@torch.no_grad()
+def batched(fn, x, bs=_MB_FRAMES):
+    return torch.cat([fn(x[i: i + bs]) for i in range(0, len(x), bs)])
+
+
+def anchor_phase(csv, audio, name_limit):
+    """Phase 10's accuracy anchor: the FST recipe's test clouds classified
+    by the trained FST through K4, through K1 and by the f32 plain ST.
+    Returns (clouds, labels) on the card."""
+    cfg = RECIPES["FST"]()
+    waves, lengths, labels = load_esc_split_waves(csv, audio, cfg.numpy_seed,
+                                                  split="test")
+    data = prepare_framewise_data(waves, lengths, labels, cfg, device="cuda")
+    pts = torch.from_numpy(data["points"]).cuda()
+    y = torch.from_numpy(data["labels"]).long().cuda()
+    check(tuple(pts.shape) == (17280, 1025, 2), f"test clouds {tuple(pts.shape)}")
+    plain = fst_checkpoint(False)
+    ref = batched(plain, pts)
+    got = {"K4": batched(fst_checkpoint(True), pts),
+           "K1": batched(lambda x: fused_st_forward(plain, x, None), pts)}
+    torch.cuda.synchronize()
+    acc = {k: (v.argmax(-1) == y).double().mean().item()
+           for k, v in dict(got, f32=ref).items()}
+    for name, lg in got.items():
+        differ = lg.argmax(-1) != ref.argmax(-1)
+        top2 = ref.sort(dim=-1).values[:, -2:]
+        gaps = (top2[:, 1] - top2[:, 0])[differ]
+        log(f"[eval] anchor {name}: accuracy {acc[name]:.6f} (f32 {acc['f32']:.6f}),"
+            f" max logit dev {(lg - ref).abs().max().item():.4e}, max |f32 logit| "
+            f"{ref.abs().max().item():.2f}, {int(differ.sum())} rows differ, their "
+            f"f32 top-2 gaps {sorted(gaps.tolist())[:12]} ({name_limit})")
+    check(round(acc["f32"], 4) == ANCHOR_ACC, f"f32 ST accuracy {acc['f32']:.6f} on "
+          f"the 17,280 test clouds does not round to {ANCHOR_ACC}")
+    agree, decided, dev = tie_aware_argmax(got["K4"], ref)
+    log(f"[eval] anchor K4 vs the f32 ST: {agree}/{len(y)} argmax agree "
+        f"({decided} decided rows all agree), max logit dev {dev:.3e}")
+    # K1 is bf16: its bar against the f32 ST is 5e-2 + 5e-2·|logit|
+    # (phase 2), taken at the largest logit
+    k1_tol = ST_F32_TOL * (1.0 + ref.abs().max().item())
+    agree, decided, dev = tie_aware_argmax(got["K1"], ref, tol=k1_tol)
+    log(f"[eval] anchor K1 vs the f32 ST: {agree}/{len(y)} argmax agree "
+        f"({decided} decided rows all agree), max logit dev {dev:.3e} "
+        f"(cap {k1_tol:.3f})")
+    return pts, y
+
+
+def sweep_deviations(got, ref, what):
+    """A sweep file against the JAX package's: the same keys and lists;
+    returns ``[(|deviation|, cell)]`` of every cell (expt 1: an accuracy;
+    expt 2: a mean), largest first."""
+    check(list(got) == list(ref), f"{what}: keys {list(got)} vs {list(ref)}")
+    for key in got:
+        if key != "data":
+            check(got[key] == ref[key], f"{what}: {key} differs")
+    check(list(got["data"]) == list(ref["data"]), f"{what}: data keys differ")
+    devs = []
+    for key, ref_v in ref["data"].items():
+        got_v = got["data"][key]
+        cells = (list(zip(got_v, ref_v)) if "list_N" in ref
+                 else [(got_v[0], ref_v[0])])
+        devs += [(abs(g - r), f"{key}[{i}] {g:.6f} vs {r:.6f}")
+                 for i, (g, r) in enumerate(cells)]
+    return sorted(devs, reverse=True)
+
+
+def recording(fn, store):
+    """``fn`` that also keeps each call's logits in ``store``."""
+    def wrapped(*args):
+        lg = fn(*args)
+        store.append(lg.float())
+        return lg
+    return wrapped
+
+
+def eval_3st_phase(csv, audio, name_limit):
+    """A seeded full-width 3ST's expt 1 and expt 2 on both engines: the
+    same calls in the same order (the random draws are seeded per
+    microbatch), so each K4 forward's logits must agree with the plain
+    one's tie-aware."""
+    cfg = RECIPES["3ST"]()
+    w, n, lab = load_esc_split_waves(csv, audio, cfg.numpy_seed, split="test")
+    w, n, lab = w[:EVAL_3ST_CLIPS], n[:EVAL_3ST_CLIPS], lab[:EVAL_3ST_CLIPS]
+    plain = seeded_st(3, seed=9)
+    k4 = ST(dim_input=3, dim_output=10, num_inds=64, dim_hidden=64,
+            num_heads=8, fused_attn=True)
+    k4.load_state_dict(plain.state_dict())
+    k4 = k4.cuda().eval()
+    common = dict(fsog=cfg.sampling_rate, Nfft=cfg.window_size, Ntemp=cfg.Ntemp,
+                  hf=cfg.hop_factor, tDb=cfg.trim_dB, device="cuda")
+    logits, res = {}, {}
+    for name, model in (("K4", k4), ("plain", plain)):
+        logits[name] = store = []
+        t0 = time.perf_counter()
+        e1 = temporal_expt1(recording(make_3st_chunk_classifier(model), store),
+                            w, n, lab, **common)
+        t1 = time.perf_counter()
+        e2 = temporal_expt2(recording(make_cloud_classifier(model), store), None,
+                            w, n, lab, mode="cloud", list_K=EVAL_3ST_K,
+                            nruns=EVAL_3ST_RUNS, **common)
+        t2 = time.perf_counter()
+        res[name] = (e1, e2)
+        log(f"[eval] 3ST {name} engine, {EVAL_3ST_CLIPS} clips: expt1 "
+            f"{t1 - t0:.1f} s, expt2 (K {EVAL_3ST_K}, {EVAL_3ST_RUNS} runs) "
+            f"{t2 - t1:.1f} s; {len(store)} forwards ({name_limit})")
+    check(len(logits["K4"]) == len(logits["plain"]), "3ST: the engines made "
+          "different numbers of forwards")
+    agree = rows = decided = 0
+    dev = 0.0
+    for a, b in zip(logits["K4"], logits["plain"]):
+        ag, de, dv = tie_aware_argmax(a, b)
+        agree, decided, rows, dev = agree + ag, decided + de, rows + len(a), max(dev, dv)
+    e1k, e1p = res["K4"][0]["data"], res["plain"][0]["data"]
+    diffs = [abs(g - r) for F in e1k for g, r in zip(e1k[F], e1p[F])]
+    for part in range(2):  # randK, maxK: the means
+        dk, dp = res["K4"][1][part]["data"], res["plain"][1][part]["data"]
+        diffs += [abs(dk[k][0] - dp[k][0]) for k in dk]
+    log(f"[eval] 3ST K4 vs plain engine: {agree}/{rows} rows agree over "
+        f"{len(logits['K4'])} forwards ({decided} decided rows all agree), max "
+        f"logit dev {dev:.3e}; largest accuracy difference {max(diffs):.3e}")
+
+
+def eval_phase(name_limit):
+    """Phase 10; returns K4's forward launches in ``cli eval``."""
+    work = tempfile.mkdtemp(prefix="pcaudio_eval_")
+    try:
+        t0 = time.perf_counter()
+        csv, audio = generate_esc_corpus(os.path.join(work, "corpus"),
+                                         clips_per_class=40)
+        log(f"[eval] synthetic ESC-10 corpus, 40 clips per class, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        pts, y = anchor_phase(csv, audio, name_limit)
+
+        config = os.path.join(work, "FST_config.json")
+        with open(config, "w") as f:
+            json.dump(RECIPES["FST"]().to_reference_json(), f)
+        out = os.path.join(work, "out")
+        os.environ.pop("PCAUDIO_FUSED_ATTN", None)
+        fused_mha_fwd.launches = 0
+        t0 = time.perf_counter()
+        _, prov = cli.main(["eval", "--config", config, "--pth", FST_PTH,
+                            "--esc-csv", csv, "--esc-audio", audio,
+                            "--experiments", "expt1", "expt2", "--out-dir", out,
+                            "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = fused_mha_fwd.launches
+        log(f"[eval] cli eval FST expt1 expt2: {time.perf_counter() - t0:.1f} s, "
+            f"engine {prov['engine']}, gate {json.dumps(prov.get('fused_gate'))}")
+        # 5 attends a forward; expt 2 alone: 17 microbatches x 21 K x 11
+        n_mb = -(-len(y) // _MB_FRAMES)
+        least = 5 * (n_mb * len(default_list_K(1024)) * 11 + 2)
+        check(prov["engine"] == "fused" and launches >= least,
+              f"cli eval: engine {prov['engine']}, {launches} K4 launches "
+              f"(expt 2 and the gate alone make {least})")
+        worst = {}
+        for name in ("FST_expt1.json", "FST_maxK_expt2.json", "FST_randK_expt2.json"):
+            with open(os.path.join(out, name)) as f:
+                got = json.load(f)
+            with open(os.path.join(ROOT, "artifacts", "roundtrip", name)) as f:
+                ref = json.load(f)
+            with open(os.path.join(out, name.replace(".json", ".provenance.json"))) as f:
+                wall = json.load(f)["wall_s"]
+            devs = sweep_deviations(got, ref, name)
+            worst[name] = devs[0]
+            log(f"[eval] {name}: {wall:.1f} s of wall time; against the JAX "
+                f"package's file: keys and lists identical, largest deviations "
+                + "; ".join(f"{d:.4f} at {c}" for d, c in devs[:4])
+                + f" ({name_limit})")
+        log(f"[eval] K4 forward launches in cli eval: {launches} ({name_limit})")
+        for name, (d, cell) in worst.items():
+            check(d <= SWEEP_TOL, f"{name}: cell {cell} beyond {SWEEP_TOL}")
+
+        # K4's share of one expt-2 microbatch (21 K x 11 masks of 1024 clouds)
+        model = fst_checkpoint(True)
+        gen = torch.Generator(device="cuda")
+        mb = slice(0, _MB_FRAMES)
+
+        def one_microbatch():
+            gen.manual_seed(0)
+            with torch.no_grad():
+                return _prefix_mask_counts(make_cloud_classifier(model), pts[mb],
+                                           pts[mb, :, 1], y[mb], None, gen,
+                                           default_list_K(1024), 10)
+        wall = cuda_ms(one_microbatch, 1)
+        per, idle = profile_device(one_microbatch, 1)
+        k4 = sum(v for k, v in per.items() if "mha_fwd_kernel" in k)
+        total = sum(per.values())
+        log(f"[eval] one expt-2 microbatch (1024 clouds x 231 masks): {wall:.1f} ms; "
+            f"device {total:.1f} ms, K4 {k4:.1f} ms = {k4 / total:.3f} of it, idle "
+            f"share {idle:.4f}; by kernel: " + "; ".join(
+                f"{k[:50]} {v:.2f}" for k, v in list(per.items())[:6])
+            + f" ({name_limit})")
+        del pts, y, model
+        torch.cuda.empty_cache()
+        eval_3st_phase(csv, audio, name_limit)
+        return launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -591,8 +821,7 @@ def main():
         f"({time.perf_counter() - t0:.1f} s)")
     fst = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
              num_heads=8)
-    fst.load_state_dict(load_reference_pth(
-        os.path.join(ROOT, "artifacts", "roundtrip", "FST_roundtrip_net.pth")))
+    fst.load_state_dict(load_reference_pth(FST_PTH))
     fst = fst.to(dev).eval()
     pts = torch.from_numpy(rng.uniform(-1, 1, (512, 1025, 2)).astype(
         np.float32)).to(dev)
@@ -909,6 +1138,8 @@ def main():
         torch.cuda.empty_cache()
     # ---- 9. the serving ingest: WAV files through classify_paths -----------
     ingest_phase(name_limit)
+    # ---- 10. the paper's evaluation: cli eval through K4 --------------------
+    launches["fused_mha_fwd"] += eval_phase(name_limit)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -3,21 +3,35 @@
     python -m pcaudio_torch.cli train FST --esc-csv esc50.csv \\
         --esc-audio audio/ --out-dir runs/fst [--epochs N] \\
         [--checkpoint-every N] [--max-steps N] [--device cuda|cpu]
+    python -m pcaudio_torch.cli eval --config FST_config.json \\
+        (--pth FST_net.pth | --checkpoint runs/fst) --esc-csv esc50.csv \\
+        --esc-audio audio/ [--experiments expt1 expt2] [--out-dir DIR] \\
+        [--device cuda|cpu]
 
 ``train`` featurizes the seeded ESC-10 train/test split on the device, trains
 the recipe (``pcaudio_torch.train.recipes``) and writes, under ``--out-dir``,
 the training checkpoints ``step_<epoch>.pt``, the reference config sidecar
 ``reference_config.json`` and the weights as a reference-convention
 ``<recipe>_net.pth``, which ``pcaudio_torch.serve.AudioClassifier.
-from_reference_checkpoint`` loads for a 3ST.  The device is ``cuda`` unless
-``--device cpu`` is given; without a CUDA device that is an error.
+from_reference_checkpoint`` loads for a 3ST.
+
+``eval`` runs the paper's robustness sweeps (``pcaudio_torch.eval.
+experiments``) for an FST or a 3ST on the config's seeded test split and
+writes ``<tag>_expt1.json``, ``<tag>_randK_expt2.json`` and
+``<tag>_maxK_expt2.json`` in the reference's schema, each with a
+``.provenance.json`` side-file.
+
+Each command runs on ``cuda`` unless ``--device cpu`` is given; without a
+CUDA device that is an error.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
+import time
 
 
 def _add_esc_args(p):
@@ -73,6 +87,195 @@ def cmd_train(args):
     return state, history
 
 
+def _fused_attn_choice(device) -> bool:
+    """Whether the sweeps run kernel K4: ``PCAUDIO_FUSED_ATTN`` unset means
+    K4 on a CUDA device and the plain attention on the CPU, ``"0"`` the
+    plain attention, ``"1"`` K4 (an error on the CPU: K4 has no CPU
+    mode)."""
+    env = os.environ.get("PCAUDIO_FUSED_ATTN")
+    if env is None:
+        return device.type == "cuda"
+    if env == "0":
+        return False
+    if env == "1":
+        if device.type != "cuda":
+            raise RuntimeError("PCAUDIO_FUSED_ATTN=1 asks for kernel K4, which "
+                               "needs a CUDA device; unset it or set 0 on the "
+                               "CPU")
+        return True
+    raise ValueError(f"PCAUDIO_FUSED_ATTN={env!r}: expected 0 or 1")
+
+
+def _fused_parity_gate(cfg, model, fmodel, waves, lengths):
+    """Argmax agreement of the fused-attention model ``fmodel`` with the
+    plain one ``model`` on the first real microbatch: at most 256 valid
+    frames or chunks of the first 8 test clips at the training config,
+    unmasked and with the expt-2 engine's rank mask (K = n/2).
+
+    Tie-aware: a disagreement is accepted only as a top-2 near-tie, its
+    plain logits' top-2 gap within twice the largest logit deviation the
+    two models show on this probe, and at most 2 % of rows may disagree.
+    Returns ``(passed, record)``."""
+    import torch
+
+    from pcaudio_torch.core.config import ARCH_FST
+    from pcaudio_torch.dsp.featurize import FeaturizeConfig, featurize_batch
+    from pcaudio_torch.eval.experiments import (
+        _ranks_desc, _temporal_rows, _valid_frames)
+    from pcaudio_torch.ops.cloud import (
+        frame_cloud, freq_coords, grid_cloud, time_coords)
+
+    rows, nb, dev = 256, min(len(waves), 8), waves.device
+    fcfg = FeaturizeConfig(fs=cfg.sampling_rate, n_fft=cfg.window_size,
+                           top_db=cfg.trim_dB, trim=True)
+    lm, fm = featurize_batch(waves[:nb], lengths[:nb], fcfg)
+    zeros = torch.zeros(nb, dtype=torch.int64, device=dev)
+    if cfg.architecture == ARCH_FST:
+        frames, valid, _ = _valid_frames(lm, fm, zeros)
+        clouds = frame_cloud(frames, freq_coords(frames.shape[-1],
+                                                 cfg.sampling_rate, device=dev))
+    else:
+        flat, valid, _ = _temporal_rows(lm, fm, zeros, cfg.Ntemp)
+        clouds = grid_cloud(
+            flat, freq_coords(flat.shape[-1], cfg.sampling_rate, device=dev),
+            time_coords(cfg.Ntemp, cfg.window_size, cfg.sampling_rate,
+                        cfg.hop_factor, device=dev))
+    clouds = clouds[valid][:rows]
+    kmask = _ranks_desc(clouds[..., -1]) < clouds.shape[1] // 2
+    agree = total = 0
+    max_dev = bad_gap = 0.0
+    with torch.no_grad():
+        for m in (None, kmask):
+            lf, lx = fmodel(clouds, m), model(clouds, m)
+            max_dev = max(max_dev, float((lf - lx).abs().max()))
+            eq = lf.argmax(-1) == lx.argmax(-1)
+            agree += int(eq.sum())
+            total += clouds.shape[0]
+            if not bool(eq.all()):
+                top2 = lx.sort(dim=-1).values[:, -2:]
+                gaps = top2[:, 1] - top2[:, 0]
+                bad_gap = max(bad_gap, float(gaps[~eq].max()))
+    tie_tol = 2.0 * max_dev
+    passed = agree == total or (total - agree <= max(1, total // 50)
+                                and bad_gap <= tie_tol)
+    return passed, {
+        "agreement": [agree, total],
+        "rows": int(clouds.shape[0]),
+        "max_logit_dev": max_dev,
+        "worst_disagree_top2_gap": bad_gap,
+        "tie_tolerance": tie_tol,
+        "probe": "first real featurized microbatch at the training config, "
+                 "unmasked + expt2-style rank-mask (K = n_points/2); "
+                 "disagreements accepted only as top-2 near-ties within "
+                 "2x the measured fused-vs-plain logit deviation",
+    }
+
+
+def _model(cfg, state_dict, fused_attn: bool, device):
+    model = cfg.build_model(fused_attn=fused_attn)
+    model.load_state_dict(state_dict)
+    return model.to(device).eval()
+
+
+def cmd_eval(args):
+    """Run the sweeps of ``args.experiments`` and write their files; returns
+    ``{file name: result dict}`` and the provenance.
+
+    On a CUDA device the sweeps' attention runs through kernel K4 unless
+    ``PCAUDIO_FUSED_ATTN=0``, after :func:`_fused_parity_gate` holds the K4
+    model against the plain one.  Unlike the JAX ``cmd_eval``, which falls
+    back to its XLA path when the gate fails, a failed gate prints the
+    gate's record and exits non-zero: no fallback hides the kernel."""
+    import torch
+
+    from pcaudio_torch.checkpoint import load_checkpoint, load_reference_pth
+    from pcaudio_torch.core.config import (
+        ARCH_3ST, ARCH_CNN, ARCH_FB, ARCH_FST, ExperimentConfig)
+    from pcaudio_torch.core.device import resolve_device
+    from pcaudio_torch.data import load_esc_split_waves
+    from pcaudio_torch.eval import (
+        framewise_expt1, framewise_expt2, make_3st_chunk_classifier,
+        make_cloud_classifier, make_fst_frame_classifier, temporal_expt1,
+        temporal_expt2)
+    from pcaudio_torch.utils.metrics import dump_with_provenance
+
+    cfg = ExperimentConfig.from_reference_json(args.config)
+    arch = cfg.architecture
+    if arch in (ARCH_FB, ARCH_CNN):
+        raise NotImplementedError(
+            f"eval of {arch!r}: its model is not ported yet (ROADMAP Queue 1 "
+            f"item 6)")
+    if arch not in (ARCH_FST, ARCH_3ST):
+        raise ValueError(f"unknown architecture {arch!r}")
+    if "rebut" in args.experiments:
+        raise NotImplementedError("the rebuttal sweep needs ops/subsample.py, "
+                                  "which is not ported yet (ROADMAP Queue 1 "
+                                  "item 5)")
+    device = resolve_device(args.device)
+    fused = _fused_attn_choice(device)
+    state_dict = (load_reference_pth(args.pth) if args.pth
+                  else load_checkpoint(args.checkpoint)[0]["model"])
+    model = _model(cfg, state_dict, False, device)
+    waves, lengths, labels = load_esc_split_waves(
+        args.esc_csv, args.esc_audio, cfg.numpy_seed, split="test")
+    waves = torch.from_numpy(waves).to(device)
+    lengths = torch.from_numpy(lengths).to(device)
+    prov = {"engine": "plain", "backend": device.type,
+            "device": (torch.cuda.get_device_name(device)
+                       if device.type == "cuda" else "cpu"),
+            "esc_csv": args.esc_csv, "checkpoint": args.pth or args.checkpoint}
+    if fused:
+        fmodel = _model(cfg, state_dict, True, device)
+        ok, gate = _fused_parity_gate(cfg, model, fmodel, waves, lengths)
+        gate["passed"] = ok
+        prov["fused_gate"] = gate
+        if not ok:
+            print(json.dumps(gate), flush=True)
+            raise SystemExit(f"eval: the fused attention parity gate failed "
+                             f"({gate['agreement'][0]}/{gate['agreement'][1]} "
+                             f"agree); set PCAUDIO_FUSED_ATTN=0 for the plain "
+                             f"attention")
+        model, prov["engine"] = fmodel, "fused"
+        print(f"eval: fused masked attention (argmax parity gate passed on "
+              f"real data, {gate['agreement'][0]}/{gate['agreement'][1]})",
+              flush=True)
+
+    tag = "FST" if arch == ARCH_FST else "3ST"
+    os.makedirs(args.out_dir, exist_ok=True)
+    results = {}
+
+    def dump(obj, fname, t0):
+        dump_with_provenance(obj, os.path.join(args.out_dir, fname),
+                             dict(prov, wall_s=time.perf_counter() - t0))
+        results[fname] = obj
+        print(f"wrote {fname}", flush=True)
+
+    common = dict(fsog=cfg.sampling_rate, Nfft=cfg.window_size,
+                  hf=cfg.hop_factor, tDb=cfg.trim_dB, device=device)
+    if "expt1" in args.experiments:
+        t0 = time.perf_counter()
+        if arch == ARCH_FST:
+            out = framewise_expt1(make_fst_frame_classifier(model), waves,
+                                  lengths, labels, **common)
+        else:
+            out = temporal_expt1(make_3st_chunk_classifier(model), waves,
+                                 lengths, labels, Ntemp=cfg.Ntemp, **common)
+        dump(out, f"{tag}_expt1.json", t0)
+    if "expt2" in args.experiments:
+        t0 = time.perf_counter()
+        if arch == ARCH_FST:
+            rnd, mx = framewise_expt2(None, make_cloud_classifier(model),
+                                      waves, lengths, labels, mode="cloud",
+                                      **common)
+        else:
+            rnd, mx = temporal_expt2(make_cloud_classifier(model), None,
+                                     waves, lengths, labels, mode="cloud",
+                                     Ntemp=cfg.Ntemp, **common)
+        dump(rnd, f"{tag}_randK_expt2.json", t0)
+        dump(mx, f"{tag}_maxK_expt2.json", t0)
+    return results, prov
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pcaudio_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -88,6 +291,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-dir", required=True)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     p.set_defaults(fn=cmd_train)
+
+    e = sub.add_parser("eval", help="run the paper's robustness sweeps")
+    e.add_argument("--config", required=True, help="reference *_config.json")
+    w = e.add_mutually_exclusive_group(required=True)
+    w.add_argument("--pth", help="reference-convention *_net.pth")
+    w.add_argument("--checkpoint",
+                   help="directory of this package's step_*.pt checkpoints")
+    _add_esc_args(e)
+    e.add_argument("--experiments", nargs="+", default=["expt1", "expt2"],
+                   choices=["expt1", "expt2", "rebut"])
+    e.add_argument("--out-dir", default="paper_plots")
+    e.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    e.set_defaults(fn=cmd_eval)
     return ap
 
 

@@ -15,6 +15,10 @@ from typing import Optional
 
 ARCH_FST = "FST (Framewise Set Transformer)"
 ARCH_3ST = "3ST (Set Transformer Temporal)"
+# the baselines' names, so that their configs are recognised; their models
+# are not ported yet (ROADMAP Queue 1)
+ARCH_FB = "FB (Framewise Feed Forward Baseline)"
+ARCH_CNN = "CNN_Temp (Temporal Baseline CNN)"
 
 
 @dataclasses.dataclass

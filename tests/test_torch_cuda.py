@@ -8,6 +8,7 @@ This file imports no jax, so it runs where only PyTorch is installed:
 Every test needs an NVIDIA GPU and skips elsewhere.
 """
 import json
+import os
 
 import numpy as np
 import pytest
@@ -903,3 +904,116 @@ def test_featurize_probe_kernels_reject_what_they_do_not_take(cuda):
         chunk_relayout(torch.zeros(2, 12, 20, device=cuda), 3, 4, True)
     with pytest.raises(ValueError, match="L ≤"):
         int16_gram(torch.zeros(2, 5000, dtype=torch.int16, device=cuda))
+
+
+# ---- K4 on the eval sweeps' path (pcaudio_torch.eval.experiments) ----------
+
+from pcaudio_torch.checkpoint import load_reference_pth  # noqa: E402
+from pcaudio_torch.data.synthetic import synth_clip  # noqa: E402
+from pcaudio_torch.eval import (  # noqa: E402
+    framewise_expt1, framewise_expt2, make_cloud_classifier,
+    make_fst_frame_classifier)
+from pcaudio_torch.eval.experiments import _ranks_desc  # noqa: E402
+
+FST_PTH = os.path.join(os.path.dirname(__file__), "..", "artifacts", "roundtrip",
+                       "FST_roundtrip_net.pth")
+
+
+@pytest.mark.parametrize("B,N,M,keep", [
+    (4, 64, 2049, None),     # FST expt 1 at N 4096: MAB0, MAB1, PMA
+    (4, 2049, 64, None),
+    (4, 1, 2049, None),
+    (2, 64, 5120, 1),        # 3ST expt 2: rank masks at K 1 and K = n
+    (2, 64, 5120, 5120),
+    (2, 1, 5120, 1),
+    (2, 1, 5120, 5120),
+    (1, 64, 10240, 2561),    # 3ST expt 1 at N 2048: 10 x 1024 points
+], ids=lambda x: str(x))
+def test_mha_forward_at_the_sweep_shapes(cuda, B, N, M, keep):
+    """K4's forward vs its plain version at the shapes the sweeps give it,
+    with the expt-2 engine's rank masks (``rank < K``)."""
+    gen = torch.Generator(cuda).manual_seed(M + N)
+    q, k, v = (torch.randn(B, r, 64, device=cuda, generator=gen) for r in (N, M, M))
+    mask = None
+    if keep is not None:
+        mask = _ranks_desc(torch.rand(B, M, device=cuda, generator=gen)) < keep
+        assert int(mask.sum()) == B * keep
+    f0 = fused_mha_fwd.launches
+    out, _ = fused_mha_fwd(q, k, v, mask, 8, 0.125)
+    torch.cuda.synchronize()
+    assert fused_mha_fwd.launches == f0 + 1
+    _close_k4(out, fused_mha_plain(q, k, v, mask, 8, 0.125), "out")
+
+
+def _fst(fused):
+    model = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
+               num_heads=8, fused_attn=fused)
+    model.load_state_dict(load_reference_pth(FST_PTH))
+    return model.to("cuda").eval()
+
+
+def _clips(n_clips, seconds=5.0):
+    L = 220672
+    w = np.zeros((n_clips, L), np.float32)
+    n = np.zeros(n_clips, np.int32)
+    for i in range(n_clips):
+        c = synth_clip(i % 10, 100 + i, n=int(seconds * 44100))
+        w[i, :len(c)], n[i] = c, len(c)
+    return w, n, np.arange(n_clips) % 10
+
+
+def _recording(fn, store):
+    def wrapped(*args):
+        lg = fn(*args)
+        store.append(lg.float())
+        return lg
+    return wrapped
+
+
+def test_expt2_microbatch_on_both_engines(cuda):
+    """One FST expt-2 microbatch (4 clips: 864 frames of 1025 points; 21 K x
+    (1 + 2 runs)) with the trained FST through K4 and through the plain
+    attention: the same forwards in the same order (the random draws are
+    seeded per microbatch), each K4 forward's argmax equal to the plain
+    one's on every row whose top-2 gap is above twice the logit deviation
+    (at most 1e-3), and the counts equal but for such rows."""
+    w, n, lab = _clips(4)
+    logits, res = {}, {}
+    for fused in (True, False):
+        logits[fused] = []
+        res[fused] = framewise_expt2(
+            None, _recording(make_cloud_classifier(_fst(fused)), logits[fused]),
+            w, n, lab, mode="cloud", nruns=2, device="cuda")
+    assert len(logits[True]) == len(logits[False]) == 21 * 3
+    undecided = []
+    for a, b in zip(logits[True], logits[False]):
+        dev = (a - b).abs().max().item()
+        assert dev <= 1e-3, dev
+        top2 = b.sort(dim=-1).values[:, -2:]
+        decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
+        assert bool((a.argmax(-1) == b.argmax(-1))[decided].all())
+        undecided.append(int((~decided).sum()))
+    (rnd, mx), (rnd_p, mx_p) = res[True], res[False]
+    assert rnd["list_K"] == mx["list_K"] == list(range(1, 1001, 50)) + [1024]
+    for j, K in enumerate(mx["list_K"]):
+        slack = (undecided[3 * j] + 1e-9) / 864
+        assert abs(mx["data"][K][0] - mx_p["data"][K][0]) <= slack
+        slack = (sum(undecided[3 * j + 1: 3 * j + 3]) + 1e-9) / 864
+        assert abs(rnd["data"][K][0] - rnd_p["data"][K][0]) <= slack
+
+
+def test_k4_launches_rise_during_a_sweep(cuda):
+    """An expt-1 sweep through the K4 model launches K4's forward five times
+    a classifier call (two ISABs' two attends, PMA), and the backward
+    never."""
+    w, n, lab = _clips(2, seconds=1.0)
+    calls = []
+    f0, b0 = fused_mha_fwd.launches, fused_mha_bwd.launches
+    out = framewise_expt1(_recording(make_fst_frame_classifier(_fst(True)), calls),
+                          w, n, lab, list_Fs=[44100, 22050.0], list_N=[4096, 204],
+                          device="cuda")
+    torch.cuda.synchronize()
+    # four sweep points, each at least one classifier call
+    assert len(calls) >= 4 and fused_mha_fwd.launches - f0 == 5 * len(calls)
+    assert fused_mha_bwd.launches == b0
+    assert all(0.0 <= a <= 1.0 for v in out["data"].values() for a in v)

@@ -18,6 +18,7 @@ from pcaudio.train import recipes as jax_recipes
 from pcaudio_torch.core.config import ExperimentConfig
 from pcaudio_torch.dsp import (
     FeaturizeConfig, batched_temporal_chunks, featurize_batch)
+from pcaudio_torch.eval import TemporalPipelineConfig
 from pcaudio_torch.ops import cloud
 from pcaudio_torch.train import recipes
 
@@ -75,13 +76,14 @@ def test_featurize_batch_matches_jax(n_fft):
 
 @pytest.mark.parametrize("what", ["resample", "FB", "CNNTemp"])
 def test_unported_parts_raise(what):
-    """Resampling and the recipes whose models are not ported raise, never
-    run something else."""
+    """Resampling in the serving pipeline and the recipes whose models are
+    not ported raise, never run something else.  (``featurize_batch``
+    resamples since the eval sweeps were ported: tests/
+    test_torch_featurize_sweep.py holds it against the JAX package.)"""
     with pytest.raises(NotImplementedError):
         if what == "resample":
-            waves, lengths, _ = _clips()
-            featurize_batch(torch.from_numpy(waves), torch.from_numpy(lengths),
-                            FeaturizeConfig(fs=FS, target_fs=16000))
+            TemporalPipelineConfig(fs=FS, target_fs=16000,
+                                   top_k=128).check_ported()
         else:
             recipes.RECIPES[what]()
 

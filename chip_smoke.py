@@ -28,8 +28,10 @@
    idle share (``torch.profiler``);
 5. holds K4 (the trainable attention, forward and backward) against its
    plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
-   1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points) and on
-   ragged masks with an all-masked sample;
+   1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points, the
+   forward's keys split over blocks), on ragged masks with an all-masked
+   sample, on expt 2's rank masks at the FST attends (K 1, 501, 1025) and
+   at 8 x randn's magnitude;
 6. trains through ``pcaudio_torch.cli train`` on a generated synthetic ESC-10
    corpus (cut to CLIPS_PER_CLASS clips per class): one epoch of the FST
    recipe at full width (dim 64, 64 inducing points, 8 heads, batch 128
@@ -38,8 +40,10 @@
    the 3ST recipe at full width (batch 16 chunks of 5120 points), whose saved
    checkpoint AudioClassifier.from_reference_checkpoint loads and serves
    through K1-K3 at its default top_k (256 points a cloud);
-7. times K4 and its plain pair at the FST attends, and the FST recipe step
-   (forward + backward + Adam) on the kernel and the plain path;
+7. times K4 and its plain pair at the FST attends, K4's forward at the
+   eval shape (one expt-2 forward: B=1024 FST frames, rank masks at K 501),
+   and the FST recipe step (forward + backward + Adam) on the kernel and
+   the plain path;
 8. runs the probes (``pcaudio_torch.probes``) at their TPU scripts' shapes:
    the K1 family (the batched dot, int8 vs bf16 tensor-core products, the
    int8 attend, 64- vs 128-wide chains, K1 relaunched bare / with weights
@@ -101,7 +105,7 @@ from pcaudio_torch.eval import (
     make_cloud_classifier, make_temporal_classifier, temporal_expt1,
     temporal_expt2)
 from pcaudio_torch.eval.experiments import (
-    _MB_FRAMES, _prefix_mask_counts, default_list_K)
+    _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.featurize import (
@@ -109,7 +113,7 @@ from pcaudio_torch.ops.kernels.featurize import (
 from pcaudio_torch.ops.kernels.fused_st import (
     _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed)
 from pcaudio_torch.ops.kernels.mha import (
-    fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
+    FWD_KERNELS, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.probes import PROBES, ingest
@@ -228,36 +232,96 @@ def k4_err(got, ref, what):
     return err.max().item()
 
 
-def mha_inputs(B, N, M, gen, ragged=False):
+def mha_inputs(B, N, M, gen, ragged=False, keep=None, mag=1.0):
+    """randn q, k, v, g (times ``mag``); a ragged mask (a full and an
+    all-masked sample) or expt 2's rank mask keeping ``keep`` keys."""
     dev = torch.device("cuda")
-    q, k, v, g = (torch.randn(B, r, DV, device=dev, generator=gen)
+    q, k, v, g = (mag * torch.randn(B, r, DV, device=dev, generator=gen)
                   for r in (N, M, M, N))
     mask = None
     if ragged:
         counts = torch.randint(1, M + 1, (B,), device=dev, generator=gen)
         counts[0], counts[1] = M, 0      # a full and an all-masked sample
         mask = torch.arange(M, device=dev)[None, :] < counts[:, None]
+    elif keep is not None:
+        mask = _ranks_desc(torch.rand(B, M, device=dev, generator=gen)) < keep
     return q, k, v, mask, g
 
 
-def k4_check(B, N, M, gen, ragged=False):
+def k4_check(B, N, M, gen, ragged=False, keep=None, mag=1.0):
     """K4 forward and backward vs the plain pair; returns (fwd, bwd) max
     |err|."""
-    q, k, v, mask, g = mha_inputs(B, N, M, gen, ragged)
+    q, k, v, mask, g = mha_inputs(B, N, M, gen, ragged, keep, mag)
     scale = 1.0 / DV ** 0.5
     out, lse = fused_mha_fwd(q, k, v, mask, HEADS, scale)
     grads = fused_mha_bwd(q, k, v, mask, out, lse, g, HEADS, scale)
     torch.cuda.synchronize()
-    what = f"K4 B={B} {N}x{M}{' ragged' if ragged else ''}"
+    what = (f"K4 B={B} {N}x{M}{' ragged' if ragged else ''}"
+            f"{f' rank mask K={keep}' if keep is not None else ''}"
+            f"{f' x{mag:g}' if mag != 1.0 else ''}")
     fwd = k4_err(out, fused_mha_plain(q, k, v, mask, HEADS, scale),
                  f"{what} out")
     ref = fused_mha_bwd_plain(q, k, v, mask, g, HEADS, scale)
-    bwd = max(k4_err(a, r, f"{what} d{n}")
-              for a, r, n in zip(grads, ref, "qkv"))
+    if keep == 1:
+        # one valid key a row: dq and dk are zero in exact arithmetic (a
+        # softmax over one key is constant), so their rounding noise is
+        # held against the three gradients' common scale, as phase 6 holds
+        # the parameter gradients
+        bwd = k4_err(torch.cat([x.flatten() for x in grads]),
+                     torch.cat([x.flatten() for x in ref]), f"{what} dq, dk, dv")
+    else:
+        bwd = max(k4_err(a, r, f"{what} d{n}")
+                  for a, r, n in zip(grads, ref, "qkv"))
     if ragged:
         check(not out[1].any() and not any(x[1].any() for x in grads),
               f"{what}: the all-masked sample must give zeros")
     return fwd, bwd
+
+
+def k4_fwd_parts(exps, flops, nb):
+    """The three times that bound K4's forward: exps on the SFU, the 3xTF32
+    products (``flops`` counts all three passes) on the tensor cores, the
+    bytes."""
+    return (f"exps {bound_ms({'sfu': exps}, 0)[0]:.4f} ms, 3xTF32 products "
+            f"{bound_ms({'tf32': flops}, 0)[0]:.4f} ms, bytes {bound_ms({}, nb)[0]:.4f} ms")
+
+
+def k4_eval_time(gen, name_limit):
+    """Phase 7: K4's forward at the eval shape, one expt-2 forward of the
+    FST: B = 1024 frames, rank masks at K 501 on MAB0 and PMA (MAB1's keys
+    are the 64 inducing summaries, unmasked); kernel vs plain vs SDPA with
+    the mask, and its bound from the valid keys only."""
+    B, keep = _MB_FRAMES, 501
+    scale = 1.0 / DV ** 0.5
+    ms, plain, lib = 0.0, 0.0, 0.0
+    work = [0.0, 0.0, 0.0]
+    for name, (N, M) in FST_ATTENDS.items():
+        masked = M == 1025
+        q, k, v, mask, _ = mha_inputs(B, N, M, gen, keep=keep if masked else None)
+        out, _ = fused_mha_fwd(q, k, v, mask, HEADS, scale)
+        k4_err(out, fused_mha_plain(q, k, v, mask, HEADS, scale), f"K4 eval {name}")
+        n, valid = FST_STEP_ATTENDS[name], keep if masked else M
+        work[0] += n * float(B) * HEADS * N * valid
+        work[1] += n * 3 * 4.0 * B * N * valid * DV
+        # q, out, lse, the valid K and V rows, the mask
+        work[2] += n * (nbytes(q, out) + 4.0 * B * HEADS * N + 8.0 * B * valid * DV
+                        + (B * M if masked else 0))
+        t = paired_ms(lambda: fused_mha_fwd(q, k, v, mask, HEADS, scale),
+                      lambda: fused_mha_plain(q, k, v, mask, HEADS, scale), 10, 3)
+        heads = [x.view(B, -1, HEADS, DV // HEADS).transpose(1, 2) for x in (q, k, v)]
+        am = None if mask is None else mask[:, None, None, :]
+        lib_t = cuda_ms(lambda: F.scaled_dot_product_attention(
+            *heads, attn_mask=am, scale=scale), 10)
+        ms, plain, lib = ms + n * t[0], plain + n * t[1], lib + n * lib_t
+        log(f"[time] K4 fwd at the eval shape, {name} B={B} {N}x{M}"
+            f"{f' rank mask K={keep}' if masked else ''}: kernel {t[0]:.3f} ms, plain "
+            f"{t[1]:.3f} ms, sdpa {lib_t:.3f} ms ({name_limit})")
+        del q, k, v, mask, out, heads, am
+        torch.cuda.empty_cache()
+    b = bound_ms({"sfu": work[0], "tf32": work[1]}, work[2])
+    log(f"[time] K4 fwd over one expt-2 forward's five attends (B={B}, rank masks "
+        f"K={keep}): kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
+        f"bound {b[0]:.4f} ms by {b[1]} ({k4_fwd_parts(*work)}) ({name_limit})")
 
 
 def k1_check(got, ref, what, tol=None):
@@ -670,7 +734,10 @@ def eval_phase(name_limit):
                                            default_list_K(1024), 10)
         wall = cuda_ms(one_microbatch, 1)
         per, idle = profile_device(one_microbatch, 1)
-        k4 = sum(v for k, v in per.items() if "mha_fwd_kernel" in k)
+        k4_names = [k for k in per if any(f"{n}<" in k for n in FWD_KERNELS)]
+        check(bool(k4_names), f"the expt-2 microbatch's profile holds none of K4's "
+              f"forward kernels {FWD_KERNELS}; its kernels: {list(per)[:8]}")
+        k4 = sum(per[k] for k in k4_names)
         total = sum(per.values())
         log(f"[eval] one expt-2 microbatch (1024 clouds x 231 masks): {wall:.1f} ms; "
             f"device {total:.1f} ms, K4 {k4:.1f} ms = {k4 / total:.3f} of it, idle "
@@ -1032,14 +1099,19 @@ def main():
     # ---- 5. K4 vs its plain pair at the recipes' attends --------------------
     gen = torch.Generator(dev).manual_seed(5)
     k4_fwd_err = k4_bwd_err = 0.0
-    cases = ([(128, N, M, False) for N, M in FST_ATTENDS.values()]
-             + [(16, N, M, False) for N, M in ST3_ATTENDS.values()]
-             + [(6, 64, 300, True), (6, 300, 9, True), (6, 1, 37, True)])
-    for B, N, M, ragged in cases:
-        f_err, b_err = k4_check(B, N, M, gen, ragged)
+    cases = ([(128, N, M, {}) for N, M in FST_ATTENDS.values()]
+             + [(16, N, M, {}) for N, M in ST3_ATTENDS.values()]
+             + [(6, 64, 300, {"ragged": True}), (6, 300, 9, {"ragged": True}),
+                (6, 1, 37, {"ragged": True})]
+             # expt 2's rank masks at the FST attends that take the mask
+             + [(128, N, 1025, {"keep": K}) for N in (64, 1) for K in (1, 501, 1025)]
+             # logits 64 x randn's
+             + [(128, N, M, {"mag": 8.0}) for N, M in FST_ATTENDS.values()])
+    for B, N, M, kw in cases:
+        f_err, b_err = k4_check(B, N, M, gen, **kw)
         k4_fwd_err, k4_bwd_err = max(k4_fwd_err, f_err), max(k4_bwd_err, b_err)
-        log(f"[K4] B={B} {N} queries x {M} keys{' ragged' if ragged else ''}: "
-            f"out max |err| {f_err:.3e}, dq/dk/dv max |err| {b_err:.3e}")
+        log(f"[K4] B={B} {N} queries x {M} keys {kw or ''}: out max |err| "
+            f"{f_err:.3e}, dq/dk/dv max |err| {b_err:.3e}")
     errs["fused_mha_fwd"], errs["fused_mha_bwd"] = k4_fwd_err, k4_bwd_err
 
     # ---- 6. training through the CLI ----------------------------------------
@@ -1054,15 +1126,18 @@ def main():
     scale = 1.0 / DV ** 0.5
     k4_ms = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     k4_lib = {"fwd": 0.0, "bwd": 0.0}
-    k4_work = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}  # f32 operations, bytes
+    # fwd: exps, the 3xTF32 products' flops (three passes), bytes; bwd: f32
+    # operations, bytes
+    k4_work = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0]}
     for name, (N, M) in FST_ATTENDS.items():
         q, k, v, _, g = mha_inputs(128, N, M, gen)
         out, lse = fused_mha_fwd(q, k, v, None, HEADS, scale)
         n = FST_STEP_ATTENDS[name]
-        # fwd: Q·Kᵀ and A·V; bwd: dV, dP, dQ, dK (the least, without
-        # recomputing A); each tensor read or written once
-        k4_work["fwd"][0] += n * 4.0 * 128 * N * M * DV
-        k4_work["fwd"][1] += n * nbytes(q, k, v, out, lse)
+        # fwd: one exp a score, Q·Kᵀ and A·V; bwd: dV, dP, dQ, dK (the
+        # least, without recomputing A); each tensor read or written once
+        k4_work["fwd"][0] += n * 128.0 * HEADS * N * M
+        k4_work["fwd"][1] += n * 3 * 4.0 * 128 * N * M * DV
+        k4_work["fwd"][2] += n * nbytes(q, k, v, out, lse)
         k4_work["bwd"][0] += n * 8.0 * 128 * N * M * DV
         k4_work["bwd"][1] += n * nbytes(q, k, v, out, lse, g, q, k, v)
         # yardstick: F.scaled_dot_product_attention over the same heads (the
@@ -1093,14 +1168,19 @@ def main():
     for key in ("fwd", "bwd"):
         times[f"fused_mha_{key}"] = tuple(k4_ms[key])
         lib_ms[f"fused_mha_{key}"] = k4_lib[key]
-        bounds[f"fused_mha_{key}"] = bound_ms({"f32": k4_work[key][0]}, k4_work[key][1])
+    # the forward: its exps on the SFU, its 3xTF32 products on the tensor
+    # cores, or its bytes, whichever takes longest; the backward: f32 FMAs
+    bounds["fused_mha_fwd"] = bound_ms(
+        {"sfu": k4_work["fwd"][0], "tf32": k4_work["fwd"][1]}, k4_work["fwd"][2])
+    bounds["fused_mha_bwd"] = bound_ms({"f32": k4_work["bwd"][0]}, k4_work["bwd"][1])
     log(f"[time] K4 over one FST step's five attends: fwd kernel "
         f"{k4_ms['fwd'][0]:.3f} ms, plain {k4_ms['fwd'][1]:.3f} ms, sdpa "
         f"{k4_lib['fwd']:.3f} ms, bound {bounds['fused_mha_fwd'][0]:.3f} ms by "
         f"{bounds['fused_mha_fwd'][1]}; bwd kernel {k4_ms['bwd'][0]:.3f} ms, "
         f"plain {k4_ms['bwd'][1]:.3f} ms, sdpa {k4_lib['bwd']:.3f} ms, bound "
         f"{bounds['fused_mha_bwd'][0]:.3f} ms by {bounds['fused_mha_bwd'][1]} "
-        f"({name_limit})")
+        f"({name_limit}); the forward's bound parts: {k4_fwd_parts(*k4_work['fwd'])}")
+    k4_eval_time(gen, name_limit)
     for tag, (cfg, batch) in train_out["batches"].items():
         steps = {}
         for fused in (True, False):

@@ -1,6 +1,7 @@
-// mma.sync building blocks shared by K1 (fused_st.cu) and the probe kernels
-// (probe_mma.cu, probe_attend.cu): ldmatrix loads from shared memory, the
-// bf16 and s8 tensor-core products, cp.async copies, the SFU's 2^x.
+// mma.sync building blocks shared by K1 (fused_st.cu), K4's forward (mha.cu)
+// and the probe kernels (probe_mma.cu, probe_attend.cu): ldmatrix loads from
+// shared memory, the bf16, s8 and TF32 tensor-core products, cp.async
+// copies, the SFU's 2^x.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
 // with g = lane / 4 and t = lane % 4.  A tile is 16 rows x 32 bytes of K
@@ -40,6 +41,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+// 16 bytes if `bytes` is 16; with `bytes` 0 nothing is read (`gmem` need
+// only be a valid address) and the 16 bytes at `smem` are zero-filled.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(bytes));
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -122,6 +129,43 @@ __device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2
       "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// TF32 (10-bit mantissa) products with f32 sums, mma.sync.m16n8k8, with
+// g = lane / 4, t = lane % 4 (PTX ISA, "Matrix fragments for mma.m16n8k8",
+// .tf32):
+//   A regs 0..3: (row g, k t), (row g+8, k t), (row g, k t+4), (row g+8, k t+4);
+//   B regs 0..1: (k t, column g), (k t+4, column g);
+//   C as for k16: (row g, columns 2t, 2t+1), (row g+8, columns 2t, 2t+1).
+// The unit reads the top 19 bits of each operand (sign, exponent, 10
+// mantissa bits) and ignores the low 13: an f32 operand is truncated.
+__device__ __forceinline__ void mma_tf32_k8(float (&c)[4], const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x ≈ hi + lo: hi = x rounded to TF32, to nearest with ties away from zero
+// (half a TF32 ulp added to the bit pattern, the low 13 bits cleared: what
+// cvt.rna.tf32.f32 gives, in integer operations, where a cvt would take the
+// conversion unit that exps need); lo = x - hi, exact in f32, which the
+// unit reads truncated: |x - hi - lo| <= 2^-21 |x|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 3xTF32: c += a·b to about 2^-20 of sum |a·b| (f32 is 2^-24), as
+// lo·hi + hi·lo + hi·hi, the small terms first; lo·lo (2^-22) is dropped.
+__device__ __forceinline__ void mma_3xtf32_k8(float (&c)[4], const uint32_t (&a_hi)[4],
+                                              const uint32_t (&a_lo)[4], uint32_t b0_hi,
+                                              uint32_t b1_hi, uint32_t b0_lo,
+                                              uint32_t b1_lo) {
+  mma_tf32_k8(c, a_lo, b0_hi, b1_hi);
+  mma_tf32_k8(c, a_hi, b0_lo, b1_lo);
+  mma_tf32_k8(c, a_hi, b0_hi, b1_hi);
 }
 
 // 2^x on the special-function unit (2 ulp; -inf gives +0).

@@ -38,7 +38,7 @@ _SIGNATURES = {
     "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P, _L, _P,
                          _I, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st_max_points": [_I],
-    "pcaudio_mha_fwd": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P],
+    "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P],
     "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],

@@ -10,10 +10,13 @@ MAB passes ``1/sqrt(dim_V)``, not per head).
 
 CPU tensors take the plain pair (:func:`fused_mha_plain` forward,
 :func:`fused_mha_bwd_plain` backward); CUDA tensors always take the
-kernels, and a shape or type the kernels do not take raises.
+kernels, and a shape or type the kernels do not take raises.  The
+forward's launch geometry is planned here (:func:`fwd_plan`).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +24,57 @@ import torch
 from pcaudio_torch.ops.kernels import _build
 
 HEAD_DIMS = (4, 8, 16)  # dh the kernels are compiled for
+# csrc/mha.cu's forward: warps a block, 16 query rows a warp, keys a staged
+# tile, keys a block compacts at a time
+FWD_WARPS, FWD_WARP_ROWS, FWD_KEY_TILE, FWD_WINDOW = 4, 16, 64, 8192
+# the forward's CUDA kernels by name, as a profiler lists them
+FWD_KERNELS = ("mha_fwd_kernel", "mha_fwd_short_kernel", "mha_fwd_merge_kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """The forward kernel's geometry: a block holds ``rows`` query rows of
+    one (sample, head), ``qtiles`` blocks cover its queries, and ``splits``
+    blocks split each row's keys (merged by a second kernel when above 1).
+    ``parts`` 1, 2 or 4: the tiled kernel, ``parts`` warps splitting each
+    key tile (``rows = 64 / parts``); 0: the kernel for at most 64 keys,
+    which splits them once a block and walks ``rows`` rows a block."""
+
+    parts: int
+    rows: int
+    qtiles: int
+    splits: int
+
+
+def fwd_plan(B: int, N: int, M: int, num_heads: int, sms: int, dh: int = 8) -> FwdPlan:
+    """Plan the forward for ``N`` queries and ``M`` keys of head width
+    ``dh`` on a card of ``sms`` multiprocessors.
+
+    At most 64 keys and dh ≤ 8 (MAB1's 64 summaries) take the short-key
+    kernel, with enough rows a block for about 8 blocks an SM.  Otherwise,
+    under 33 queries the warps split each key tile (PMA's one query would
+    leave three of four warps idle); and where the blocks would not fill the
+    card twice (3ST training's MAB0 and PMA at B = 16: 128 blocks on 132
+    SMs), each row's keys are split over up to 4·sms / blocks blocks, each
+    taking at least 512 keys."""
+    block_rows = FWD_WARPS * FWD_WARP_ROWS
+    if M <= FWD_KEY_TILE and dh <= 8:
+        tiles = -(-N // block_rows)
+        per = -(-tiles // min(tiles, -(-8 * sms // (B * num_heads))))
+        return FwdPlan(0, per * block_rows, -(-N // (per * block_rows)), 1)
+    parts = 4 if N <= 16 else 2 if N <= 32 else 1
+    rows = block_rows // parts
+    qtiles = -(-N // rows)
+    base = B * num_heads * qtiles
+    splits = 1
+    if base < 2 * sms:
+        splits = max(1, min(-(-4 * sms // base), -(-M // 512)))
+    return FwdPlan(parts, rows, qtiles, splits)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def masked_softmax(logits: torch.Tensor, mask: Optional[torch.Tensor],
@@ -131,16 +185,27 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def fused_mha_fwd(q, k, v, mask, num_heads: int, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel: ``(out [B, N, dv], lse [B, h, N])``, the
-    row log-sum-exp of the scaled logits (+inf for a row with no valid key)
-    that the backward reads.  CUDA tensors only."""
+    """Launch the forward kernel (planned by :func:`fwd_plan`): ``(out [B,
+    N, dv], lse [B, h, N])``, the row log-sum-exp of the scaled logits (+inf
+    for a row with no valid key) that the backward reads.  CUDA tensors
+    only."""
     q, k, v, mask = _kernel_args(q, k, v, mask, num_heads)
     B, N, dv = q.shape
+    M = k.shape[1]
+    plan = fwd_plan(B, N, M, num_heads, _sm_count(q.device.index or 0), dv // num_heads)
     out = torch.empty_like(q)
     lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=q.device)
+    part_m = part_l = part_o = None
+    if plan.splits > 1:
+        part_m = torch.empty((plan.splits, B, num_heads, N), dtype=torch.float32,
+                             device=q.device)
+        part_l = torch.empty_like(part_m)
+        part_o = torch.empty((plan.splits, B, N, dv), dtype=torch.float32,
+                             device=q.device)
     _build.launch("pcaudio_mha_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  _ptr(mask), out.data_ptr(), lse.data_ptr(), B, N, k.shape[1],
-                  num_heads, dv // num_heads, float(scale), _build.stream_of(q))
+                  _ptr(mask), out.data_ptr(), lse.data_ptr(), _ptr(part_m),
+                  _ptr(part_l), _ptr(part_o), B, N, M, num_heads, dv // num_heads,
+                  plan.parts, plan.rows, plan.splits, float(scale), _build.stream_of(q))
     fused_mha_fwd.launches += 1
     return out, lse
 

@@ -13,10 +13,11 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-# One H100 SXM at its 700 W limit, dense (NVIDIA's data sheet).  "sfu": 132 SMs x 16 MUFU results a clock
+# One H100 SXM at its 700 W limit, dense (NVIDIA's data sheet; "tf32" the
+# tensor cores' TF32 rate).  "sfu": 132 SMs x 16 MUFU results a clock
 # (NVIDIA's CUDA arithmetic-instruction throughput table for compute
 # capability 9.0) x 1.98 GHz boost, for exp.
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12,
                   "sfu": 132 * 16 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
 

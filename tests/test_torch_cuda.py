@@ -914,6 +914,9 @@ from pcaudio_torch.eval import (  # noqa: E402
     framewise_expt1, framewise_expt2, make_cloud_classifier,
     make_fst_frame_classifier)
 from pcaudio_torch.eval.experiments import _ranks_desc  # noqa: E402
+from pcaudio_torch.nn import attention as st_attention  # noqa: E402
+from pcaudio_torch.ops.kernels.mha import _sm_count, fwd_plan  # noqa: E402
+from pcaudio_torch.train import RECIPES, prepare_framewise_data  # noqa: E402
 
 FST_PTH = os.path.join(os.path.dirname(__file__), "..", "artifacts", "roundtrip",
                        "FST_roundtrip_net.pth")
@@ -943,6 +946,142 @@ def test_mha_forward_at_the_sweep_shapes(cuda, B, N, M, keep):
     torch.cuda.synchronize()
     assert fused_mha_fwd.launches == f0 + 1
     _close_k4(out, fused_mha_plain(q, k, v, mask, 8, 0.125), "out")
+
+
+def _k4_against_plain(q, k, v, mask, h=8, scale=0.125, seed=0):
+    """K4's forward (one launch) vs its plain version, its lse vs the masked
+    logsumexp, the backward on that out and lse vs the plain backward, and
+    autograd through fused_mha vs autograd through the plain forward, all
+    within K4's bound."""
+    f0 = fused_mha_fwd.launches
+    out, lse = fused_mha_fwd(q, k, v, mask, h, scale)
+    torch.cuda.synchronize()
+    assert fused_mha_fwd.launches == f0 + 1
+    _close_k4(out, fused_mha_plain(q, k, v, mask, h, scale), "out")
+    B, N, dv = q.shape
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.view(B, N, h, -1),
+                          k.view(B, k.shape[1], h, -1)) * scale
+    if mask is not None:
+        logits = logits.masked_fill(~mask[:, None, None, :], -torch.inf)
+    ref = torch.logsumexp(logits, -1)
+    ref = ref.masked_fill(ref == -torch.inf, torch.inf)
+    assert torch.equal(torch.isinf(lse), torch.isinf(ref))
+    fin = torch.isfinite(ref)
+    assert bool(((lse - ref)[fin].abs() <= 1e-5 * (1 + ref[fin].abs())).all())
+    g = torch.randn(q.shape, device=q.device,
+                    generator=torch.Generator(q.device).manual_seed(seed))
+    grads = fused_mha_bwd(q, k, v, mask, out, lse, g, h, scale)
+    joint = _constant_softmax(k, v, mask)
+    _close_grads(grads, fused_mha_bwd_plain(q, k, v, mask, g, h, scale), joint, "")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    (fused_mha(*leaves, mask, h, scale) * g).sum().backward()
+    auto = [x.clone().requires_grad_() for x in (q, k, v)]
+    (fused_mha_plain(*auto, mask, h, scale) * g).sum().backward()
+    _close_grads([a.grad for a in leaves], [a.grad for a in auto], joint, "autograd ")
+    return out
+
+
+def _constant_softmax(k, v, mask):
+    """True where no row has two distinct valid keys: at most one valid key
+    a row (expt 2's K 1), or all keys and values of a sample equal (the
+    trained FST's MAB1, whose 64 inducing summaries coincide).  Then dq and
+    dk are zero in exact arithmetic."""
+    if mask is not None and int(mask.sum(1).max()) <= 1:
+        return True
+    return mask is None and bool((k == k[:, :1]).all() and (v == v[:, :1]).all())
+
+
+def _close_grads(got, ref, joint, what):
+    """dq, dk, dv within K4's bound, each against its own scale; but where
+    dq and dk are zero in exact arithmetic (``_constant_softmax``), the
+    kernels' rounding noise is held against the three gradients' common
+    scale, as chip_smoke.py holds the parameter gradients."""
+    if joint:
+        _close_k4(torch.cat([x.flatten() for x in got]),
+                  torch.cat([x.flatten() for x in ref]), f"{what}dq, dk, dv")
+        return
+    for a, r, name in zip(got, ref, ("dq", "dk", "dv")):
+        _close_k4(a, r, f"{what}{name}")
+
+
+@pytest.mark.parametrize("B,N,M,keep,mag", [
+    (6, 64, 1025, 1, 1),        # FST MAB0 and PMA at expt 2's rank masks
+    (6, 64, 1025, 501, 1),
+    (6, 64, 1025, 1025, 1),
+    (6, 1, 1025, 1, 1),
+    (6, 1, 1025, 501, 1),
+    (6, 1, 1025, 1025, 1),
+    (16, 64, 5120, None, 1),    # 3ST training at B = 16: keys split
+    (16, 1, 5120, None, 1),
+    (16, 64, 5120, 2561, 1),
+    (5, 15, 300, None, 1),      # query counts around the 16-row warp tile
+    (5, 16, 300, None, 1),
+    (5, 17, 300, 100, 1),
+    (5, 64, 7, None, 1),        # key counts off the 8-key group, 64-key tile
+    (5, 64, 65, 33, 1),
+    (6, 64, 1025, None, 8),     # logits 64 x randn's
+    (6, 1, 1025, 501, 8),
+    (6, 1025, 64, None, 8),
+], ids=lambda x: str(x))
+def test_mha_forward_redesign_cases(cuda, B, N, M, keep, mag):
+    """The new forward and the backward on its lse where the design has its
+    edges: rank masks, key splits, ragged row and key tiles, large logits."""
+    gen = torch.Generator(cuda).manual_seed(N * 7 + M)
+    q, k, v = (mag * torch.randn(B, r, 64, device=cuda, generator=gen) for r in (N, M, M))
+    mask = None
+    if keep is not None:
+        mask = _ranks_desc(torch.rand(B, M, device=cuda, generator=gen)) < keep
+        mask[-1] = False            # and a sample with no valid key
+    if B == 16 and N in (1, 64):
+        assert fwd_plan(B, N, M, 8, _sm_count(0)).splits > 1
+    out = _k4_against_plain(q, k, v, mask)
+    if mask is not None:
+        assert not out[-1].any()
+
+
+def test_mha_forward_key_splits_that_hold_no_key(cuda):
+    """Three key splits (B = 3, 20 queries, 1100 keys) over prefix masks: the
+    second and third splits of the 3-key sample, and every split of the
+    empty one, hold no valid key."""
+    assert fwd_plan(3, 20, 1100, 8, _sm_count(0)).splits == 3
+    gen = torch.Generator(cuda).manual_seed(11)
+    q, k, v = (torch.randn(3, r, 64, device=cuda, generator=gen) for r in (20, 1100, 1100))
+    counts = torch.tensor([1100, 3, 0], device=cuda)
+    mask = torch.arange(1100, device=cuda)[None, :] < counts[:, None]
+    out = _k4_against_plain(q, k, v, mask)
+    assert not out[2].any()
+
+
+def _fst_attend_inputs(keep):
+    """q, k, v and the mask of the trained FST's five attends on frames of
+    two synthetic clips (rank masks at ``keep``, or none)."""
+    cfg = RECIPES["FST"]()
+    w = np.stack([synth_clip(c, 11, n=44100) for c in (2, 7)])
+    data = prepare_framewise_data(w, np.full(2, 44100, np.int32), np.array([2, 7]),
+                                  cfg, device="cuda")
+    pts = torch.from_numpy(data["points"][:48]).cuda()
+    mask = None if keep is None else _ranks_desc(pts[..., 1]) < keep
+    calls = []
+    kernel = st_attention.fused_mha
+
+    def record(q, k, v, m, num_heads, scale):
+        calls.append((q.detach().clone(), k.detach().clone(), v.detach().clone(), m,
+                      num_heads, scale))
+        return kernel(q, k, v, m, num_heads, scale)
+    st_attention.fused_mha = record
+    try:
+        with torch.no_grad():
+            _fst(True)(pts, mask)
+    finally:
+        st_attention.fused_mha = kernel
+    assert len(calls) == 5
+    return calls
+
+
+@pytest.mark.parametrize("keep", [None, 501])
+def test_mha_forward_on_the_trained_fst_activations(cuda, keep):
+    for q, k, v, m, h, scale in _fst_attend_inputs(keep):
+        _k4_against_plain(q, k, v, m, h, scale)
 
 
 def _fst(fused):

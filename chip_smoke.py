@@ -40,10 +40,14 @@
    the 3ST recipe at full width (batch 16 chunks of 5120 points), whose saved
    checkpoint AudioClassifier.from_reference_checkpoint loads and serves
    through K1-K3 at its default top_k (256 points a cloud);
-7. times K4 and its plain pair at the FST attends, K4's forward at the
-   eval shape (one expt-2 forward: B=1024 FST frames, rank masks at K 501),
-   and the FST recipe step (forward + backward + Adam) on the kernel and
-   the plain path;
+7. times K4 and its plain pair at the FST attends (with their bounds: the
+   backward's bytes, 3xTF32 products and exps printed as parts), K4's
+   backward at the 3ST attends (B=16, the large side split), K4's forward
+   at the eval shape (one expt-2 forward: B=1024 FST frames, rank masks at
+   K 501), and the FST and 3ST recipe steps (forward + backward + Adam) on
+   the kernel and the plain path, then profiles each kernel-path step
+   (device ms by kernel, the idle share; K4's backward by BWD_KERNELS, and
+   none of the SIMT pair's kernels at these shapes);
 8. runs the probes (``pcaudio_torch.probes``) at their TPU scripts' shapes:
    the K1 family (the batched dot, int8 vs bf16 tensor-core products, the
    int8 attend, 64- vs 128-wide chains, K1 relaunched bare / with weights
@@ -113,11 +117,13 @@ from pcaudio_torch.ops.kernels.featurize import (
 from pcaudio_torch.ops.kernels.fused_st import (
     _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed)
 from pcaudio_torch.ops.kernels.mha import (
-    FWD_KERNELS, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
+    BWD_KERNELS, BWD_PAIR_KERNELS, FWD_KERNELS, _sm_count, bwd_plan, fused_mha_bwd,
+    fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.probes import PROBES, ingest
 from pcaudio_torch.probes.clips import FS, L, negzero_grid, ragged_waves, synthetic_waves
+from pcaudio_torch.probes.k4_stages import bwd_parts, bwd_work
 from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
 from pcaudio_torch.probes.timing import (
     bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
@@ -322,6 +328,81 @@ def k4_eval_time(gen, name_limit):
     log(f"[time] K4 fwd over one expt-2 forward's five attends (B={B}, rank masks "
         f"K={keep}): kernel {ms:.3f} ms, plain {plain:.3f} ms, sdpa {lib:.3f} ms, "
         f"bound {b[0]:.4f} ms by {b[1]} ({k4_fwd_parts(*work)}) ({name_limit})")
+
+
+def k4_attend_times(q, k, v, out, lse, g, iters):
+    """K4's forward and backward on one attend (no mask), each paired with
+    its plain version, and F.scaled_dot_product_attention's forward and
+    autograd backward over the same heads (a yardstick the port never
+    calls): ``((fwd, plain), sdpa fwd, (bwd, plain), sdpa bwd)``."""
+    B = q.shape[0]
+    scale = 1.0 / DV ** 0.5
+    heads = [x.view(B, -1, HEADS, DV // HEADS).transpose(1, 2) for x in (q, k, v, g)]
+    lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(*heads[:3], scale=scale), iters)
+    leaves = [x.detach().requires_grad_() for x in heads[:3]]
+    lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    lib_b = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, leaves, heads[3], retain_graph=True), iters)
+    fwd = paired_ms(lambda: fused_mha_fwd(q, k, v, None, HEADS, scale),
+                    lambda: fused_mha_plain(q, k, v, None, HEADS, scale), iters, iters)
+    bwd = paired_ms(lambda: fused_mha_bwd(q, k, v, None, out, lse, g, HEADS, scale),
+                    lambda: fused_mha_bwd_plain(q, k, v, None, g, HEADS, scale),
+                    iters, iters)
+    return fwd, lib_f, bwd, lib_b
+
+
+def k4_3st_bwd_time(gen, name_limit):
+    """Phase 7: K4's backward at the 3ST step's attends (B = 16, the large
+    side split over blocks), kernel vs plain vs SDPA's backward, and its
+    bound."""
+    B = 16
+    scale = 1.0 / DV ** 0.5
+    ms, plain, lib, work = 0.0, 0.0, 0.0, [0.0, 0.0, 0.0]
+    for name, (N, M) in ST3_ATTENDS.items():
+        q, k, v, _, g = mha_inputs(B, N, M, gen)
+        out, lse = fused_mha_fwd(q, k, v, None, HEADS, scale)
+        _, _, bwd, lib_b = k4_attend_times(q, k, v, out, lse, g, 10)
+        n = FST_STEP_ATTENDS[name]
+        ms, plain, lib = ms + n * bwd[0], plain + n * bwd[1], lib + n * lib_b
+        w = bwd_work(B, N, M)
+        work = [a + n * b for a, b in zip(work, w)]
+        plan = bwd_plan(B, N, M, HEADS, _sm_count(0))
+        log(f"[time] K4 bwd 3ST {name} B={B} {N}x{M} ({plan.kind}, {plan.splits} splits): "
+            f"kernel {bwd[0]:.3f} ms, plain {bwd[1]:.3f} ms, sdpa {lib_b:.3f} ms, bound "
+            f"{bound_ms({'sfu': w[0], 'tf32': w[1]}, w[2])[0]:.4f} ms ({name_limit})")
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    b = bound_ms({"sfu": work[0], "tf32": work[1]}, work[2])
+    log(f"[time] K4 bwd over one 3ST step's five attends (B={B}): kernel {ms:.3f} ms, "
+        f"plain {plain:.3f} ms, sdpa {lib:.3f} ms, bound {b[0]:.4f} ms by {b[1]} "
+        f"({bwd_parts(*work)}) ({name_limit})")
+
+
+def _named(per, names):
+    return [k for k in per if any(f"{n}<" in k or f"{n}(" in k for n in names)]
+
+
+def _short(name):
+    """A profiler's kernel name without namespace and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0][-48:]
+
+
+def step_profile(tag, step, name_limit):
+    """Phase 7: one recipe step's device time by kernel and the idle share
+    (torch.profiler over 5 steps); K4's backward found by BWD_KERNELS, and
+    none of the SIMT pair's kernels at a recipe shape."""
+    per, idle = profile_device(step, 5)
+    total = sum(per.values())
+    bwd, pair = _named(per, BWD_KERNELS), _named(per, BWD_PAIR_KERNELS)
+    fwd = _named(per, FWD_KERNELS)
+    check(bool(bwd) and not pair, f"{tag} step: K4's backward kernels in the profile "
+          f"{bwd}, of which the SIMT pair's {pair} (none expected); its kernels: "
+          f"{list(per)[:10]}")
+    log(f"[time] {tag} step profile: device {total:.3f} ms a step, K4 bwd "
+        f"{sum(per[k] for k in bwd):.3f} ms ({', '.join(_short(k) for k in bwd)}), "
+        f"K4 fwd {sum(per[k] for k in fwd):.3f} ms, idle share {idle:.4f}; by kernel: "
+        + "; ".join(f"{_short(k)} {v:.3f}" for k, v in list(per.items())[:10])
+        + f" ({name_limit})")
 
 
 def k1_check(got, ref, what, tol=None):
@@ -1122,64 +1203,49 @@ def main():
         shutil.rmtree(work, ignore_errors=True)
     launches.update(train_out["launches"])
 
-    # ---- 7. K4 and the FST step, timed --------------------------------------
+    # ---- 7. K4 and the recipe steps, timed ------------------------------------
     scale = 1.0 / DV ** 0.5
     k4_ms = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     k4_lib = {"fwd": 0.0, "bwd": 0.0}
-    # fwd: exps, the 3xTF32 products' flops (three passes), bytes; bwd: f32
-    # operations, bytes
-    k4_work = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0]}
+    # fwd: exps, the 3xTF32 products' flops (three passes), bytes; bwd: the
+    # same three (k4_stages.bwd_work: five products with S recomputed)
+    k4_work = {"fwd": [0.0, 0.0, 0.0], "bwd": [0.0, 0.0, 0.0]}
     for name, (N, M) in FST_ATTENDS.items():
         q, k, v, _, g = mha_inputs(128, N, M, gen)
         out, lse = fused_mha_fwd(q, k, v, None, HEADS, scale)
         n = FST_STEP_ATTENDS[name]
-        # fwd: one exp a score, Q·Kᵀ and A·V; bwd: dV, dP, dQ, dK (the
-        # least, without recomputing A); each tensor read or written once
+        # fwd: one exp a score, Q·Kᵀ and A·V; each tensor read or written once
         k4_work["fwd"][0] += n * 128.0 * HEADS * N * M
         k4_work["fwd"][1] += n * 3 * 4.0 * 128 * N * M * DV
         k4_work["fwd"][2] += n * nbytes(q, k, v, out, lse)
-        k4_work["bwd"][0] += n * 8.0 * 128 * N * M * DV
-        k4_work["bwd"][1] += n * nbytes(q, k, v, out, lse, g, q, k, v)
-        # yardstick: F.scaled_dot_product_attention over the same heads (the
-        # FST attends carry no mask), its backward through autograd
-        heads = [x.view(128, -1, HEADS, DV // HEADS).transpose(1, 2)
-                 for x in (q, k, v, g)]
-        lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
-            *heads[:3], scale=scale), 20)
-        leaves = [x.detach().requires_grad_() for x in heads[:3]]
-        lib_out = F.scaled_dot_product_attention(*leaves, scale=scale)
-        lib_b = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, heads[3], retain_graph=True), 20)
+        k4_work["bwd"] = [a + n * b for a, b in zip(k4_work["bwd"], bwd_work(128, N, M))]
+        fwd, lib_f, bwd, lib_b = k4_attend_times(q, k, v, out, lse, g, 20)
         k4_lib["fwd"] += n * lib_f
         k4_lib["bwd"] += n * lib_b
-        fwd = paired_ms(lambda: fused_mha_fwd(q, k, v, None, HEADS, scale),
-                        lambda: fused_mha_plain(q, k, v, None, HEADS, scale),
-                        20, 20)
-        bwd = paired_ms(
-            lambda: fused_mha_bwd(q, k, v, None, out, lse, g, HEADS, scale),
-            lambda: fused_mha_bwd_plain(q, k, v, None, g, HEADS, scale), 20, 20)
         for key, t in (("fwd", fwd), ("bwd", bwd)):
             for i in range(2):
-                k4_ms[key][i] += FST_STEP_ATTENDS[name] * t[i]
+                k4_ms[key][i] += n * t[i]
         log(f"[time] K4 FST {name} B=128 {N}x{M}: fwd kernel {fwd[0]:.3f} ms, "
             f"plain {fwd[1]:.3f} ms, sdpa {lib_f:.3f} ms; bwd kernel {bwd[0]:.3f} "
-            f"ms, plain {bwd[1]:.3f} ms, sdpa {lib_b:.3f} ms ({name_limit})")
-        del leaves, lib_out, heads
+            f"ms, plain {bwd[1]:.3f} ms, sdpa {lib_b:.3f} ms "
+            f"({bwd_plan(128, N, M, HEADS, _sm_count(0)).kind}) ({name_limit})")
     for key in ("fwd", "bwd"):
         times[f"fused_mha_{key}"] = tuple(k4_ms[key])
         lib_ms[f"fused_mha_{key}"] = k4_lib[key]
     # the forward: its exps on the SFU, its 3xTF32 products on the tensor
-    # cores, or its bytes, whichever takes longest; the backward: f32 FMAs
-    bounds["fused_mha_fwd"] = bound_ms(
-        {"sfu": k4_work["fwd"][0], "tf32": k4_work["fwd"][1]}, k4_work["fwd"][2])
-    bounds["fused_mha_bwd"] = bound_ms({"f32": k4_work["bwd"][0]}, k4_work["bwd"][1])
+    # cores, or its bytes, whichever takes longest; the backward likewise
+    for key in ("fwd", "bwd"):
+        bounds[f"fused_mha_{key}"] = bound_ms(
+            {"sfu": k4_work[key][0], "tf32": k4_work[key][1]}, k4_work[key][2])
     log(f"[time] K4 over one FST step's five attends: fwd kernel "
         f"{k4_ms['fwd'][0]:.3f} ms, plain {k4_ms['fwd'][1]:.3f} ms, sdpa "
         f"{k4_lib['fwd']:.3f} ms, bound {bounds['fused_mha_fwd'][0]:.3f} ms by "
         f"{bounds['fused_mha_fwd'][1]}; bwd kernel {k4_ms['bwd'][0]:.3f} ms, "
         f"plain {k4_ms['bwd'][1]:.3f} ms, sdpa {k4_lib['bwd']:.3f} ms, bound "
-        f"{bounds['fused_mha_bwd'][0]:.3f} ms by {bounds['fused_mha_bwd'][1]} "
-        f"({name_limit}); the forward's bound parts: {k4_fwd_parts(*k4_work['fwd'])}")
+        f"{bounds['fused_mha_bwd'][0]:.4f} ms by {bounds['fused_mha_bwd'][1]} "
+        f"({name_limit}); the forward's bound parts: {k4_fwd_parts(*k4_work['fwd'])}; "
+        f"the backward's: {bwd_parts(*k4_work['bwd'])}")
+    k4_3st_bwd_time(gen, name_limit)
     k4_eval_time(gen, name_limit)
     for tag, (cfg, batch) in train_out["batches"].items():
         steps = {}
@@ -1194,6 +1260,7 @@ def main():
             f"{batch['points'].shape[1]} points: kernel path {k_ms:.3f} ms = "
             f"{n / k_ms * 1e3:.1f} clouds/s, plain path {p_ms:.3f} ms = "
             f"{n / p_ms * 1e3:.1f} clouds/s ({name_limit})")
+        step_profile(tag, lambda: steps[True](batch), name_limit)
 
     # ---- 8. the probes at their TPU scripts' shapes ---------------------------
     # each probe is its own path: a probe kernel's count starts at 0 before

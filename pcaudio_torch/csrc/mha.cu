@@ -64,20 +64,52 @@
 // scaled logits in natural log (+inf for a row with no valid key), which
 // the backward reads.
 //
-// Backward (two kernels, FlashAttention-2 style, no atomics, so gradients
-// are deterministic):
-//   dq    one block per (sample, head, query tile); recomputes p = exp(s -
-//         lse), writes dq and the row term D = g . out [B, H, N] that the
-//         dk/dv kernel reads;
-//   dkdv  one block per (sample, head, key tile), looping over query tiles:
-//         dv_j = sum_i p g_i, dk_j = sum_i p (g_i . v_j - D_i) q_i scale.
-// Each (query, head) pair goes to one thread (f32 FMAs) with the staged key
-// and value rows read as shared-memory broadcasts; a block of kThreads
-// threads holds `qt` queries and splits each query's keys over kThreads /
-// qt threads, merged in shared memory at the end (the dk/dv kernel splits
-// each key's queries the same way).  Keys are tiled (kTile rows of K and V
-// in shared memory) instead of held whole as the TPU kernel holds them in
-// VMEM.
+// Backward (redesigned for Hopper: `mha_bwd_fewq_kernel`,
+// `mha_bwd_fewk_kernel`, `mha_bwd_merge_kernel`; no atomics, every sum in a
+// fixed order, so gradients are deterministic).  Per head, with the
+// forward's lse: P = exp(S - lse), dS = P (G V^T - D) with D = rowsum(G
+// out), dQ = dS K scale, dK = dS^T Q scale, dV = P^T G.  Five products a
+// (query, key) pair against one exp, and each of q, k, v, out, g read and
+// dq, dk, dv written once: the bytes bound it (one FST step's attends move
+// about 0.71 GB, 0.21 ms), the 3xTF32 products next (0.13 ms).  The design:
+//   * The products on the tensor cores as 3xTF32 mma.m16n8k8, as in the
+//     forward; P = 2^(S scale log2(e) - lse log2(e)) on the SFU.
+//   * One pass over each (query, key) pair, each exp once (the SIMT pair
+//     below recomputes every exp in both its kernels).  In every attend the
+//     recipes run, one side has at most 64 rows (MAB0: 64 inducing
+//     queries, PMA: 1; MAB1: 64 inducing keys).  A block of 4 warps owns
+//     one (sample, head) and holds that small side whole as split
+//     fragments in shared memory; each warp streams 16-row tiles of the
+//     large side through its own cp.async ring.
+//   * Keys are always the mma's 16 rows, queries its 8 columns: S^T = K
+//     Q^T, dP^T = V G^T, then dV += P^T G and dK += dS^T Q take the
+//     score accumulators as A fragments with no data moved (the relabelled
+//     k order of the forward's P.V), and PMA's one query wastes 7 of 8
+//     columns, not 15 of 16 rows.  dQ = dS K contracts over the keys, the
+//     rows: dS^T's 8x8 blocks are transposed in registers (movmatrix on
+//     the words' low and high halves), then split.
+//   * Few queries (N <= 64, `mha_bwd_fewq_kernel`): a key tile's dK and dV
+//     are complete after its pass over the held queries and are written
+//     once; dQ accumulates in registers, then over the warps.  Only valid
+//     keys are staged (the forward's compact_keys), so work scales with
+//     the valid count; masked keys get zero rows.  D and lse log2(e) of
+//     the held queries are computed once a block.
+//   * Few keys (M <= 64, `mha_bwd_fewk_kernel`): a query tile's dQ is
+//     complete and written once; dK and dV accumulate in registers, then
+//     over the warps.  D is computed per query tile from its staged G and
+//     out rows.
+//   * Where B*H blocks would not fill the card twice (3ST training at B =
+//     16: 128 blocks), `splits` blocks split the large side; each writes
+//     the small side's partial gradient and `mha_bwd_merge_kernel` sums
+//     them in split order.  The wrapper plans it
+//     (ops/kernels/mha.py::bwd_plan).
+// Where both sides exceed 64 rows (no ported model's attend) the backward
+// takes the SIMT pair, f32 FMAs with no atomics: `mha_dq_kernel`, one block
+// per (sample, head, query tile), recomputes p = exp(s - lse), writes dq
+// and D [B, H, N]; `mha_dkdv_kernel`, one block per (sample, head, key
+// tile), loops over query tiles for dv_j = sum_i p g_i, dk_j = sum_i p
+// (g_i . v_j - D_i) q_i scale; one thread a (query, head) pair or a (key,
+// head) pair, the other side staged kTile rows at a time.
 
 #include <cuda_runtime.h>
 
@@ -886,6 +918,648 @@ mha_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   store_row<DH>(dvo + krow, sv, 1.f);
 }
 
+// ---- backward, one pass a pair (few queries or few keys) --------------------
+
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdRing = 3;               // 16-row tiles a warp has in flight
+constexpr int kHeld = 64;                 // rows of the small side a block holds
+constexpr int kHeldTiles = kHeld / 16;
+static_assert(kBwdThreads == kFwdThreads, "compact_keys assumes the forward's block");
+// The head geometry is the forward's (FwdShape): kSteps k-steps over the
+// head dims (and dim n-tiles of the outputs), staged rows kStride floats
+// apart, free of bank conflicts for both fragment reads.
+
+// A B fragment (b0, b1) split: (hi0, hi1, lo0, lo1).
+__device__ __forceinline__ uint4 split_b(float b0, float b1) {
+  uint4 f;
+  pcaudio::split_tf32(b0, f.x, f.z);
+  pcaudio::split_tf32(b1, f.y, f.w);
+  return f;
+}
+
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint4 b) {
+  pcaudio::mma_3xtf32_k8(c, ah, al, b.x, b.y, b.z, b.w);
+}
+
+__device__ __forceinline__ void split_a(float x0, float x1, float x2, float x3,
+                                        uint32_t (&h)[4], uint32_t (&l)[4]) {
+  pcaudio::split_tf32(x0, h[0], l[0]);
+  pcaudio::split_tf32(x1, h[1], l[1]);
+  pcaudio::split_tf32(x2, h[2], l[2]);
+  pcaudio::split_tf32(x3, h[3], l[3]);
+}
+
+// The key side of a pair tile: 16 key rows as the A fragments of S^T and
+// dP^T (rows g, g + 8; dims t, t + 4 of each k-step) and as dQ's B fragment
+// (per group kg of 8 keys, relabelled: k-column t is key 8 kg + 2t, t + 4 is
+// key 8 kg + 2t + 1; column g is dim 8 dn + g).
+template <int DH>
+struct KeyFrags {
+  static constexpr int KS = FwdShape<DH>::kSteps;
+  uint32_t kh[KS][4], kl[KS][4], vh[KS][4], vl[KS][4];
+  uint4 kb[2][KS];
+};
+
+// The query side of a pair tile, 16 queries in two n-tiles of 8: Q^T and
+// G^T as the B fragments of S^T and dP^T (column g is query 8 nt + g; k t,
+// t + 4 dims of a k-step), and G and Q as the B fragments of dV and dK (the
+// n-tile's 8 queries are the k-step, relabelled as the keys of dQ: k t is
+// query 8 nt + 2t, t + 4 query 8 nt + 2t + 1; column g is dim 8 dn + g).
+// rv[nt]: lse·log2(e) of queries 8 nt + 2t, 8 nt + 2t + 1 (+inf for none),
+// then D = g·out of the same two.
+template <int DH>
+struct QueryFrags {
+  static constexpr int KS = FwdShape<DH>::kSteps;
+  uint4 qs[2][KS], gp[2][KS], gv[2][KS], qk[2][KS];
+  float4 rv[2];
+};
+
+// One pair tile: 16 keys (the mma's rows) x 16 queries (two 8-column
+// n-tiles; `two` false: the second holds no query).  S^T = K Q^T and dP^T
+// = V G^T, P^T = 2^(S^T c - lse2), dS^T = P^T (dP^T - D), each pair's exp
+// once; then dV += P^T G and dK += dS^T Q (unscaled) over these queries,
+// and dQ += dS K (unscaled) over these keys, with dS^T's 8x8 blocks
+// transposed in registers.  Bits 0, 1 of rows_ok: key rows g, g + 8 hold a
+// valid key (else their P is 0).
+template <int DH>
+__device__ __forceinline__ void pair_tile(const KeyFrags<DH>& kf, const QueryFrags<DH>& qf,
+                                          bool two, unsigned rows_ok, float c,
+                                          float (&dva)[FwdShape<DH>::kSteps][4],
+                                          float (&dka)[FwdShape<DH>::kSteps][4],
+                                          float (&dqa)[FwdShape<DH>::kSteps][4]) {
+  constexpr int KS = FwdShape<DH>::kSteps;
+  float ds[2][4];
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    if (nt == 1 && !two) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) ds[1][r] = 0.f;
+      break;
+    }
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      mma3(s, kf.kh[st], kf.kl[st], qf.qs[nt][st]);
+      mma3(dp, kf.vh[st], kf.vl[st], qf.gp[nt][st]);
+    }
+    const float4 rv = qf.rv[nt];
+    float p[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {  // C reg r: key row g + 8 (r >> 1), query 2t + (r & 1)
+      const float l2 = (r & 1) ? rv.y : rv.x;
+      const float D = (r & 1) ? rv.w : rv.z;
+      p[r] = (rows_ok >> (r >> 1)) & 1u ? pcaudio::ex2(fmaf(s[r], c, -l2)) : 0.f;
+      ds[nt][r] = p[r] * (dp[r] - D);
+    }
+    // P^T and dS^T as A fragments, the n-tile's queries the k-step
+    // (relabelled: k-column t is query 2t, C regs 0, 2; t + 4 is 2t + 1)
+    uint32_t ph[4], pl[4], dh[4], dl[4];
+    split_a(p[0], p[2], p[1], p[3], ph, pl);
+    split_a(ds[nt][0], ds[nt][2], ds[nt][1], ds[nt][3], dh, dl);
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn) {
+      mma3(dva[dn], ph, pl, qf.gv[nt][dn]);
+      mma3(dka[dn], dh, dl, qf.qk[nt][dn]);
+    }
+  }
+  // dQ: the 8x8 block (key group kg, query n-tile nt) of dS^T, transposed,
+  // gives lane (g, t) dS[8 nt + g][8 kg + 2t], [8 kg + 2t + 1]: A rows g
+  // (nt 0), g + 8 (nt 1), k-columns t, t + 4 in the relabelled key order
+#pragma unroll
+  for (int kg = 0; kg < 2; ++kg) {
+    float x00 = ds[0][2 * kg], x01 = ds[0][2 * kg + 1];
+    float x10 = ds[1][2 * kg], x11 = ds[1][2 * kg + 1];
+    pcaudio::transpose8x8(x00, x01);
+    if (two) pcaudio::transpose8x8(x10, x11);
+    uint32_t ah[4], al[4];
+    split_a(x00, x10, x01, x11, ah, al);
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn) mma3(dqa[dn], ah, al, kf.kb[kg][dn]);
+  }
+}
+
+// 16 staged key rows [16][kStride] (K at `ks`, V at `vs`) -> KeyFrags.
+template <int DH>
+__device__ __forceinline__ void key_frags(const float* ks, const float* vs, int g, int t,
+                                          KeyFrags<DH>& f) {
+  constexpr int KS = FwdShape<DH>::kSteps, STR = FwdShape<DH>::kStride;
+#pragma unroll
+  for (int st = 0; st < KS; ++st) {
+    const int d0 = 8 * st + t, d1 = d0 + 4;  // d0 < DH always; d1 not at dh 4
+    split_a(ks[g * STR + d0], ks[(g + 8) * STR + d0], d1 < DH ? ks[g * STR + d1] : 0.f,
+            d1 < DH ? ks[(g + 8) * STR + d1] : 0.f, f.kh[st], f.kl[st]);
+    split_a(vs[g * STR + d0], vs[(g + 8) * STR + d0], d1 < DH ? vs[g * STR + d1] : 0.f,
+            d1 < DH ? vs[(g + 8) * STR + d1] : 0.f, f.vh[st], f.vl[st]);
+  }
+#pragma unroll
+  for (int kg = 0; kg < 2; ++kg)
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn) {
+      const int d = 8 * dn + g, r = 8 * kg + 2 * t;
+      f.kb[kg][dn] = d < DH ? split_b(ks[r * STR + d], ks[(r + 1) * STR + d]) : uint4{0, 0, 0, 0};
+    }
+}
+
+// 16 query rows, Q at `qs` and G at `gs`, each row a head's DH floats `str`
+// apart (a staged tile, or the rows in global memory), rows at or past
+// `nrows` zero -> QueryFrags (without rv).
+template <int DH>
+__device__ __forceinline__ void query_frags(const float* qs, const float* gs, size_t str,
+                                            int nrows, int g, int t, QueryFrags<DH>& f) {
+  constexpr int KS = FwdShape<DH>::kSteps;
+  auto at = [&](const float* base, int r, int d) {
+    return r < nrows && d < DH ? base[r * str + d] : 0.f;
+  };
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      const int r = 8 * nt + g, d0 = 8 * st + t;
+      f.qs[nt][st] = split_b(at(qs, r, d0), at(qs, r, d0 + 4));
+      f.gp[nt][st] = split_b(at(gs, r, d0), at(gs, r, d0 + 4));
+      const int r0 = 8 * nt + 2 * t, d = 8 * st + g;
+      f.gv[nt][st] = split_b(at(gs, r0, d), at(gs, r0 + 1, d));
+      f.qk[nt][st] = split_b(at(qs, r0, d), at(qs, r0 + 1, d));
+    }
+}
+
+// Lane l < 16 holds lse2 and D of query row l of a 16-row tile (lanes 16-31
+// repeat them); each lane gathers those of its C columns into rv.
+template <int DH>
+__device__ __forceinline__ void row_terms(float l2, float D, int t, QueryFrags<DH>& f) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int r0 = 8 * nt + 2 * t;
+    f.rv[nt] = make_float4(__shfl_sync(pcaudio::kFullMask, l2, r0),
+                           __shfl_sync(pcaudio::kFullMask, l2, r0 + 1),
+                           __shfl_sync(pcaudio::kFullMask, D, r0),
+                           __shfl_sync(pcaudio::kFullMask, D, r0 + 1));
+  }
+}
+
+// cp.async the head-h rows of slots [first, first + 16) (slot i is key
+// offset list[i], or i with no mask) of K and V into `dst` ([16][kStride] K
+// rows, then V rows); slots at or past `n` are zero-filled.
+template <int DH>
+__device__ __forceinline__ void stage_key_rows(float* dst, const float* __restrict__ k,
+                                               const float* __restrict__ v,
+                                               const uint16_t* list, bool listed,
+                                               size_t key0, int H, int h, int first, int n,
+                                               int lane) {
+  constexpr int kVec = DH / 4, STR = FwdShape<DH>::kStride;
+#pragma unroll
+  for (int rep = 0; rep < kVec; ++rep) {  // 2 * 16 * kVec pieces, kVec a lane
+    const int c = lane + 32 * rep;
+    const int arr = c / (16 * kVec), rem = c % (16 * kVec);
+    const int i = rem / kVec, piece = rem % kVec;
+    const int slot = first + i;
+    const float* src = k;
+    int bytes = 0;
+    if (slot < n) {
+      const int j = listed ? list[slot] : slot;
+      src = (arr ? v : k) + ((key0 + j) * H + h) * DH + piece * 4;
+      bytes = 16;
+    }
+    pcaudio::cp_async16_zfill(dst + (arr * 16 + i) * STR + piece * 4, src, bytes);
+  }
+}
+
+template <int DH>
+__device__ __forceinline__ float head_dot(const float* a, const float* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < DH; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a + d);
+    const float4 y = *reinterpret_cast<const float4*>(b + d);
+    s = fmaf(x.x, y.x, s);
+    s = fmaf(x.y, y.y, s);
+    s = fmaf(x.z, y.z, s);
+    s = fmaf(x.w, y.w, s);
+  }
+  return s;
+}
+
+template <int DH>
+constexpr size_t fewq_smem() {
+  constexpr int KS = FwdShape<DH>::kSteps, STR = FwdShape<DH>::kStride;
+  return (size_t)kHeldTiles * 4 * 2 * KS * 32 * 16  // the held queries' fragments
+         + (size_t)kHeldTiles * 2 * 32 * 16          // their rv
+         + (size_t)kBwdWarps * kBwdRing * 2 * 16 * STR * 4  // the warps' key rings
+         + (size_t)kWindow * 2;                       // the key list
+}
+
+// Few queries (N <= 64: ISAB's MAB0, PMA).  blockIdx.x = (b * H + h) *
+// splits + sp.  The block holds the queries of (b, h) as split fragments in
+// shared memory (warp w builds query tile w), and warp w walks 16-key tiles
+// w, w + 4, ... of the valid keys of key range sp through its own cp.async
+// ring.  A key tile's dK and dV are complete after its pass over the held
+// queries and are written once; dQ accumulates in registers over the tiles,
+// then over the warps in order, into dq (splits == 1) or part_dq [splits,
+// B, N, H*DH].  Masked keys get zero rows.
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, 3)
+mha_bwd_fewq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                    const float* __restrict__ out, const float* __restrict__ lse,
+                    const float* __restrict__ dout, float* __restrict__ dq,
+                    float* __restrict__ dk, float* __restrict__ dvo,
+                    float* __restrict__ part_dq, int B, int N, int M, int H, int splits,
+                    float scale) {
+  using S = FwdShape<DH>;
+  constexpr int KS = S::kSteps, STR = S::kStride;
+  constexpr int kStage = 2 * 16 * STR;
+  constexpr int kFr = 4 * 2 * KS;  // uint4 a lane per query tile: qs, gp, gv, qk
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* qfr = reinterpret_cast<uint4*>(smem);                 // [tile][kFr][32]
+  float4* qrv = reinterpret_cast<float4*>(qfr + kHeldTiles * kFr * 32);  // [tile][2][32]
+  float* ring = reinterpret_cast<float*>(qrv + kHeldTiles * 2 * 32);
+  uint16_t* list = reinterpret_cast<uint16_t*>(ring + kBwdWarps * kBwdRing * kStage);
+  __shared__ int counts[kBwdWarps];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int x = blockIdx.x;
+  const int sp = x % splits;
+  x /= splits;
+  const int h = x % H, b = x / H;
+  const int dv = H * DH;
+  const int qtiles = (N + 15) / 16;
+  const float c = scale * kLog2e;
+
+  if (warp < qtiles) {  // the held query tile `warp`
+    const int row0 = warp * 16;
+    const size_t base = ((size_t)b * N + row0) * dv + h * DH;
+    QueryFrags<DH> f;
+    query_frags<DH>(q + base, dout + base, dv, N - row0, g, t, f);
+    const int r = lane & 15;
+    float l2 = INFINITY, D = 0.f;
+    if (row0 + r < N) {
+      l2 = lse[((size_t)b * H + h) * N + row0 + r] * kLog2e;
+      D = head_dot<DH>(dout + base + (size_t)r * dv, out + base + (size_t)r * dv);
+    }
+    row_terms<DH>(l2, D, t, f);
+    uint4* dst = qfr + warp * kFr * 32 + lane;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        dst[((0 * 2 + nt) * KS + st) * 32] = f.qs[nt][st];
+        dst[((1 * 2 + nt) * KS + st) * 32] = f.gp[nt][st];
+        dst[((2 * 2 + nt) * KS + st) * 32] = f.gv[nt][st];
+        dst[((3 * 2 + nt) * KS + st) * 32] = f.qk[nt][st];
+      }
+      qrv[(warp * 2 + nt) * 32 + lane] = f.rv[nt];
+    }
+  }
+  __syncthreads();
+
+  float dqa[kHeldTiles][KS][4];
+#pragma unroll
+  for (int i = 0; i < kHeldTiles; ++i)
+#pragma unroll
+    for (int st = 0; st < KS; ++st)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dqa[i][st][r] = 0.f;
+
+  const int kb = (int)((long long)M * sp / splits);
+  const int ke = (int)((long long)M * (sp + 1) / splits);
+  const bool listed = mask != nullptr;
+  float* myring = ring + warp * kBwdRing * kStage;
+  for (int w0 = kb; w0 < ke; w0 += kWindow) {
+    const int wn = min(kWindow, ke - w0);
+    const size_t key0 = (size_t)b * M + w0;
+    int n = wn;
+    if (listed) {
+      n = compact_keys(mask + key0, wn, list, counts);
+      for (int j = threadIdx.x; j < wn; j += kBwdThreads)  // masked keys: zero rows
+        if (!mask[key0 + j]) {
+          const size_t o = (key0 + j) * dv + h * DH;
+#pragma unroll
+          for (int d = 0; d < DH; d += 4) {
+            *reinterpret_cast<float4*>(dk + o + d) = make_float4(0.f, 0.f, 0.f, 0.f);
+            *reinterpret_cast<float4*>(dvo + o + d) = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+    }
+    const int mtiles = (n + 15) / 16;
+    const int mine = warp < mtiles ? (mtiles - warp + kBwdWarps - 1) / kBwdWarps : 0;
+    auto stage = [&](int i) {
+      if (i < mine)
+        stage_key_rows<DH>(myring + i % kBwdRing * kStage, k, v, list, listed, key0, H, h,
+                           (warp + i * kBwdWarps) * 16, n, lane);
+      pcaudio::cp_async_commit();
+    };
+#pragma unroll
+    for (int i = 0; i < kBwdRing - 1; ++i) stage(i);
+    for (int i = 0; i < mine; ++i) {
+      __syncwarp();  // every lane is done reading tile i - 1's slot
+      stage(i + kBwdRing - 1);
+      pcaudio::cp_async_wait<kBwdRing - 1>();
+      __syncwarp();
+      const float* ks = myring + i % kBwdRing * kStage;
+      KeyFrags<DH> kf;
+      key_frags<DH>(ks, ks + 16 * STR, g, t, kf);
+      const int slot0 = (warp + i * kBwdWarps) * 16;
+      const unsigned rows_ok = (slot0 + g < n ? 1u : 0u) | (slot0 + g + 8 < n ? 2u : 0u);
+      float dva[KS][4], dka[KS][4];
+#pragma unroll
+      for (int st = 0; st < KS; ++st)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dva[st][r] = dka[st][r] = 0.f;
+#pragma unroll
+      for (int qt = 0; qt < kHeldTiles; ++qt) {
+        if (qt >= qtiles) break;
+        QueryFrags<DH> qf;
+        const uint4* src = qfr + qt * kFr * 32 + lane;
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+          for (int st = 0; st < KS; ++st) {
+            qf.qs[nt][st] = src[((0 * 2 + nt) * KS + st) * 32];
+            qf.gp[nt][st] = src[((1 * 2 + nt) * KS + st) * 32];
+            qf.gv[nt][st] = src[((2 * 2 + nt) * KS + st) * 32];
+            qf.qk[nt][st] = src[((3 * 2 + nt) * KS + st) * 32];
+          }
+          qf.rv[nt] = qrv[(qt * 2 + nt) * 32 + lane];
+        }
+        pair_tile<DH>(kf, qf, qt * 16 + 8 < N, rows_ok, c, dva, dka, dqa[qt]);
+      }
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {  // C rows g, g + 8: this tile's keys
+        const int slot = slot0 + g + 8 * r2;
+        if (slot >= n) continue;
+        const size_t o = (key0 + (listed ? list[slot] : slot)) * dv + h * DH;
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn)
+          if (8 * dn + 2 * t < DH) {
+            *reinterpret_cast<float2*>(dk + o + 8 * dn + 2 * t) =
+                make_float2(dka[dn][2 * r2] * scale, dka[dn][2 * r2 + 1] * scale);
+            *reinterpret_cast<float2*>(dvo + o + 8 * dn + 2 * t) =
+                make_float2(dva[dn][2 * r2], dva[dn][2 * r2 + 1]);
+          }
+      }
+    }
+    pcaudio::cp_async_wait<0>();
+    __syncthreads();  // the list and the rings are free again
+  }
+
+  // dQ over the warps, in order: [warp][kHeld rows][DH] in the rings' space
+  float* red = ring;
+#pragma unroll
+  for (int qt = 0; qt < kHeldTiles; ++qt)
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int d = 8 * dn + 2 * t + (r & 1);
+        if (d < DH) red[(warp * kHeld + qt * 16 + g + 8 * (r >> 1)) * DH + d] = dqa[qt][dn][r];
+      }
+  __syncthreads();
+  for (int e = threadIdx.x; e < N * DH; e += kBwdThreads) {
+    const int row = e / DH, d = e % DH;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) s += red[(w * kHeld + row) * DH + d];
+    const size_t o = ((size_t)b * N + row) * dv + h * DH + d;
+    if (splits == 1)
+      dq[o] = s * scale;
+    else
+      part_dq[(size_t)sp * B * N * dv + o] = s;
+  }
+}
+
+template <int DH>
+constexpr size_t fewk_smem() {
+  constexpr int KS = FwdShape<DH>::kSteps, STR = FwdShape<DH>::kStride;
+  return (size_t)kHeldTiles * 6 * KS * 32 * 16                      // the held keys' fragments
+         + (size_t)kBwdWarps * kBwdRing * (3 * 16 * STR + 16) * 4;  // the warps' query rings
+}
+
+// Few keys (M <= 64: ISAB's MAB1, whose keys are the inducing summaries).
+// blockIdx.x = (b * H + h) * splits + sp.  The block holds the keys of
+// (b, h) as split fragments in shared memory (warp w builds key tile w;
+// masked keys zero), and warp w walks 16-query tiles w, w + 4, ... of query
+// range sp through its own cp.async ring (Q, G and out rows and lse).  A
+// query tile's dQ is complete after its pass over the held keys and is
+// written once; dK and dV accumulate in registers over the tiles, then over
+// the warps in order, into dk / dv (splits == 1) or part_dk / part_dv
+// [splits, B, M, H*DH].
+template <int DH>
+__global__ void __launch_bounds__(kBwdThreads, 3)
+mha_bwd_fewk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const unsigned char* __restrict__ mask,
+                    const float* __restrict__ out, const float* __restrict__ lse,
+                    const float* __restrict__ dout, float* __restrict__ dq,
+                    float* __restrict__ dk, float* __restrict__ dvo,
+                    float* __restrict__ part_dk, float* __restrict__ part_dv, int B, int N,
+                    int M, int H, int splits, float scale) {
+  using S = FwdShape<DH>;
+  constexpr int KS = S::kSteps, STR = S::kStride;
+  constexpr int kStage = 3 * 16 * STR + 16;  // Q, G, out rows, then lse
+  constexpr int kFr = 6 * KS;  // uint4 a lane per key tile: kh, kl, vh, vl per k-step; kb
+  constexpr int kVec = DH / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* kfr = reinterpret_cast<uint4*>(smem);  // [tile][kFr][32]
+  float* ring = reinterpret_cast<float*>(kfr + kHeldTiles * kFr * 32);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int x = blockIdx.x;
+  const int sp = x % splits;
+  x /= splits;
+  const int h = x % H, b = x / H;
+  const int dv = H * DH;
+  const int mtiles = (M + 15) / 16;
+  const float c = scale * kLog2e;
+  auto valid = [&](int key) {
+    return key < M && (mask == nullptr || mask[(size_t)b * M + key] != 0);
+  };
+
+  if (warp < mtiles) {  // the held key tile `warp`
+    const int key0 = warp * 16;
+    const float* kb = k + (size_t)b * M * dv + h * DH;
+    const float* vb = v + (size_t)b * M * dv + h * DH;
+    auto at = [&](const float* base, int key, int d) {
+      return d < DH && valid(key) ? __ldg(base + (size_t)key * dv + d) : 0.f;
+    };
+    uint4* dst = kfr + warp * kFr * 32 + lane;
+#pragma unroll
+    for (int st = 0; st < KS; ++st) {
+      const int d0 = 8 * st + t, d1 = d0 + 4, k0 = key0 + g, k1 = k0 + 8;
+      uint32_t hh[4], ll[4];
+      split_a(at(kb, k0, d0), at(kb, k1, d0), at(kb, k0, d1), at(kb, k1, d1), hh, ll);
+      dst[(2 * st) * 32] = make_uint4(hh[0], hh[1], hh[2], hh[3]);
+      dst[(2 * st + 1) * 32] = make_uint4(ll[0], ll[1], ll[2], ll[3]);
+      split_a(at(vb, k0, d0), at(vb, k1, d0), at(vb, k0, d1), at(vb, k1, d1), hh, ll);
+      dst[(2 * KS + 2 * st) * 32] = make_uint4(hh[0], hh[1], hh[2], hh[3]);
+      dst[(2 * KS + 2 * st + 1) * 32] = make_uint4(ll[0], ll[1], ll[2], ll[3]);
+    }
+#pragma unroll
+    for (int kg = 0; kg < 2; ++kg)
+#pragma unroll
+      for (int dn = 0; dn < KS; ++dn) {
+        const int d = 8 * dn + g, r = key0 + 8 * kg + 2 * t;
+        dst[(4 * KS + kg * KS + dn) * 32] = split_b(at(kb, r, d), at(kb, r + 1, d));
+      }
+  }
+  unsigned ok = 0;  // bit 2 mt + r2: key 16 mt + g + 8 r2 (this lane's C rows) is valid
+#pragma unroll
+  for (int mt = 0; mt < kHeldTiles; ++mt)
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) ok |= (unsigned)valid(16 * mt + g + 8 * r2) << (2 * mt + r2);
+  __syncthreads();
+
+  float dka[kHeldTiles][KS][4], dva[kHeldTiles][KS][4];
+#pragma unroll
+  for (int i = 0; i < kHeldTiles; ++i)
+#pragma unroll
+    for (int st = 0; st < KS; ++st)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) dka[i][st][r] = dva[i][st][r] = 0.f;
+
+  const int qb = (int)((long long)N * sp / splits);
+  const int qe = (int)((long long)N * (sp + 1) / splits);
+  const int first = qb + warp * 16, step = kBwdWarps * 16;
+  const int mine = first < qe ? (qe - first + step - 1) / step : 0;
+  const size_t hrow = ((size_t)b * H + h) * N;
+  float* myring = ring + warp * kBwdRing * kStage;
+  auto stage = [&](int i) {
+    if (i < mine) {
+      const int row0 = first + i * step;
+      float* dst = myring + i % kBwdRing * kStage;
+      for (int e = lane; e < 3 * 16 * kVec; e += 32) {
+        const int arr = e / (16 * kVec), rem = e % (16 * kVec);
+        const int r = rem / kVec, piece = rem % kVec;
+        const float* src = arr == 0 ? q : arr == 1 ? dout : out;
+        const bool in = row0 + r < qe;
+        pcaudio::cp_async16_zfill(
+            dst + (arr * 16 + r) * STR + piece * 4,
+            in ? src + ((size_t)b * N + row0 + r) * dv + h * DH + piece * 4 : src,
+            in ? 16 : 0);
+      }
+      if (lane < 16) {
+        const bool in = row0 + lane < qe;
+        pcaudio::cp_async4_zfill(dst + 3 * 16 * STR + lane, in ? lse + hrow + row0 + lane : lse,
+                                 in ? 4 : 0);
+      }
+    }
+    pcaudio::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kBwdRing - 1; ++i) stage(i);
+  for (int i = 0; i < mine; ++i) {
+    __syncwarp();  // every lane is done reading tile i - 1's slot
+    stage(i + kBwdRing - 1);
+    pcaudio::cp_async_wait<kBwdRing - 1>();
+    __syncwarp();
+    const float* qs = myring + i % kBwdRing * kStage;
+    const float* gs = qs + 16 * STR;
+    const float* os = gs + 16 * STR;
+    const int row0 = first + i * step;
+    QueryFrags<DH> qf;
+    query_frags<DH>(qs, gs, STR, 16, g, t, qf);
+    const int r = lane & 15;
+    const float l2 = row0 + r < qe ? os[16 * STR + r] * kLog2e : INFINITY;
+    row_terms<DH>(l2, head_dot<DH>(gs + r * STR, os + r * STR), t, qf);
+    float dqa[KS][4];
+#pragma unroll
+    for (int st = 0; st < KS; ++st)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) dqa[st][rr] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kHeldTiles; ++mt) {
+      if (mt >= mtiles) break;
+      KeyFrags<DH> kf;
+      const uint4* src = kfr + mt * kFr * 32 + lane;
+#pragma unroll
+      for (int st = 0; st < KS; ++st) {
+        const uint4 a = src[(2 * st) * 32], bb = src[(2 * st + 1) * 32];
+        const uint4 va = src[(2 * KS + 2 * st) * 32], vb = src[(2 * KS + 2 * st + 1) * 32];
+        kf.kh[st][0] = a.x, kf.kh[st][1] = a.y, kf.kh[st][2] = a.z, kf.kh[st][3] = a.w;
+        kf.kl[st][0] = bb.x, kf.kl[st][1] = bb.y, kf.kl[st][2] = bb.z, kf.kl[st][3] = bb.w;
+        kf.vh[st][0] = va.x, kf.vh[st][1] = va.y, kf.vh[st][2] = va.z, kf.vh[st][3] = va.w;
+        kf.vl[st][0] = vb.x, kf.vl[st][1] = vb.y, kf.vl[st][2] = vb.z, kf.vl[st][3] = vb.w;
+      }
+#pragma unroll
+      for (int kg = 0; kg < 2; ++kg)
+#pragma unroll
+        for (int dn = 0; dn < KS; ++dn) kf.kb[kg][dn] = src[(4 * KS + kg * KS + dn) * 32];
+      pair_tile<DH>(kf, qf, row0 + 8 < qe, (ok >> (2 * mt)) & 3u, c, dva[mt], dka[mt], dqa);
+    }
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {  // dQ's C rows g, g + 8: this tile's queries
+      const int row = row0 + g + 8 * r2;
+      if (row >= qe) continue;
+      float* dst = dq + ((size_t)b * N + row) * dv + h * DH;
+#pragma unroll
+      for (int dn = 0; dn < KS; ++dn)
+        if (8 * dn + 2 * t < DH)
+          *reinterpret_cast<float2*>(dst + 8 * dn + 2 * t) =
+              make_float2(dqa[dn][2 * r2] * scale, dqa[dn][2 * r2 + 1] * scale);
+    }
+  }
+  pcaudio::cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring
+
+  // dK and dV over the warps, in order: [warp][kHeld keys][2][DH]
+  float* red = ring;
+#pragma unroll
+  for (int mt = 0; mt < kHeldTiles; ++mt)
+#pragma unroll
+    for (int dn = 0; dn < KS; ++dn)
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int d = 8 * dn + 2 * t + (rr & 1);
+        const int key = mt * 16 + g + 8 * (rr >> 1);
+        if (d < DH) {
+          red[((warp * kHeld + key) * 2) * DH + d] = dka[mt][dn][rr];
+          red[((warp * kHeld + key) * 2 + 1) * DH + d] = dva[mt][dn][rr];
+        }
+      }
+  __syncthreads();
+  for (int e = threadIdx.x; e < M * DH; e += kBwdThreads) {
+    const int key = e / DH, d = e % DH;
+    float sk = 0.f, sv = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) {
+      sk += red[((w * kHeld + key) * 2) * DH + d];
+      sv += red[((w * kHeld + key) * 2 + 1) * DH + d];
+    }
+    const size_t o = ((size_t)b * M + key) * dv + h * DH + d;
+    if (splits == 1) {
+      dk[o] = sk * scale;
+      dvo[o] = sv;
+    } else {
+      part_dk[(size_t)sp * B * M * dv + o] = sk;
+      part_dv[(size_t)sp * B * M * dv + o] = sv;
+    }
+  }
+}
+
+// The splits' partials, summed in split order: out_y[i] = mul_y * sum_s
+// part_y[s][i] for tensor y = blockIdx.y (float4 i < n4).
+__global__ void __launch_bounds__(256)
+mha_bwd_merge_kernel(const float* __restrict__ part0, float* __restrict__ out0, float mul0,
+                     const float* __restrict__ part1, float* __restrict__ out1, float mul1,
+                     long long n4, int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4* part = reinterpret_cast<const float4*>(blockIdx.y ? part1 : part0);
+  const float mul = blockIdx.y ? mul1 : mul0;
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int sp = 0; sp < splits; ++sp) {
+    const float4 x = __ldg(part + sp * n4 + i);
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  reinterpret_cast<float4*>(blockIdx.y ? out1 : out0)[i] =
+      make_float4(s.x * mul, s.y * mul, s.z * mul, s.w * mul);
+}
+
 // Rows per block: the smallest power of two >= R, at most kThreads.
 int rows_per_block(int R) {
   int per = 1;
@@ -926,22 +1600,64 @@ int fwd(const float* q, const float* k, const float* v, const unsigned char* mas
   }
 }
 
+// Dynamic shared memory that brings a block (with its static shared
+// memory) above the 48 KB default needs the kernel's consent; asked always.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// kind 0: the SIMT pair (dq, then dk/dv; `delta` scratch); 1: few queries; 2:
+// few keys, with `splits` blocks splitting the large side (part_a, and
+// part_b for kind 2, hold the partials).
 template <int DH>
 int bwd(const float* q, const float* k, const float* v, const unsigned char* mask,
         const float* out, const float* lse, const float* g, float* delta, float* dq,
-        float* dk, float* dvo, int B, int N, int M, int H, float scale,
-        cudaStream_t st) {
-  const int qt = rows_per_block(N), kt = rows_per_block(M);
-  unsigned qblocks, kblocks;
-  if (const int e = grid_of(B, H, N, qt, &qblocks)) return e;
-  if (const int e = grid_of(B, H, M, kt, &kblocks)) return e;
-  // dq first: it writes the row terms D that dkdv reads (same stream)
-  mha_dq_kernel<DH><<<qblocks, kThreads, 0, st>>>(q, k, v, mask, out, lse, g, delta,
-                                                  dq, N, M, H, qt, scale);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  mha_dkdv_kernel<DH><<<kblocks, kThreads, 0, st>>>(q, k, v, mask, lse, g, delta, dk,
-                                                    dvo, N, M, H, kt, scale);
+        float* dk, float* dvo, float* part_a, float* part_b, int B, int N, int M, int H,
+        int kind, int splits, float scale, cudaStream_t st) {
+  if (kind == 0) {
+    if (splits != 1 || delta == nullptr) return (int)cudaErrorInvalidValue;
+    const int qt = rows_per_block(N), kt = rows_per_block(M);
+    unsigned qblocks, kblocks;
+    if (const int e = grid_of(B, H, N, qt, &qblocks)) return e;
+    if (const int e = grid_of(B, H, M, kt, &kblocks)) return e;
+    // dq first: it writes the row terms D that dkdv reads (same stream)
+    mha_dq_kernel<DH><<<qblocks, kThreads, 0, st>>>(q, k, v, mask, out, lse, g, delta,
+                                                    dq, N, M, H, qt, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    mha_dkdv_kernel<DH><<<kblocks, kThreads, 0, st>>>(q, k, v, mask, lse, g, delta, dk,
+                                                      dvo, N, M, H, kt, scale);
+    return (int)cudaGetLastError();
+  }
+  const long long n = (long long)B * H * splits;
+  if (n > 0x7fffffffLL || (kind == 1 && N > kHeld) || (kind == 2 && M > kHeld) ||
+      (splits > 1 && (part_a == nullptr || (kind == 2 && part_b == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  const long long n4 = (long long)B * (kind == 1 ? N : M) * H * DH / 4;
+  const dim3 merge_grid((unsigned)((n4 + 255) / 256), kind == 1 ? 1 : 2);
+  if (kind == 1) {
+    static const int attr = allow_smem(mha_bwd_fewq_kernel<DH>, fewq_smem<DH>());
+    if (attr) return attr;
+    mha_bwd_fewq_kernel<DH><<<(unsigned)n, kBwdThreads, fewq_smem<DH>(), st>>>(
+        q, k, v, mask, out, lse, g, dq, dk, dvo, part_a, B, N, M, H, splits, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return (int)e;
+    mha_bwd_merge_kernel<<<merge_grid, 256, 0, st>>>(part_a, dq, scale, part_a, dq, scale,
+                                                     n4, splits);
+  } else if (kind == 2) {
+    static const int attr = allow_smem(mha_bwd_fewk_kernel<DH>, fewk_smem<DH>());
+    if (attr) return attr;
+    mha_bwd_fewk_kernel<DH><<<(unsigned)n, kBwdThreads, fewk_smem<DH>(), st>>>(
+        q, k, v, mask, out, lse, g, dq, dk, dvo, part_a, part_b, B, N, M, H, splits, scale);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return (int)e;
+    mha_bwd_merge_kernel<<<merge_grid, 256, 0, st>>>(part_a, dk, scale, part_b, dvo, 1.f,
+                                                     n4, splits);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -986,21 +1702,25 @@ extern "C" int pcaudio_mha_fwd(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// The forward's inputs and results plus g = dL/dout; delta [B, H, N] is
-// scratch.  Writes dq [B, N, H*dh], dk / dv [B, M, H*dh].
+// The forward's inputs and results plus g = dL/dout.  Writes dq [B, N,
+// H*dh], dk / dv [B, M, H*dh].  `kind` 1 (N <= 64) and 2 (M <= 64): the
+// one-pass kernels, `splits` blocks splitting the large side (splits > 1:
+// kind 1's part_a [splits, B, N, H*dh] for dq, kind 2's part_a and part_b
+// [splits, B, M, H*dh] for dk and dv; else unused, may be null).  `kind` 0:
+// the SIMT pair, delta [B, H, N] its scratch (splits 1).
 extern "C" int pcaudio_mha_bwd(const void* q, const void* k, const void* v,
                                const void* mask, const void* out, const void* lse,
-                               const void* g, void* delta, void* dq, void* dk,
-                               void* dv, int B, int N, int M, int H, int dh,
-                               float scale, void* stream) {
-  if (B < 1 || N < 1 || M < 1 || H < 1) return (int)cudaErrorInvalidValue;
+                               const void* g, void* delta, void* dq, void* dk, void* dv,
+                               void* part_a, void* part_b, int B, int N, int M, int H,
+                               int dh, int kind, int splits, float scale, void* stream) {
+  if (B < 1 || N < 1 || M < 1 || H < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   const auto m = (const unsigned char*)mask;
   const auto st = (cudaStream_t)stream;
-#define PCAUDIO_MHA_BWD(DH)                                                    \
-  return bwd<DH>((const float*)q, (const float*)k, (const float*)v, m,           \
-                 (const float*)out, (const float*)lse, (const float*)g,          \
-                 (float*)delta, (float*)dq, (float*)dk, (float*)dv, B, N, M, H,  \
-                 scale, st)
+#define PCAUDIO_MHA_BWD(DH)                                                            \
+  return bwd<DH>((const float*)q, (const float*)k, (const float*)v, m,                   \
+                 (const float*)out, (const float*)lse, (const float*)g, (float*)delta,   \
+                 (float*)dq, (float*)dk, (float*)dv, (float*)part_a, (float*)part_b, B, \
+                 N, M, H, kind, splits, scale, st)
   if (dh == 4) PCAUDIO_MHA_BWD(4);
   if (dh == 8) PCAUDIO_MHA_BWD(8);
   if (dh == 16) PCAUDIO_MHA_BWD(16);

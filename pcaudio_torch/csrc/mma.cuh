@@ -1,7 +1,7 @@
-// mma.sync building blocks shared by K1 (fused_st.cu), K4's forward (mha.cu)
-// and the probe kernels (probe_mma.cu, probe_attend.cu): ldmatrix loads from
-// shared memory, the bf16, s8 and TF32 tensor-core products, cp.async
-// copies, the SFU's 2^x.
+// mma.sync building blocks shared by K1 (fused_st.cu), K4 (mha.cu) and the
+// probe kernels (probe_mma.cu, probe_attend.cu): ldmatrix loads from shared
+// memory, the bf16, s8 and TF32 tensor-core products, cp.async copies, an
+// in-register 8x8 transpose (movmatrix), the SFU's 2^x.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 / k32"),
 // with g = lane / 4 and t = lane % 4.  A tile is 16 rows x 32 bytes of K
@@ -166,6 +166,32 @@ __device__ __forceinline__ void mma_3xtf32_k8(float (&c)[4], const uint32_t (&a_
   mma_tf32_k8(c, a_lo, b0_hi, b1_hi);
   mma_tf32_k8(c, a_hi, b0_lo, b1_lo);
   mma_tf32_k8(c, a_hi, b0_hi, b1_hi);
+}
+
+// 4 bytes if `bytes` is 4, else the 4 bytes at `smem` are zero-filled
+// (cp.async.ca: the .cg form copies 16 bytes only).
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)),
+               "l"(gmem), "r"(bytes));
+}
+
+// The 8x8 matrix of 16-bit words whose row g, columns 2t, 2t+1 a lane holds
+// (low half first) -> the same of its transpose (PTX ISA, movmatrix).
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// An 8x8 f32 matrix held as a C fragment's half (lane: row g, columns 2t,
+// 2t+1 in x0, x1) becomes its transpose in the same layout: the low and
+// the high 16 bits of the words are transposed as two b16 matrices.
+__device__ __forceinline__ void transpose8x8(float& x0, float& x1) {
+  const uint32_t a = __float_as_uint(x0), b = __float_as_uint(x1);
+  const uint32_t lo = movmatrix_trans(__byte_perm(a, b, 0x5410));
+  const uint32_t hi = movmatrix_trans(__byte_perm(a, b, 0x7632));
+  x0 = __uint_as_float(__byte_perm(lo, hi, 0x5410));
+  x1 = __uint_as_float(__byte_perm(lo, hi, 0x7632));
 }
 
 // 2^x on the special-function unit (2 ulp; -inf gives +0).

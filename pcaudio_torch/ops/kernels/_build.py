@@ -39,7 +39,7 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st_max_points": [_I],
     "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
-    "pcaudio_mha_bwd": [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P],
+    "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P],
     "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
     "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],

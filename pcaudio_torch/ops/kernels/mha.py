@@ -10,8 +10,8 @@ MAB passes ``1/sqrt(dim_V)``, not per head).
 
 CPU tensors take the plain pair (:func:`fused_mha_plain` forward,
 :func:`fused_mha_bwd_plain` backward); CUDA tensors always take the
-kernels, and a shape or type the kernels do not take raises.  The
-forward's launch geometry is planned here (:func:`fwd_plan`).
+kernels, and a shape or type the kernels do not take raises.  The launch
+geometry is planned here (:func:`fwd_plan`, :func:`bwd_plan`).
 """
 from __future__ import annotations
 
@@ -29,6 +29,15 @@ HEAD_DIMS = (4, 8, 16)  # dh the kernels are compiled for
 FWD_WARPS, FWD_WARP_ROWS, FWD_KEY_TILE, FWD_WINDOW = 4, 16, 64, 8192
 # the forward's CUDA kernels by name, as a profiler lists them
 FWD_KERNELS = ("mha_fwd_kernel", "mha_fwd_short_kernel", "mha_fwd_merge_kernel")
+# csrc/mha.cu's one-pass backward: rows of the small side a block holds,
+# warps a block, rows of the large side a warp's tile
+BWD_HELD, BWD_WARPS, BWD_TILE = 64, 4, 16
+# the backward's CUDA kernels by name: the one-pass kernels and their merge,
+# then the SIMT pair that shapes with both sides above BWD_HELD take
+BWD_PAIR_KERNELS = ("mha_dq_kernel", "mha_dkdv_kernel")
+BWD_KERNELS = ("mha_bwd_fewq_kernel", "mha_bwd_fewk_kernel",
+               "mha_bwd_merge_kernel") + BWD_PAIR_KERNELS
+BWD_KINDS = ("pair", "fewq", "fewk")   # the C entry point's `kind` 0, 1, 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +79,43 @@ def fwd_plan(B: int, N: int, M: int, num_heads: int, sms: int, dh: int = 8) -> F
     if base < 2 * sms:
         splits = max(1, min(-(-4 * sms // base), -(-M // 512)))
     return FwdPlan(parts, rows, qtiles, splits)
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward's route: ``"fewq"`` (a block holds the ≤ 64 queries of
+    one (sample, head) and streams its keys), ``"fewk"`` (holds the ≤ 64
+    keys, streams the queries), or ``"pair"`` (the SIMT pair, both sides
+    above 64); ``splits`` blocks split the streamed side (merged by a second
+    kernel when above 1)."""
+
+    kind: str
+    splits: int
+
+
+def bwd_plan(B: int, N: int, M: int, num_heads: int, sms: int, dh: int = 8) -> BwdPlan:
+    """Plan the backward for ``N`` queries and ``M`` keys on a card of
+    ``sms`` multiprocessors.
+
+    The side of at most 64 rows is held, the other streamed (the larger
+    one where both qualify; MAB0 and PMA hold their queries, MAB1 its
+    keys).  Where the ``B·num_heads`` blocks would not fill the card twice
+    (3ST training at B = 16: 128 blocks on 132 SMs), the streamed side is
+    split over up to ``4·sms / blocks`` blocks, each taking at least 512
+    rows, as :func:`fwd_plan` splits the forward's keys.  ``dh`` does not
+    change the plan; it is taken for symmetry with :func:`fwd_plan`."""
+    del dh
+    if N <= BWD_HELD and (M > BWD_HELD or N <= M):
+        kind, streamed = "fewq", M
+    elif M <= BWD_HELD:
+        kind, streamed = "fewk", N
+    else:
+        return BwdPlan("pair", 1)
+    base = B * num_heads
+    splits = 1
+    if base < 2 * sms:
+        splits = max(1, min(-(-4 * sms // base), -(-streamed // 512)))
+    return BwdPlan(kind, splits)
 
 
 @functools.cache
@@ -212,21 +258,31 @@ def fused_mha_fwd(q, k, v, mask, num_heads: int, scale: float
 
 def fused_mha_bwd(q, k, v, mask, out, lse, g, num_heads: int, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the backward kernels (dq, then dk/dv) on the forward's inputs,
-    its ``out`` and ``lse``, and ``g = dL/dout``: ``(dq, dk, dv)``.  CUDA
-    tensors only."""
+    """Launch the backward (planned by :func:`bwd_plan`) on the forward's
+    inputs, its ``out`` and ``lse``, and ``g = dL/dout``: ``(dq, dk, dv)``.
+    CUDA tensors only."""
     q, k, v, mask = _kernel_args(q, k, v, mask, num_heads)
     B, N, dv = q.shape
+    M = k.shape[1]
     if g.shape != q.shape or out.shape != q.shape:
         raise ValueError(f"g {tuple(g.shape)} and out {tuple(out.shape)} must "
                          f"be q's shape {tuple(q.shape)}")
     g, out, lse = _aligned(g.to(torch.float32)), _aligned(out), lse.contiguous()
-    delta = torch.empty_like(lse)
+    plan = bwd_plan(B, N, M, num_heads, _sm_count(q.device.index or 0), dv // num_heads)
     dq, dk, dv_ = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = part_a = part_b = None
+    if plan.kind == "pair":
+        delta = torch.empty_like(lse)
+    elif plan.splits > 1:
+        part_a = torch.empty((plan.splits,) + tuple((q if plan.kind == "fewq" else k).shape),
+                             dtype=torch.float32, device=q.device)
+        if plan.kind == "fewk":
+            part_b = torch.empty_like(part_a)
     _build.launch("pcaudio_mha_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   _ptr(mask), out.data_ptr(), lse.data_ptr(), g.data_ptr(),
-                  delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
-                  B, N, k.shape[1], num_heads, dv // num_heads, float(scale),
+                  _ptr(delta), dq.data_ptr(), dk.data_ptr(), dv_.data_ptr(),
+                  _ptr(part_a), _ptr(part_b), B, N, M, num_heads, dv // num_heads,
+                  BWD_KINDS.index(plan.kind), plan.splits, float(scale),
                   _build.stream_of(q))
     fused_mha_bwd.launches += 1
     return dq, dk, dv_

@@ -8,11 +8,20 @@ split over blocks) and the eval shape (one expt-2 forward: B = 1024 FST
 frames, rank masks at K 501 on MAB0 and PMA).  Given the source of an
 earlier design (``--old-source``, e.g. the SIMT one from ``git show
 705f139:pcaudio_torch/csrc/mha.cu``), it times that one whole at the same
-shapes in the same process.  Each variant is its own shared library, built
-with ``nvcc`` into ``build/k4_stages/``; both designs' outputs are held
-against the plain version first.
+shapes in the same process.
 
-    python -m pcaudio_torch.probes.k4_stages [--old-source PATH]
+Then the backward at the FST and 3ST step shapes: the planned one-pass
+kernels (``ops/kernels/mha.py::bwd_plan``) beside their bound (bytes, the
+3xTF32 products with S recomputed, the exps), and, given the source of an
+earlier backward (``--old-bwd-source``, e.g. the SIMT pair from ``git show
+c829fd7:pcaudio_torch/csrc/mha.cu``), that one on the same inputs in the
+same process.
+
+Each variant is its own shared library, built with ``nvcc`` into
+``build/k4_stages/``; every design's outputs are held against the plain
+version first.
+
+    python -m pcaudio_torch.probes.k4_stages [--old-source PATH] [--old-bwd-source PATH]
 """
 from __future__ import annotations
 
@@ -25,7 +34,8 @@ import torch
 
 from pcaudio_torch.eval.experiments import _ranks_desc
 from pcaudio_torch.ops.kernels import _build
-from pcaudio_torch.ops.kernels.mha import _sm_count, fused_mha_plain, fwd_plan
+from pcaudio_torch.ops.kernels.mha import (
+    BWD_KINDS, _sm_count, bwd_plan, fused_mha_bwd_plain, fused_mha_plain, fwd_plan)
 from pcaudio_torch.probes.k2_stages import Edit, stage_sources
 from pcaudio_torch.probes.timing import bound_ms, card, cuda_ms
 
@@ -43,6 +53,8 @@ SHAPES = (("FST step", 128, FST), ("3ST step", 16, ST3), ("eval (expt 2, K 501)"
 PER_FORWARD = {"MAB0": 2, "MAB1": 2, "PMA": 1}   # two ISABs, one PMA
 NEW_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 OLD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+NEW_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+OLD_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
@@ -67,14 +79,16 @@ def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
             if ("registers" in line or "spill" in line) and name.endswith("whole"):
                 print(f"[ptxas] {name}: {line.strip()}")
         fn = ctypes.CDLL(str(lib))
-        fn.pcaudio_mha_fwd.argtypes = OLD_ARGS if name.startswith("old") else NEW_ARGS
-        fn.pcaudio_mha_fwd.restype = ctypes.c_int
+        fn.pcaudio_mha_fwd.argtypes = OLD_ARGS if name == "old whole" else NEW_ARGS
+        fn.pcaudio_mha_bwd.argtypes = OLD_BWD_ARGS if name == "old bwd" else NEW_BWD_ARGS
+        fn.pcaudio_mha_fwd.restype = fn.pcaudio_mha_bwd.restype = ctypes.c_int
         libs[name] = fn
     return libs
 
 
 def _forward(lib: ctypes.CDLL, old: bool, q, k, v, mask):
-    """A launcher of one design's forward on these inputs, and its output."""
+    """A launcher of one design's forward on these inputs, its output and
+    its lse."""
     B, N, dv = q.shape
     M = k.shape[1]
     out = torch.empty_like(q)
@@ -102,7 +116,54 @@ def _forward(lib: ctypes.CDLL, old: bool, q, k, v, mask):
                 stream)
         if code:
             raise RuntimeError(f"pcaudio_mha_fwd failed ({code})")
-    return launch, out
+    return launch, out, lse
+
+
+def _backward(lib: ctypes.CDLL, old: bool, q, k, v, out, lse, g):
+    """A launcher of one design's backward (no mask) on these inputs, and
+    its (dq, dk, dv): the current source's planned route, or the earlier
+    SIMT pair's entry point."""
+    B, N, dv = q.shape
+    M = k.shape[1]
+    scale = 1.0 / dv ** 0.5
+    grads = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)]
+    delta = torch.empty_like(lse)
+    plan = bwd_plan(B, N, M, HEADS, _sm_count(q.device.index or 0), dv // HEADS)
+    parts = [None, None]
+    if not old and plan.splits > 1:
+        shape = (plan.splits,) + tuple((q if plan.kind == "fewq" else k).shape)
+        parts = [torch.empty(shape, device=q.device), torch.empty(shape, device=q.device)]
+    ptrs = [t.data_ptr() for t in (q, k, v)] + [None] + [
+        t.data_ptr() for t in (out, lse, g, delta, *grads)]
+
+    def launch():
+        stream = torch.cuda.current_stream().cuda_stream
+        if old:
+            code = lib.pcaudio_mha_bwd(*ptrs, B, N, M, HEADS, dv // HEADS, scale, stream)
+        else:
+            code = lib.pcaudio_mha_bwd(
+                *ptrs, *(None if t is None else t.data_ptr() for t in parts), B, N, M,
+                HEADS, dv // HEADS, BWD_KINDS.index(plan.kind), plan.splits, scale, stream)
+        if code:
+            raise RuntimeError(f"pcaudio_mha_bwd failed ({code})")
+    return launch, grads
+
+
+def bwd_work(B, N, M, heads=HEADS, dv=DV):
+    """(exps, 3xTF32 flops, bytes) of one unmasked attend's backward: an exp
+    a pair and head; five products (S recomputed, dP, dV, dK, dQ) of 2·dh
+    flops a pair and head, three passes each; q, k, v, out, g and lse read
+    once, dq, dk, dv written once."""
+    pairs = float(B) * N * M
+    return (pairs * heads, 3 * 5 * 2.0 * dv * pairs,
+            4.0 * (4 * B * N * dv + 4 * B * M * dv + B * heads * N))
+
+
+def bwd_parts(exps, flops, nb):
+    """The three times that bound K4's backward, as a line."""
+    return (f"bytes {bound_ms({}, nb)[0]:.4f} ms, 3xTF32 products "
+            f"{bound_ms({'tf32': flops}, 0)[0]:.4f} ms, exps "
+            f"{bound_ms({'sfu': exps}, 0)[0]:.4f} ms")
 
 
 def _inputs(B, N, M, keep, gen):
@@ -124,6 +185,8 @@ def _work(B, N, M, keep):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old-source", help="an earlier design's mha.cu")
+    ap.add_argument("--old-bwd-source", help="an earlier backward's mha.cu (its "
+                    "pcaudio_mha_bwd without plan arguments)")
     args = ap.parse_args(argv)
     name_limit = card()
     sources = {f"new {s}": t for s, t in stage_sources(
@@ -131,6 +194,9 @@ def main(argv=None) -> None:
     if args.old_source:
         with open(args.old_source) as f:
             sources["old whole"] = f.read()
+    if args.old_bwd_source:
+        with open(args.old_bwd_source) as f:
+            sources["old bwd"] = f.read()
     libs = _build_all(sources)
     designs = [d for d in ("new", "old") if f"{d} whole" in libs]
     gen = torch.Generator("cuda").manual_seed(0)
@@ -142,8 +208,8 @@ def main(argv=None) -> None:
             ref = fused_mha_plain(q, k, v, mask, HEADS, 1.0 / DV ** 0.5)
             t = {}
             for variant in total:
-                launch, out = _forward(libs[variant], variant.startswith("old"), q, k, v,
-                                       mask)
+                launch, out, _ = _forward(libs[variant], variant.startswith("old"), q, k,
+                                          v, mask)
                 if variant.endswith("whole"):
                     launch()
                     torch.cuda.synchronize()
@@ -167,6 +233,57 @@ def main(argv=None) -> None:
               f"{bound_ms({'sfu': work[0]}, 0)[0]:.4f}, 3xTF32 products "
               f"{bound_ms({'tf32': work[1]}, 0)[0]:.4f}, bytes "
               f"{bound_ms({}, work[2])[0]:.4f}) ({name_limit})", flush=True)
+    backward_times(libs, gen, name_limit)
+
+
+def backward_times(libs, gen, name_limit) -> None:
+    """The backward at the FST and 3ST step shapes: the current design and,
+    where built, the earlier one, each held against the plain backward
+    within K4's bound first, on the current forward's out and lse."""
+    variants = [v for v in ("new whole", "old bwd") if v in libs]
+    for label, B, attends in SHAPES[:2]:
+        total = {v: 0.0 for v in variants}
+        work = [0.0, 0.0, 0.0]
+        for name, (N, M, _) in attends.items():
+            q, k, v, _ = _inputs(B, N, M, None, gen)
+            g = torch.randn(q.shape, device="cuda", generator=gen)
+            fwd, out, lse = _forward(libs["new whole"], False, q, k, v, None)
+            fwd()
+            ref = fused_mha_bwd_plain(q, k, v, None, g, HEADS, 1.0 / DV ** 0.5)
+            t = {}
+            for variant in variants:
+                launch, grads = _backward(libs[variant], variant == "old bwd", q, k, v, out,
+                                          lse, g)
+                launch()
+                torch.cuda.synchronize()
+                for got, r, d in zip(grads, ref, ("dq", "dk", "dv")):
+                    err = (got - r).abs()
+                    if not bool((err <= 1e-4 * r.abs().max() + 1e-4 * r.abs()).all()):
+                        raise AssertionError(f"{variant} backward at {label} {name}: {d} "
+                                             f"max |err| {err.max().item():.3e} outside "
+                                             f"K4's bound")
+                t[variant] = cuda_ms(launch, 20)
+                total[variant] += PER_FORWARD[name] * t[variant]
+            w = bwd_work(B, N, M)
+            work = [a + PER_FORWARD[name] * b for a, b in zip(work, w)]
+            plan = bwd_plan(B, N, M, HEADS, _sm_count(0))
+            b = bound_ms({"sfu": w[0], "tf32": w[1]}, w[2])
+            print(f"[K4 bwd] {label} {name} B={B} {N}x{M} ({plan.kind}, {plan.splits} "
+                  f"split{'s' if plan.splits > 1 else ''}): " + _bwd_line(t)
+                  + f"; bound {b[0]:.4f} ms by {b[1]} ({name_limit})", flush=True)
+            del q, k, v, g, out, lse, ref
+            torch.cuda.empty_cache()
+        b = bound_ms({"sfu": work[0], "tf32": work[1]}, work[2])
+        print(f"[K4 bwd] {label}, one step's five attends: " + _bwd_line(total)
+              + f"; bound {b[0]:.4f} ms by {b[1]} ({bwd_parts(*work)}) ({name_limit})",
+              flush=True)
+
+
+def _bwd_line(t: Dict[str, float]) -> str:
+    parts = [f"new design {t['new whole']:.4f} ms"]
+    if "old bwd" in t:
+        parts.append(f"earlier design {t['old bwd']:.4f} ms")
+    return ", ".join(parts)
 
 
 def _line(t: Dict[str, float]) -> str:

@@ -1084,6 +1084,65 @@ def test_mha_forward_on_the_trained_fst_activations(cuda, keep):
         _k4_against_plain(q, k, v, m, h, scale)
 
 
+# ---- K4's backward: every route of bwd_plan ---------------------------------
+
+from pcaudio_torch.ops.kernels.mha import bwd_plan  # noqa: E402
+
+
+@pytest.mark.parametrize("B,N,M,pattern,h,kind,split", [
+    (40, 64, 1025, "full", 8, "fewq", False),    # FST MAB0, PMA: few queries
+    (40, 1, 1025, "full", 8, "fewq", False),
+    (40, 1025, 64, "full", 8, "fewk", False),    # FST MAB1: few keys
+    (16, 64, 5120, "full", 8, "fewq", True),     # 3ST at B = 16: the large side split
+    (16, 1, 5120, "full", 8, "fewq", True),
+    (16, 5120, 64, "full", 8, "fewk", True),
+    (5, 64, 300, "ragged", 8, "fewq", False),    # masks, a sample with no valid key
+    (5, 1, 37, "ragged", 8, "fewq", False),
+    (5, 17, 300, "rank", 8, "fewq", False),
+    (5, 300, 9, "ragged", 8, "fewk", False),
+    (5, 300, 64, "rank", 8, "fewk", False),
+    (2, 64, 1100, "ragged", 8, "fewq", True),    # splits over masked keys
+    (2, 1100, 64, "ragged", 8, "fewk", True),
+    (5, 33, 300, "ragged", 16, "fewq", False),   # head width 4
+    (5, 70, 50, "ragged", 16, "fewk", False),
+    (5, 33, 300, "ragged", 4, "fewq", False),    # head width 16
+    (5, 70, 50, "ragged", 4, "fewk", False),
+    (5, 100, 120, "ragged", 8, "pair", False),   # both sides above 64: the SIMT pair
+    (3, 100, 120, "full", 16, "pair", False),
+], ids=lambda x: str(x))
+def test_mha_bwd_routes_match_plain_and_repeat_bitwise(cuda, B, N, M, pattern, h, kind,
+                                                       split):
+    """K4's backward on each route of ``bwd_plan`` against the plain
+    backward within K4's bound (dq, dk, dv each against its own scale; a
+    sample whose keys are all masked gets zeros), and two runs bitwise
+    equal: no atomics, every sum in a fixed order."""
+    plan = bwd_plan(B, N, M, h, _sm_count(0), 64 // h)
+    assert plan.kind == kind and (plan.splits > 1) == split, plan
+    gen = torch.Generator(cuda).manual_seed(B * N + M + h)
+    q, k, v, g = (torch.randn(B, r, 64, device=cuda, generator=gen) for r in (N, M, M, N))
+    mask = None
+    if pattern == "ragged":
+        counts = torch.tensor([M, M - 3, M // 2, 1, 0][:B - 1] + [0], device=cuda)
+        mask = torch.arange(M, device=cuda)[None, :] < counts[:, None]
+    elif pattern == "rank":
+        mask = _ranks_desc(torch.rand(B, M, device=cuda, generator=gen)) < M // 3
+    scale = 0.125
+    out, lse = fused_mha_fwd(q, k, v, mask, h, scale)
+    b0 = fused_mha_bwd.launches
+    first = fused_mha_bwd(q, k, v, mask, out, lse, g, h, scale)
+    again = fused_mha_bwd(q, k, v, mask, out, lse, g, h, scale)
+    torch.cuda.synchronize()
+    assert fused_mha_bwd.launches == b0 + 2
+    for a, b, name in zip(first, again, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+    ref = fused_mha_bwd_plain(q, k, v, mask, g, h, scale)
+    for got, r, name in zip(first, ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(got).all()), name
+        _close_k4(got, r, name)
+    if pattern == "ragged":
+        assert not any(x[-1].any() for x in first)   # the sample with no valid key
+
+
 def _fst(fused):
     model = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
                num_heads=8, fused_attn=fused)

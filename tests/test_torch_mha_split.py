@@ -479,15 +479,18 @@ def test_stage_probe_edits_cut_the_forward_where_they_say():
 
 
 def test_fwd_kernels_names_every_forward_kernel():
-    """``chip_smoke.py`` finds K4's forward in a profile by these names: every
-    ``__global__`` forward kernel of ``csrc/mha.cu`` is among them, and each
-    name is one (a renamed kernel would otherwise read as a share of 0)."""
+    """``chip_smoke.py`` finds K4's forward and backward in a profile by
+    these names: every ``__global__`` kernel of ``csrc/mha.cu`` is among
+    them, the forward's in ``FWD_KERNELS`` and the backward's in
+    ``BWD_KERNELS``, and each name is one (a renamed kernel would otherwise
+    read as a share of 0)."""
     import re
 
     from pcaudio_torch.ops.kernels import _build
-    from pcaudio_torch.ops.kernels.mha import FWD_KERNELS
+    from pcaudio_torch.ops.kernels.mha import BWD_KERNELS, BWD_PAIR_KERNELS, FWD_KERNELS
 
     source = (_build.CSRC / "mha.cu").read_text()
     kernels = set(re.findall(r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)\(", source))
     assert {k for k in kernels if k.startswith("mha_fwd")} == set(FWD_KERNELS)
-    assert kernels - set(FWD_KERNELS) == {"mha_dq_kernel", "mha_dkdv_kernel"}
+    assert kernels - set(FWD_KERNELS) == set(BWD_KERNELS)
+    assert set(BWD_PAIR_KERNELS) == {"mha_dq_kernel", "mha_dkdv_kernel"} <= set(BWD_KERNELS)

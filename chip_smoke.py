@@ -57,6 +57,12 @@
    holding each probe kernel against its plain version (the integer
    products and sums exactly, the DFT within a bound derived per element)
    and printing each probe's answer beside the card's name and power limit;
+   then the two wgmma kernels (the windowed GEMM of P1 and P2, the v6
+   attend of P3) beside their earlier mma.sync design
+   (pcaudio_torch/probes/earlier/, built while phase 1 builds) at every
+   P1, P2a-c and P3 shape in this process (plain, old, new, new, old,
+   plain, the library call; TFLOP/s and % of peak), ptxas' registers and
+   spills for them, and the HGMMA / IGMMA count of their SASS;
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
    batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
@@ -94,6 +100,7 @@ import dataclasses
 import json
 import os
 import shutil
+import subprocess
 import tempfile
 import time
 
@@ -121,7 +128,7 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
-from pcaudio_torch.probes import PROBES, ingest
+from pcaudio_torch.probes import PROBES, ingest, probe_stages
 from pcaudio_torch.probes.clips import FS, L, negzero_grid, ragged_waves, synthetic_waves
 from pcaudio_torch.probes.k4_stages import bwd_parts, bwd_work
 from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
@@ -175,6 +182,40 @@ SWEEP_TOL = 0.01      # |port - JAX package| of a sweep cell (phase 10)
 ANCHOR_ACC = 0.9828   # the f32 ST on the 17,280 test clouds (roundtrip_report.json)
 EVAL_3ST_CLIPS, EVAL_3ST_K, EVAL_3ST_RUNS = 8, [1, 2561, 5120], 2
 INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
+
+
+WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel")
+
+
+def wgmma_report(lib_path):
+    """Phase 8: ptxas' registers, shared memory and spills of the wgmma
+    kernels (build.log), and, where cuobjdump exists, how many HGMMA /
+    IGMMA instructions each one's SASS holds."""
+    lines, current = [], None
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = next((k for k in WGMMA_KERNELS if k in line), None)
+            if current:
+                lines.append(f"ptxas {line.split(chr(39))[1][:90]}")
+        elif current and ("registers" in line or "spill" in line or "C75" in line):
+            lines.append(f"ptxas   {line.strip()[:160]}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return lines + ["cuobjdump: not found, SASS not read"]
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            fn = fn if any(k in fn for k in WGMMA_KERNELS) else None
+        elif fn and ("HGMMA" in line or "IGMMA" in line):
+            c = counts.setdefault(fn, {"HGMMA": 0, "IGMMA": 0})
+            c["HGMMA" if "HGMMA" in line else "IGMMA"] += 1
+    check(len(counts) == 4, f"SASS: {len(counts)} of the 4 wgmma kernels issue HGMMA / "
+          f"IGMMA ({sorted(counts)})")
+    return lines + [f"SASS {fn[:90]}: {c['HGMMA']} HGMMA, {c['IGMMA']} IGMMA"
+                    for fn, c in sorted(counts.items())]
 
 
 def log(msg):
@@ -851,8 +892,16 @@ def main():
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.library()
+    # the earlier design of the two redesigned probe kernels (phase 8), its
+    # compilers started beside the main build's
+    old_jobs = probe_stages.start_old_builds()
+    try:
+        lib_path = _build.build()
+        _build.library()
+    except BaseException:
+        for *_, proc in old_jobs.values():
+            proc.kill()
+        raise
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1283,6 +1332,14 @@ def main():
         log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
         del res
         torch.cuda.empty_cache()
+    # the wgmma redesigns of P1, P2 and P3 beside their earlier design, in
+    # this process: ms, the library call, the bound, rates and % of peak
+    t0 = time.perf_counter()
+    old = probe_stages.finish_old_builds(old_jobs)
+    probe_stages.compare(dev, old, name_limit)
+    for line in wgmma_report(lib_path):
+        log(f"[probe] {line}")
+    log(f"[probe] old against new: {time.perf_counter() - t0:.1f} s")
     # ---- 9. the serving ingest: WAV files through classify_paths -----------
     ingest_phase(name_limit)
     # ---- 10. the paper's evaluation: cli eval through K4 --------------------

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "pcaudio_fused_st_max_points": [_I],
     "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
-    "pcaudio_probe_matmul": [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P],
+    "pcaudio_probe_matmul": [_P] * 5,
     "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
     "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],
     "pcaudio_probe_attend": [_P] * 5 + [_I] * 5 + [_P],
@@ -127,7 +127,9 @@ def launch(name: str, *args) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream on ``t``'s device, as an int for ctypes."""
+    """The current CUDA stream on ``t``'s device, as an int for ctypes.
+    The raw query: building a ``torch.cuda.Stream`` (``current_stream``)
+    costs several µs of host time on every launch."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -19,22 +19,48 @@ versions; CUDA tensors the kernels, never a fallback.  The plain versions
 compute in f32 (the card's TF32 off); the ``*_bound`` functions give the
 elementwise bound on |kernel − plain| that each probe is held to, and the
 chain is held exactly at a :func:`signed_permutation` w.
+
+:func:`matmul_plan` and :func:`attend_plan` are the two wgmma kernels'
+plans (their grids and how each block's run of work units is cut), which
+the kernels follow and the CPU tests hold to covering every product once.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from pcaudio_torch.ops.kernels import _build
 
+WGMMA_BF16 = "wgmma.mma_async.m64n128k16.f32.bf16.bf16 (TMA ring, B resident)"
+WGMMA_S8 = "wgmma.mma_async.m64n128k32.s32.s8.s8 (TMA ring, B resident)"
+WGMMA_ATTEND_BF16 = "wgmma m64n128k16 bf16, P from registers (bulk-copy ring)"
+WGMMA_ATTEND_S8 = "wgmma m64n128k32 s8, P from registers (bulk-copy ring)"
 MMA_BF16 = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
 MMA_S8 = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
 EXP_SFU = "__expf (ex2.approx on the MUFU special-function units)"
 TILE = 128        # probe_matmul's output tile; M and N are multiples
 ATTEND_DV = 128   # probe_attend's widths (the v6 attend: dv2 and K)
 ATTEND_KEYS = 128
-ATTEND_GROUPS = 16  # blocks along the attend grid (steps / groups each)
+ATTEND_ROWS = 256  # query rows a block (two warpgroups of 128)
 U32 = 2.0 ** -24  # f32 unit roundoff
 PLAIN_CHUNK = 512  # attends the plain attend batches at once (memory)
+# probe_matmul's shared memory (csrc/hopper.cuh, csrc/probe_mma.cu)
+SMEM_BYTES = 232448    # a block's dynamic shared memory (227 KB)
+SWIZZLE_BYTES = 128    # a swizzled row: one ring stage's K
+MAX_STAGES = 4
+MIN_STAGES = 3
+MAX_SLAB_ROWS = 256    # a TMA box's rows
+MAX_GROUP = 8          # windows one slab serves
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int = 0) -> int:
+    """The card's streaming multiprocessors (cached: the query costs host
+    time on every launch)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _per(repeats: int) -> int:
@@ -45,18 +71,23 @@ def _per(repeats: int) -> int:
 # ---- P1, P2: sums of windowed products ----------------------------------
 
 def _check_matmul(a, b, reps, shift, repeats):
-    if a.dtype not in (torch.bfloat16, torch.int8) or b.dtype != a.dtype:
-        raise TypeError(f"a and b must both be bfloat16 or int8, got {a.dtype}, "
-                        f"{b.dtype}")
-    if a.dim() not in (2, 3) or b.dim() != a.dim() or a.shape[:-2] != b.shape[:-2]:
+    _check_matmul_shapes(a.shape, b.shape, a.dtype, b.dtype, reps, shift, repeats)
+
+
+def _check_matmul_shapes(a_shape, b_shape, a_dtype, b_dtype, reps, shift, repeats):
+    if a_dtype not in (torch.bfloat16, torch.int8) or b_dtype != a_dtype:
+        raise TypeError(f"a and b must both be bfloat16 or int8, got {a_dtype}, "
+                        f"{b_dtype}")
+    if len(a_shape) not in (2, 3) or len(b_shape) != len(a_shape) or \
+            a_shape[:-2] != b_shape[:-2]:
         raise ValueError(f"a [(B,) rows, K] and b [(B,) K, N] expected, got "
-                         f"{tuple(a.shape)}, {tuple(b.shape)}")
-    if a.shape[-1] != b.shape[-2]:
-        raise ValueError(f"contraction mismatch: {tuple(a.shape)} · {tuple(b.shape)}")
-    if reps < 1 or shift < 0 or repeats < 1 or a.shape[-2] - shift * (reps - 1) < 1:
+                         f"{tuple(a_shape)}, {tuple(b_shape)}")
+    if a_shape[-1] != b_shape[-2]:
+        raise ValueError(f"contraction mismatch: {tuple(a_shape)} · {tuple(b_shape)}")
+    if reps < 1 or shift < 0 or repeats < 1 or a_shape[-2] - shift * (reps - 1) < 1:
         raise ValueError(f"reps={reps}, shift={shift}, repeats={repeats} do not fit "
-                         f"{a.shape[-2]} rows")
-    if repeats > 1 and a.dim() == 3 and a.shape[0] > 1:
+                         f"{a_shape[-2]} rows")
+    if repeats > 1 and len(a_shape) == 3 and a_shape[0] > 1:
         raise ValueError("repeats of a batched product are not supported")
 
 
@@ -88,40 +119,119 @@ def matmul_bound(a, b, reps=1, shift=0, repeats=1):
     return 2 * (reps * a.shape[-1] + repeats) * U32 * mag
 
 
+class MatmulPlan(NamedTuple):
+    """``probe_matmul``'s grid: ``panels`` (batch × N/128 tile columns,
+    each a B panel a block holds) × ``blocks`` runs of a panel's ``units``
+    (m-tile, repeat, window group, in that order); a group is ``group``
+    windows read from one slab of ``slab_rows`` rows through a ring of
+    ``stages``; ``accumulate``: blocks add into a zeroed output (else each
+    tile is one unit and is stored)."""
+
+    panels: int
+    blocks: int
+    units: int
+    group: int
+    groups: int
+    slab_rows: int
+    stages: int
+    k_padded: int
+    accumulate: bool
+    smem: int
+
+
+def matmul_plan(batch, M, N, K, reps, shift, repeats, elem, sms) -> MatmulPlan:
+    """The plan of ``csrc/probe_mma.cu``'s windowed GEMM; raises
+    ``ValueError`` for shapes its tiles do not take (M or N not a multiple
+    of 128, K not of 64 bytes, a B panel that leaves no room for a ring of
+    3 slabs)."""
+    if M < TILE or N < TILE or M % TILE or N % TILE or (K * elem) % 64:
+        raise ValueError(f"M={M}, N={N} must be multiples of {TILE} and K={K} "
+                         f"of {64 // elem}")
+    ks = SWIZZLE_BYTES // elem
+    kp = -(-K // ks) * ks
+    b_bytes = kp * TILE * elem
+    group = 1
+    if shift % 8 == 0:  # a window i·shift rows down is whole swizzle atoms
+        group = min(reps, MAX_GROUP)
+        if shift:
+            group = min(group, 1 + (MAX_SLAB_ROWS - TILE) // shift)
+    while True:
+        slab = TILE + (group - 1) * shift
+        free = SMEM_BYTES - 1024 - b_bytes - (2 * MAX_STAGES + 1) * 8
+        stages = min(MAX_STAGES, free // (slab * SWIZZLE_BYTES))
+        if stages >= MIN_STAGES or group == 1:
+            break
+        group -= 1
+    if stages < MIN_STAGES:
+        raise ValueError(f"K={K}: a [{kp}, {TILE}] B panel leaves no room for "
+                         f"{MIN_STAGES} ring stages in shared memory")
+    groups = -(-reps // group)
+    units = (M // TILE) * repeats * groups
+    panels = batch * (N // TILE)
+    blocks = min(units, max(1, sms // panels))
+    smem = 1024 + b_bytes + stages * slab * SWIZZLE_BYTES + (2 * MAX_STAGES + 1) * 8
+    return MatmulPlan(panels, blocks, units, group, groups, slab, stages, kp,
+                      repeats * groups > 1, smem)
+
+
+def matmul_units(plan: MatmulPlan, block: int, M: int, repeats: int, reps: int):
+    """The (panel, m-tile, repeat, windows) of block ``block``'s run, as
+    the kernel walks them."""
+    panel, run = divmod(block, plan.blocks)
+    for u in range(plan.units * run // plan.blocks,
+                   plan.units * (run + 1) // plan.blocks):
+        mt, rem = divmod(u, repeats * plan.groups)
+        r, j = divmod(rem, plan.groups)
+        yield panel, mt, r, range(j * plan.group, min(reps, (j + 1) * plan.group))
+
+
+class _MatmulCall(NamedTuple):
+    shape: tuple        # the output's
+    dtype: torch.dtype
+    zeroed: bool        # the kernel adds into it
+    params: object      # the entry point's ints, a ctypes array kept alive
+    params_ptr: int
+
+
+@functools.lru_cache(maxsize=256)
+def _matmul_call(a_shape, b_shape, dtype, b_dtype, reps, shift, repeats, device_index):
+    """One call's checks, plan and the kernel's integer arguments, made
+    once per shape: a call then passes five pointers to ctypes, not 16
+    arguments (each costs host time)."""
+    _check_matmul_shapes(a_shape, b_shape, dtype, b_dtype, reps, shift, repeats)
+    rows, K = a_shape[-2:]
+    N = b_shape[-1]
+    M = rows - shift * (reps - 1)
+    int8 = dtype == torch.int8
+    batch = a_shape[0] if len(a_shape) == 3 else 1
+    plan = matmul_plan(batch, M, N, K, reps, shift, repeats, 1 if int8 else 2,
+                       sm_count(device_index))
+    params = (ctypes.c_int * 12)(int(int8), batch, rows, M, N, K, reps, shift, repeats,
+                                 plan.blocks, plan.group, plan.stages)
+    return _MatmulCall((M, N) if repeats > 1 else tuple(a_shape[:-2]) + (M, N),
+                       torch.int32 if int8 else torch.float32, plan.accumulate, params,
+                       ctypes.addressof(params))
+
+
 def probe_matmul(a, b, reps=1, shift=0, repeats=1):
     """``Σ_{r<repeats} Σ_{i<reps} a[..., i·shift : i·shift + M, :] · b`` with
     ``M = rows − (reps − 1)·shift``: ``a [(B,) rows, K]`` and ``b [(B,) K,
     N]`` both bf16 (→ f32) or both int8 (→ int32).
 
-    One ``mma.sync`` GEMM kernel; M and N must be multiples of 128 and K of
-    32 (bf16) or 64 (int8) on the card.  CPU tensors take
+    One wgmma GEMM kernel (:func:`matmul_plan`): on the card M and N must
+    be multiples of 128, K of 32 (bf16) or 64 (int8), and B's [K, 128]
+    panel must leave room for the ring.  CPU tensors take
     :func:`probe_matmul_plain`.
     """
     if a.device.type == "cpu":
         return probe_matmul_plain(a, b, reps, shift, repeats)
-    _check_matmul(a, b, reps, shift, repeats)
     if not (a.is_cuda and b.is_cuda and a.is_contiguous() and b.is_contiguous()):
         raise ValueError("a and b must be contiguous CUDA tensors")
-    rows, K = a.shape[-2:]
-    N = b.shape[-1]
-    M = rows - shift * (reps - 1)
-    if M % TILE or N % TILE or (K * a.element_size()) % 64:
-        raise ValueError(f"M={M}, N={N} must be multiples of {TILE} and K={K} "
-                         f"of {64 // a.element_size()}")
-    int8 = a.dtype == torch.int8
-    odt = torch.int32 if int8 else torch.float32
-    bt = b.transpose(-1, -2).contiguous()  # [.., N, K]: K contiguous
-    batch = a.shape[0] if a.dim() == 3 else 1
-    es = a.element_size()
-    if repeats > 1:  # every repeat reads the same operands, sums into out
-        out = torch.zeros((M, N), dtype=odt, device=a.device)
-        nb, a_b, b_b, o_b, per = repeats, 0, 0, 0, _per(repeats)
-    else:
-        out = torch.empty(a.shape[:-2] + (M, N), dtype=odt, device=a.device)
-        nb, a_b, b_b, o_b, per = batch, rows * K * es, N * K * es, M * N, 1
-    _build.launch("pcaudio_probe_matmul", a.data_ptr(), a_b, bt.data_ptr(), b_b,
-                  out.data_ptr(), o_b, int(int8), M, N, K, reps, shift, nb, per,
-                  _build.stream_of(a))
+    call = _matmul_call(a.shape, b.shape, a.dtype, b.dtype, reps, shift, repeats,
+                        a.get_device())
+    out = (a.new_zeros if call.zeroed else a.new_empty)(call.shape, dtype=call.dtype)
+    _build.launch("pcaudio_probe_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                  call.params_ptr, _build.stream_of(a))
     probe_matmul.launches += 1
     return out
 
@@ -368,33 +478,58 @@ def attend_bound(iq, kmat, mode, pairs=8, keys=128, steps=1024):
     return ((steps * pairs + keys) * U32 * mag + flip_mag).float()
 
 
+class AttendPlan(NamedTuple):
+    """``probe_attend``'s grid: ``blocks`` runs of the ``units`` (256-row
+    block, attend), in that order, one a block."""
+
+    blocks: int
+    units: int
+
+
+def attend_plan(rows, pairs, steps, sms) -> AttendPlan:
+    units = (rows // ATTEND_ROWS) * steps * pairs
+    return AttendPlan(min(sms, units), units)
+
+
+def attend_units(plan: AttendPlan, block: int, attends: int):
+    """The (row block, attend) units of block ``block``'s run, in order."""
+    for u in range(plan.units * block // plan.blocks,
+                   plan.units * (block + 1) // plan.blocks):
+        yield divmod(u, attends)
+
+
+def window_of(attend: int, pairs: int) -> int:
+    """The window of attend ``g·pairs + p``: (g mod pairs) + p."""
+    return (attend // pairs) % pairs + attend % pairs
+
+
 def probe_attend(iq, kmat, mode, pairs=8, keys=128, steps=1024):
     """The v6 attend probe: ``iq [rows, 128]`` f32 against, for each of
     ``steps`` grid steps g and ``pairs`` p, the window ``kmat[((g mod
     pairs) + p)·128 : +128]`` (keys and values alike), in ``mode`` "bf16"
     or "int8" (in-kernel quantisation), summed into ``[rows, 128]`` f32.
 
-    On the card rows is a multiple of 128 and keys and dv are 128; CPU
-    tensors take :func:`probe_attend_plain`.
+    On the card rows is a multiple of 256 and keys and dv are 128
+    (:func:`attend_plan`); CPU tensors take :func:`probe_attend_plain`.
     """
     if iq.device.type == "cpu":
         return probe_attend_plain(iq, kmat, mode, pairs, keys, steps)
     _check_attend(iq, kmat, mode)
     rows, dv = iq.shape
-    if keys != ATTEND_KEYS or dv != ATTEND_DV or rows % 128:
+    if keys != ATTEND_KEYS or dv != ATTEND_DV or rows % ATTEND_ROWS or rows < 1:
         raise ValueError(f"the kernel takes keys={ATTEND_KEYS}, dv={ATTEND_DV} and "
-                         f"rows a multiple of 128, got {keys}, {dv}, {rows}")
+                         f"rows a multiple of {ATTEND_ROWS}, got {keys}, {dv}, {rows}")
     _windows(kmat, pairs, keys, 1)
     if not (iq.is_cuda and kmat.is_cuda and iq.is_contiguous() and kmat.is_contiguous()):
         raise ValueError("iq and kmat must be contiguous CUDA tensors")
-    groups = ATTEND_GROUPS if steps % ATTEND_GROUPS == 0 else 1
+    plan = attend_plan(rows, pairs, steps, sm_count(iq.device.index or 0))
     out = torch.zeros((rows, dv), dtype=torch.float32, device=iq.device)
     int8 = mode == "int8"
-    iq8 = torch.empty((rows, dv) if int8 else (1,), dtype=torch.int8, device=iq.device)
+    iq8 = torch.empty((rows, dv) if int8 else (16,), dtype=torch.int8, device=iq.device)
     sq = torch.empty(1, dtype=torch.float32, device=iq.device)
     _build.launch("pcaudio_probe_attend", iq.data_ptr(), kmat.data_ptr(), iq8.data_ptr(),
-                  sq.data_ptr(), out.data_ptr(), int(int8), rows, pairs, steps, groups,
-                  _build.stream_of(iq))
+                  sq.data_ptr(), out.data_ptr(), int(int8), rows, pairs, steps,
+                  plan.blocks, _build.stream_of(iq))
     probe_attend.launches += 1
     return out
 

@@ -2,7 +2,7 @@
 at :24): on the TPU, whether Mosaic lowers a batched ``dot_general``
 inside a kernel (K1's eight dh = 8 heads as one batched product).  Here:
 what one batched [8, 512, 64] · [8, 64, 128] bf16 → f32 product costs as
-one hand-written ``mma.sync`` kernel, against ``torch.bmm``.
+one hand-written ``wgmma`` kernel, against ``torch.bmm``.
 
     python -m pcaudio_torch.probes batched_dot
 """
@@ -12,7 +12,7 @@ import torch
 
 from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.ops.kernels.probes import (
-    MMA_BF16, matmul_bound, probe_matmul, probe_matmul_plain)
+    WGMMA_BF16, matmul_bound, probe_matmul, probe_matmul_plain)
 from pcaudio_torch.probes.timing import Case, measure, tf32_off
 
 REPLACES = "scripts/probe_batched_dot.py:9"
@@ -25,10 +25,10 @@ def cases(dev, gen):
     b = torch.randn(B, K, N, generator=gen, device=dev).bfloat16()
     return [Case(
         "batched_dot", lambda: probe_matmul(a, b), lambda: probe_matmul_plain(a, b),
-        lambda ref: matmul_bound(a, b), probe_matmul, SOURCE, REPLACES, MMA_BF16,
+        lambda ref: matmul_bound(a, b), probe_matmul, SOURCE, REPLACES, WGMMA_BF16,
         ops={"bf16": 2 * B * M * K * N}, nbytes=2 * (a.numel() + b.numel()) + 4 * B * M * N,
         library=lambda: torch.bmm(a, b), library_note="torch.bmm in bf16 (bf16 out)",
-        iters=50, plain_iters=50)]
+        iters=50, plain_iters=50, args=(a, b))]
 
 
 def run(device="cuda", seed=0) -> dict:

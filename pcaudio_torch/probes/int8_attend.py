@@ -5,7 +5,7 @@ with int32 accumulation, f32 dequantisation), and what that costs against
 bf16 at the serving shapes: logits [1024, 128] · [128, 128]ᵀ then
 A·V [1024, 128] · [128, 128], 8 windows a grid step, 1024 steps.
 
-Here both modes run the script's arithmetic in one ``mma.sync`` kernel
+Here both modes run the script's arithmetic in one ``wgmma`` kernel
 (``csrc/probe_attend.cu``); ``F.scaled_dot_product_attention`` in bf16 is
 timed beside the bf16 mode (at this probe's scale, |logit| about 2.5
 standard deviations, the ±50 clip is never reached).
@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.ops.kernels.probes import (
-    ATTEND_DV, ATTEND_KEYS, MMA_BF16, MMA_S8, attend_bound, probe_attend,
+    ATTEND_DV, ATTEND_KEYS, WGMMA_ATTEND_BF16, WGMMA_ATTEND_S8, attend_bound, probe_attend,
     probe_attend_plain)
 from pcaudio_torch.probes.timing import Case, measure, tf32_off
 
@@ -47,7 +47,7 @@ def cases(dev, gen):
     iq = 1.5 * torch.randn(ROWS, DV2, generator=gen, device=dev)
     kmat = 1.2 * torch.randn(2 * P * K, DV2, generator=gen, device=dev)
     out = []
-    for mode, instr in (("bf16", MMA_BF16), ("int8", MMA_S8)):
+    for mode, instr in (("bf16", WGMMA_ATTEND_BF16), ("int8", WGMMA_ATTEND_S8)):
         mac = 2.0 * ATTENDS * ROWS * K * DV2
         out.append(Case(
             mode, lambda mode=mode: probe_attend(iq, kmat, mode, P, K, GRID),
@@ -59,7 +59,7 @@ def cases(dev, gen):
             library=_sdpa(iq, kmat) if mode == "bf16" else None,
             library_note=("F.scaled_dot_product_attention, bf16, all attends in one "
                           "call, summed" if mode == "bf16" else "none"),
-            iters=5, plain_iters=1))
+            iters=5, plain_iters=1, args=(iq, kmat, mode, P, K, GRID)))
     return out
 
 

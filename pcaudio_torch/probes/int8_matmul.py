@@ -1,7 +1,7 @@
 """P2, int8 tensor-core products (``scripts/probe_int8_matmul.py``: ``kern``
 at :21, ``make_big`` at :44, ``make`` at :85): on the TPU, whether int8
 ``dot_general`` with int32 accumulation lowers, and its throughput against
-bf16.  Here, with ``mma.sync`` m16n8k32 s8 and m16n8k16 bf16:
+bf16.  Here, with ``wgmma`` m64n128k32 s8 and m64n128k16 bf16:
 
 - small: [128, 128] · [128, 128] int8 → int32, exact;
 - big: Σ_{i<16} A[8i : 8i+1024] · B, [1024, 512] · [512, 512], 256 repeats;
@@ -17,7 +17,7 @@ import torch
 
 from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.ops.kernels.probes import (
-    MMA_BF16, MMA_S8, probe_matmul, probe_matmul_plain)
+    WGMMA_BF16, WGMMA_S8, probe_matmul, probe_matmul_plain)
 from pcaudio_torch.probes.timing import (
     PEAK_OPS_PER_S, Case, measure, tf32_off)
 
@@ -49,12 +49,12 @@ def cases(dev, gen):
                             dtype=torch.int8) for _ in range(2))
     out.append(Case(
         "small int8", lambda: probe_matmul(sa, sb), lambda: probe_matmul_plain(sa, sb),
-        lambda ref: 0.0, probe_matmul, SOURCE, REPLACES["small"], MMA_S8,
+        lambda ref: 0.0, probe_matmul, SOURCE, REPLACES["small"], WGMMA_S8,
         ops={"int8": 2 * 128 ** 3}, nbytes=2 * 128 ** 2 + 4 * 128 ** 2,
         library=lambda: torch._int_mm(sa, sb), library_note="torch._int_mm",
-        iters=50, plain_iters=50))
+        iters=50, plain_iters=50, args=(sa, sb)))
     for kind, (M, K, N, reps) in SHAPES.items():
-        for dt, name, instr in ((torch.int8, "int8", MMA_S8), (torch.bfloat16, "bf16", MMA_BF16)):
+        for dt, name, instr in ((torch.int8, "int8", WGMMA_S8), (torch.bfloat16, "bf16", WGMMA_BF16)):
             a = torch.randint(-4, 4, (M + SHIFT * reps, K), generator=gen, device=dev).to(dt)
             b = torch.randint(-4, 4, (K, N), generator=gen, device=dev).to(dt)
             a = a[: M + SHIFT * (reps - 1)]  # the rows the windows read
@@ -70,7 +70,7 @@ def cases(dev, gen):
                 library=_library(a, b, reps, dt),
                 library_note=(f"{GRID} x torch.{'_int_mm' if dt == torch.int8 else 'matmul'}"
                               f" of the {reps} windows side by side along K"),
-                iters=5, plain_iters=1))
+                iters=5, plain_iters=1, args=(a, b, reps, SHIFT, GRID)))
     return out
 
 

@@ -153,6 +153,7 @@ class Case:
     iters: int = 10
     plain_iters: int = 2
     check: Optional[Tuple[Callable[[], torch.Tensor], Callable[[], torch.Tensor]]] = None
+    args: tuple = ()  # the kernel call's operands and shape, for another design
 
 
 def measure(case: Case) -> dict:

@@ -744,6 +744,101 @@ def test_probe_kernels_reject_what_they_do_not_take(cuda):
                      "bf16")
 
 
+# the wgmma kernels of P1, P2 and P3 at the probes' full sizes: P2b
+# [1024 + 8·15, 512] · [512, 512], 16 windows, 256 repeats; P2c
+# [1024 + 8·63, 128] · [128, 128], 64 windows, 256 repeats
+FULL_MATMULS = {"P2b": (1024, 512, 512, 16), "P2c": (1024, 128, 128, 64)}
+
+
+def _windowed_operands(name, dtype, gen, cuda, low=-4, high=4):
+    M, K, N, reps = FULL_MATMULS[name]
+    a = torch.randint(low, high, (M + 8 * (reps - 1), K), generator=gen, device=cuda)
+    b = torch.randint(low, high, (K, N), generator=gen, device=cuda)
+    return a.to(dtype), b.to(dtype), reps
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("name", list(FULL_MATMULS))
+def test_probe_matmul_full_size(cuda, name, dtype):
+    """Integer operands in [-4, 4): exact (int8 and bf16 alike); N(0, 1)
+    bf16 within matmul_bound."""
+    gen = torch.Generator(cuda).manual_seed(11)
+    a, b, reps = _windowed_operands(name, dtype, gen, cuda)
+    got = probe_matmul(a, b, reps, 8, 256)
+    ref = probe_matmul_plain(a, b, reps, 8, 256)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    if dtype == torch.bfloat16:
+        a = torch.randn(a.shape, generator=gen, device=cuda).bfloat16()
+        b = torch.randn(b.shape, generator=gen, device=cuda).bfloat16()
+        _within(probe_matmul(a, b, reps, 8, 256), probe_matmul_plain(a, b, reps, 8, 256),
+                matmul_bound(a, b, reps, 8, 256), f"{name} bf16 N(0, 1)")
+
+
+def test_probe_matmul_s8_runs_are_bitwise_equal(cuda):
+    """s32 atomics in any order give one sum: two runs of P2b on int8
+    operands over the whole range (the sums wrap alike) are equal."""
+    gen = torch.Generator(cuda).manual_seed(12)
+    a, b, reps = _windowed_operands("P2b", torch.int8, gen, cuda, -128, 128)
+    first = probe_matmul(a, b, reps, 8, 256)
+    assert torch.equal(first, probe_matmul(a, b, reps, 8, 256))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+def test_probe_attend_full_steps(cuda, mode):
+    """P3 at the script's 1,024 grid steps, within attend_bound."""
+    gen = torch.Generator(cuda).manual_seed(13)
+    iq = 1.5 * torch.randn(1024, 128, generator=gen, device=cuda)
+    kmat = 1.2 * torch.randn(2 * 8 * 128, 128, generator=gen, device=cuda)
+    _within(probe_attend(iq, kmat, mode), probe_attend_plain(iq, kmat, mode),
+            attend_bound(iq, kmat, mode), f"{mode} at 1024 steps")
+
+
+@pytest.mark.parametrize("a_shape,b_shape,what", [
+    ((128, 1024), (1024, 128), "ring"),          # bf16 B panel [1024, 128]: no room
+    ((192, 64), (64, 128), "multiples"),         # M
+    ((128, 64), (64, 192), "multiples"),         # N
+    ((128, 40), (40, 128), "multiples"),         # K: 80 bytes
+])
+def test_probe_matmul_refuses_shapes_its_tiles_do_not_take(cuda, a_shape, b_shape, what):
+    a = torch.zeros(a_shape, dtype=torch.bfloat16, device=cuda)
+    b = torch.zeros(b_shape, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match=what):
+        probe_matmul(a, b)
+
+
+@pytest.mark.parametrize("case,wrong", [
+    ("big int8", "one window short"), ("attend bf16", "one repeat short"),
+    ("bf16", "half the steps"), ("int8", "half the steps")])
+def test_probe_checks_catch_a_wrong_kernel(cuda, case, wrong):
+    """The probes' own checks (chip_smoke phase 8), given the kernel, pass;
+    given the GEMM run one window or one repeat short, or the attend over
+    half its grid steps, raise.  (One attend step of 1,024 moves each
+    output by less than attend_bound, which sums 8,320 f32 roundings and
+    the bf16 or a8 flips of every attend.)"""
+    from pcaudio_torch.probes import int8_attend, int8_matmul
+    from pcaudio_torch.probes.timing import measure, tf32_off
+    gen = torch.Generator(cuda).manual_seed(0)
+    mod = int8_attend if wrong == "half the steps" else int8_matmul
+    with tf32_off():
+        c = {c.name: c for c in mod.cases(cuda, gen)}[case]
+        c.iters = c.plain_iters = 1
+        c.library = None
+        measure(c)
+        if wrong == "half the steps":
+            iq, kmat, mode, pairs, keys, steps = c.args
+            wrong_kernel = lambda: probe_attend(iq, kmat, mode, pairs, keys, steps // 2)
+        else:
+            a, b, reps, shift, repeats = c.args
+            wrong_kernel = {
+                "one window short": lambda: probe_matmul(a[:-shift], b, reps - 1, shift,
+                                                         repeats),
+                "one repeat short": lambda: probe_matmul(a, b, reps, shift, repeats - 1),
+            }[wrong]
+        c.check = (wrong_kernel, c.plain)
+        with pytest.raises(AssertionError, match="outside its bound"):
+            measure(c)
+
+
 # ---- the K3-family probe kernels (csrc/probe_stream.cu, csrc/probe_featurize.cu)
 
 from pcaudio_torch.ops.kernels.featurize_probes import (  # noqa: E402

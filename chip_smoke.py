@@ -57,12 +57,13 @@
    holding each probe kernel against its plain version (the integer
    products and sums exactly, the DFT within a bound derived per element)
    and printing each probe's answer beside the card's name and power limit;
-   then the two wgmma kernels (the windowed GEMM of P1 and P2, the v6
-   attend of P3) beside their earlier mma.sync design
-   (pcaudio_torch/probes/earlier/, built while phase 1 builds) at every
-   P1, P2a-c and P3 shape in this process (plain, old, new, new, old,
-   plain, the library call; TFLOP/s and % of peak), ptxas' registers and
-   spills for them, and the HGMMA / IGMMA count of their SASS;
+   then the three wgmma kernels (the windowed GEMM of P1 and P2, the v6
+   attend of P3, the DFT of P8 and P9) beside their earlier mma.sync
+   design (pcaudio_torch/probes/earlier/, built while phase 1 builds) at
+   every P1, P2a-c, P3 shape, P8 form and P9 variant in this process
+   (plain, old, new, new, old, plain, the library call; TFLOP/s and % of
+   peak), ptxas' registers and spills for them, and the HGMMA / IGMMA
+   count of their SASS (every instantiation must hold one);
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
    batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
@@ -184,13 +185,17 @@ EVAL_3ST_CLIPS, EVAL_3ST_K, EVAL_3ST_RUNS = 8, [1, 2561, 5120], 2
 INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
 
 
-WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel")
+WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel", "dft_mag2_kernel")
+# instantiations that must issue HGMMA / IGMMA: the GEMM and the attend in
+# bf16 and s8 (2 each), the DFT in its four row modes and stacked (5)
+WGMMA_INSTANCES = {"window_gemm_kernel": 2, "attend_kernel": 2, "dft_mag2_kernel": 5}
 
 
 def wgmma_report(lib_path):
     """Phase 8: ptxas' registers, shared memory and spills of the wgmma
     kernels (build.log), and, where cuobjdump exists, how many HGMMA /
-    IGMMA instructions each one's SASS holds."""
+    IGMMA instructions each one's SASS holds; fails unless every
+    instantiation of WGMMA_INSTANCES holds one."""
     lines, current = [], None
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -212,8 +217,10 @@ def wgmma_report(lib_path):
         elif fn and ("HGMMA" in line or "IGMMA" in line):
             c = counts.setdefault(fn, {"HGMMA": 0, "IGMMA": 0})
             c["HGMMA" if "HGMMA" in line else "IGMMA"] += 1
-    check(len(counts) == 4, f"SASS: {len(counts)} of the 4 wgmma kernels issue HGMMA / "
-          f"IGMMA ({sorted(counts)})")
+    for k, n in WGMMA_INSTANCES.items():
+        have = [fn for fn in counts if k in fn]
+        check(len(have) == n, f"SASS: {len(have)} of the {n} instantiations of {k} issue "
+              f"HGMMA / IGMMA ({sorted(counts)})")
     return lines + [f"SASS {fn[:90]}: {c['HGMMA']} HGMMA, {c['IGMMA']} IGMMA"
                     for fn, c in sorted(counts.items())]
 
@@ -892,8 +899,8 @@ def main():
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    # the earlier design of the two redesigned probe kernels (phase 8), its
-    # compilers started beside the main build's
+    # the earlier design of the three redesigned probe kernels (phase 8),
+    # its compilers started beside the main build's
     old_jobs = probe_stages.start_old_builds()
     try:
         lib_path = _build.build()
@@ -1332,8 +1339,9 @@ def main():
         log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
         del res
         torch.cuda.empty_cache()
-    # the wgmma redesigns of P1, P2 and P3 beside their earlier design, in
-    # this process: ms, the library call, the bound, rates and % of peak
+    # the wgmma redesigns of P1, P2, P3, P8 and P9 beside their earlier
+    # design, in this process: ms, the library call, the bound, rates and %
+    # of peak
     t0 = time.perf_counter()
     old = probe_stages.finish_old_builds(old_jobs)
     probe_stages.compare(dev, old, name_limit)

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (probe_mma.cu's windowed GEMM, probe_attend.cu's v6 attend):
+// (probe_mma.cu's windowed GEMM, probe_attend.cu's v6 attend,
+// probe_featurize.cu's DFT):
 //
 //   - mbarriers: init, arrive, arrive with an expected byte count, wait on
 //     a phase parity;
@@ -7,9 +8,9 @@
 //     copy, each completing on an mbarrier; the proxy fence a thread issues
 //     after writing shared memory that wgmma or TMA will then read;
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
-//   - wgmma m64n128k16 (bf16 -> f32) and m64n128k32 (s8 -> s32), A from
-//     shared memory or registers, with the warpgroup fence, commit and
-//     wait;
+//   - wgmma m64n128k16 and m64n256k16 (bf16 -> f32) and m64n128k32 (s8 ->
+//     s32), A from shared memory or registers, with the warpgroup fence,
+//     commit and wait;
 //   - on the host, tiled tensor maps from cuTensorMapEncodeTiled, reached
 //     through the runtime's driver entry point (no -lcuda), cached by
 //     pointer and shape.
@@ -156,9 +157,10 @@ __device__ __forceinline__ void wgmma_wait() {
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across a wgmma in flight (the asm statements carry no register
 // dependence on the wait).
-__device__ __forceinline__ void fence_operand(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void fence_operand(int (&d)[64]) {
 #pragma unroll
@@ -170,6 +172,19 @@ __device__ __forceinline__ void fence_operand(int (&d)[64]) {
   PCAUDIO_D4(c, i), PCAUDIO_D4(c, i + 4), PCAUDIO_D4(c, i + 8), PCAUDIO_D4(c, i + 12)
 #define PCAUDIO_D64(c) \
   PCAUDIO_D16(c, 0), PCAUDIO_D16(c, 16), PCAUDIO_D16(c, 32), PCAUDIO_D16(c, 48)
+#define PCAUDIO_D128(c) PCAUDIO_D64(c), PCAUDIO_D64_AT(c, 64)
+#define PCAUDIO_D64_AT(c, i) \
+  PCAUDIO_D16(c, i), PCAUDIO_D16(c, i + 16), PCAUDIO_D16(c, i + 32), PCAUDIO_D16(c, i + 48)
+#define PCAUDIO_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, " \
+  "%123, %124, %125, %126, %127}"
 #define PCAUDIO_R64                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
@@ -218,6 +233,33 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : PCAUDIO_D64("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], bf16 operands, f32 sums, A from
+// registers as for wgmma_bf16_rs, B K-major or MN-major (kTransB): thread t
+// holds d[4j + 2h + e] = D[16w + g + 8h][8j + 2q + e], j < 32, so that
+// columns c and c + 128 lie in one thread (j and j + 16).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                                   uint64_t b, uint32_t scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " PCAUDIO_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : PCAUDIO_D128("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// ... with A from shared memory (K-major), as for wgmma_bf16_ss.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16_ss_n256(float (&d)[128], uint64_t a, uint64_t b,
+                                                   uint32_t scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " PCAUDIO_R128
+      ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : PCAUDIO_D128("+f")
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
 // D[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 operands, s32 sums; both
@@ -272,7 +314,10 @@ __device__ __forceinline__ int warpgroup() {
 #undef PCAUDIO_D4
 #undef PCAUDIO_D16
 #undef PCAUDIO_D64
+#undef PCAUDIO_D64_AT
+#undef PCAUDIO_D128
 #undef PCAUDIO_R64
+#undef PCAUDIO_R128
 
 // ---- host: tensor maps --------------------------------------------------
 

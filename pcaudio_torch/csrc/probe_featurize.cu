@@ -3,8 +3,8 @@
 // P9 scripts/profile_featurize_variants.py:77 (`k_matmul`), :90
 // (`k_matmul_f`), :103 (`k_scratch`), :120 (`k_full`), :143 (`k_nozero`).
 //
-// Every one computes, per clip b of x3 [B][R][hop] f32 and W = [w0; w1]
-// [2 hop][2F] bf16,
+// Every one computes, per clip b of x3 [B][R][hop] f32 and w0, w1
+// [hop][2F] bf16,
 //   reim = x[:R-1] . w0 + x[1:] . w1   (bf16 operands, f32 sums)
 //   m2   = reim[:, :F]^2 + reim[:, F:]^2
 // and writes m2's frames into out [B][C*Nt][F] bf16, output row j from
@@ -19,44 +19,91 @@
 // to shift it; here the shift is a per-clip row offset in the epilogue and
 // m2 never leaves registers.
 //
-// One product a clip: x3 is the contiguous wave viewed as [R][hop], so frame
-// r = [x[r], x[r+1]] is the 2 hop samples at r * hop, and the two dots are
-// one [R-1][2 hop] . [2 hop][2F] product whose A rows are overlapping
-// windows of the wave (no copy).  W arrives transposed, Wt [2F][2 hop].
-//
 // What bounds it on the H100: operations, 2 * 2 * B * (R-1) * hop * 2F on
-// the bf16 tensor cores (989 TFLOP/s dense through wgmma; mma.sync, used
-// here, reached 227 TFLOP/s in probe_mma.cu's GEMM).  Device memory sees
-// the f32 wave once (the eight frequency blocks of one row tile run side
-// by side and share it through L2) and the bf16 output once.
+// the bf16 tensor cores (989 TFLOP/s dense).  Device memory sees the f32
+// wave once and the bf16 output once; every tile reads its wave rows and
+// its W columns from L2.  On the probes' random data the card reaches its
+// power limit under this kernel and lowers its SM clock (PERF.md §7).
 //
-// Design: a block computes a 128-row x 64-frequency tile, which is 128
-// columns of the product: re columns [f0, f0+64) and im columns
-// [F+f0, F+f0+64), so that re and im of one (row, f) land in the same
-// thread's accumulators and |.|^2 is formed there.  8 warps of 64 rows x
-// (16 re + 16 im) columns, mma.sync m16n8k16 bf16 -> f32, fragments by
-// ldmatrix.  K in 32-value stages through a two-stage ring in padded shared
-// memory: Wt by cp.async, the wave by 16-byte f32 loads into registers one
-// stage ahead, rounded to bf16 (round to nearest even) on the way to shared
-// memory (cp.async cannot convert).  Rows beyond a clip's R-1 frames are
-// zero and not written.  G clips go to one block: with per-clip tiles the
-// block runs its G clips' tiles one after another; stacked, its tiles run
-// over the G clips' frames as one [G R - 1] row space, whose seam rows (a
-// clip's last row paired with the next clip's first) are computed and not
-// written.  W's tiles are re-read from L2 (2 MB) by every tile: a block's
-// 128 columns over all of K are 256 KB, more than shared memory holds.
-#include "mma.cuh"
+// Design (redesigned for Hopper).  x3 is the contiguous wave viewed as
+// [B*R][hop] rows; frame r of clip b is rows b*R + r and b*R + r + 1, so
+// the two dots are one product of K = 2 hop whose A rows are overlapping
+// windows of the wave.  A block computes 128 frame rows x 128 frequencies:
+// 256 product columns, re [f0, f0+128) and im [F+f0, F+f0+128) of W in one
+// B tile, so that re and im of one (row, f) land in one thread's
+// accumulators (wgmma m64n256: columns c and c + 128 are registers j and
+// j + 16 of the same thread) and |.|^2 is formed there.  Three warpgroups:
+// warpgroup 0 loads (one thread issues TMA), warpgroups 1 and 2 hold 64
+// rows each, 128 f32 accumulators a thread (setmaxnreg moves registers to
+// them).  K runs in stages of 32 samples of the hop through a 4-stage ring
+// (an mbarrier pair a stage).  One stage is:
+//   - the wave: ONE TMA box of 129 rows x 32 f32 (128-byte swizzle), rows
+//     m0 .. m0+128, which serves both halves of the frame: half 0 (against
+//     w0) reads rows m0 .. m0+127, half 1 (against w1) rows m0+1 .. m0+128.
+//     A swizzled bf16 tile cannot be read one row down (the pattern follows
+//     row % 8), so the consumers build A in registers (wgmma's RS form):
+//     each thread loads its fragments' f32 pairs from the stage at the
+//     half's row offset and rounds them to bf16 (cvt.rn, to nearest even),
+//     while its previous stage's products run.  Each wave sample leaves L2
+//     once per column block; no converted copy is written;
+//   - W: w0 and w1 read as they lie ([hop][2F], MN-major B): four boxes of
+//     64 columns x 32 rows each (re low, re high, im low, im high), 32 KB.
+// L2 bytes a tile and pass, hop 512 (16 stages): wave 16 x 16.5 KB = 264
+// KB, W 16 x 32 KB = 512 KB: 776 KB for 67 MFLOP, against 768 KB for 33.5
+// MFLOP in the earlier design (128 x 128 tiles, the f32 wave read for both
+// halves).  Sums in f32 in the hardware's order within a wgmma, k-steps in
+// order.  Work: a unit is one (column block, row tile, group of G clips);
+// the blocks are persistent, one an SM, block b running units b, b +
+// blocks, ... (column blocks fastest, so that blocks running at once share
+// their wave rows in L2), and the loader runs on into the next unit while
+// the consumers store.  Rows past a segment's frames are computed and not
+// written; the last tile's box reads past the wave's end as zeros (TMA's
+// fill).  Within a unit: with per-clip tiles its G clips' tiles run one
+// after another; stacked, its tile runs over the G clips' frames as one
+// [G R - 1] row space, whose seam rows (a clip's last row paired with the
+// next clip's first) are computed and not written.
+// ops/kernels/featurize_probes.py::dft_plan is the same plan in Python.
+#include <cuda_bf16.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-using namespace pcaudio;
+namespace hw = pcaudio::hopper;
 
-constexpr int kBM = 128;            // frame rows a block
-constexpr int kBF = 64;             // frequencies a block (128 product columns)
-constexpr int kStageK = 32;         // bf16 values of K a stage
-constexpr int kRow = kStageK * 2 + 16;  // padded shared-memory row, bytes
-constexpr int kThreads = 256;
-constexpr int kAVecs = kBM * kStageK / 4 / kThreads;  // float4 loads a thread a stage
+constexpr int kBM = 128;             // frame rows a block
+constexpr int kBF = 128;             // frequencies a block (256 product columns)
+constexpr int kStageK = 32;          // samples of the hop a stage: one f32 swizzle row
+constexpr int kARows = kBM + 1;      // wave rows a stage serves both halves from
+constexpr int kABytes = 17 * 1024;   // the wave's 129 rows of 128 bytes, whole atoms
+constexpr int kWBox = 64;            // W columns a box (128 bytes of bf16)
+constexpr int kWChunk = kStageK * hw::kSwizzleBytes;   // one W box: 4 KB
+constexpr int kWHalf = 4 * kWChunk;  // w0's (or w1's) 256 columns of a stage
+constexpr int kStageBytes = kABytes + 2 * kWHalf;
+constexpr int kStageTx = kARows * kStageK * 4 + 2 * kWHalf;  // bytes TMA lands a stage
+constexpr int kStages = 4;
+constexpr int kThreads = 384;        // warpgroup 0 loads, 1 and 2 compute
+constexpr int kConsumerWarps = 8;
+constexpr int kImReg = 4 * (kBF / 8);  // accumulator of im, past its re's
+// setmaxnreg's split of the block's 384 x 168 registers
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 65536, "setmaxnreg split");
+// Variants that probes/probe_stages.py builds to find what limits the
+// kernel (this design: kLeaveOut 0): 1 the copies alone (the consumers
+// wait for each stage and free it), 2 the copies and the conversions (no
+// products, nothing stored), 3 the copies and the products (A from
+// registers never loaded, no conversion; stored), 4 the products alone
+// (no copy, no wait: wgmma on whatever the ring holds; stored), 5 the
+// products alone, nothing stored.
+constexpr int kLeaveOut = 0;
+constexpr bool kCopies = kLeaveOut < 4;
+constexpr bool kConvert = kLeaveOut == 0 || kLeaveOut == 2;
+constexpr bool kProducts = kLeaveOut == 0 || kLeaveOut >= 3;
+constexpr bool kStores = kLeaveOut == 0 || kLeaveOut == 3 || kLeaveOut == 4;
+constexpr int kSmem = hw::kAtomBytes + kStages * kStageBytes + 2 * kStages * 8;
+static_assert(kSmem <= hw::kMaxSmem, "shared memory");
+static_assert(kStageBytes % hw::kAtomBytes == 0 && kABytes >= kARows * hw::kSwizzleBytes,
+              "stages on swizzle atoms");
 
 enum Mode { kDirect = 0, kShift = 1, kShiftNoZero = 2, kAligned = 3 };
 
@@ -66,168 +113,283 @@ __device__ __forceinline__ int row_shift(int mode, const int* s0, int b) {
   return s0[b] - 1;
 }
 
+// f32 pair -> bf16 pair, each rounded to nearest even; lo in the low half
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+__device__ __forceinline__ float mag2(float re, float im) {
+  return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
+
+struct DftParams {
+  const int* s0;
+  __nv_bfloat16* out;
+  int R, F, rows_out, G, tiles, nk, cols;
+  long long units;  // cols x tiles x groups
+};
+
 template <int kMode, bool kStacked>
-__global__ void __launch_bounds__(kThreads, 2)  // two blocks an SM: <= 128 registers
-dft_mag2_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wt,
-                const int* __restrict__ s0, __nv_bfloat16* __restrict__ out, int R, int hop,
-                int F, int rows_out, int G, int tiles) {
-  __shared__ __align__(16) uint8_t sA[2][kBM * kRow];
-  __shared__ __align__(16) uint8_t sB[2][2 * kBF * kRow];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 rows x (16 + 16)
-  const int f0 = blockIdx.x * kBF;
-  const int m0 = blockIdx.y * kBM;
-  const int group = blockIdx.z;
-  const int K = 2 * hop, kbytes = K * 2, nk = K / kStageK;
-  const int n_rows = kStacked ? G * R - 1 : R - 1;  // product rows of one pass
-  const float* xg = x + (long long)group * G * R * hop;
+__global__ void __launch_bounds__(kThreads, 1)
+dft_mag2_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w0,
+                const __grid_constant__ CUtensorMap map_w1, const DftParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((hw::kAtomBytes - (hw::smem_u32(smem_raw) & (hw::kAtomBytes - 1))) &
+                              (hw::kAtomBytes - 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
 
-  for (int pass = 0; pass < (kStacked ? 1 : G); ++pass) {
-    const float* xa = xg + (long long)pass * R * hop;  // the pass's first frame
-    float4 ra[kAVecs];
-    auto load_a = [&](int kt) {  // global f32 -> registers
-#pragma unroll
-      for (int u = 0; u < kAVecs; ++u) {
-        const int i = threadIdx.x + u * kThreads;
-        const int row = i >> 3, c4 = i & 7;
-        ra[u] = m0 + row < n_rows
-                    ? *reinterpret_cast<const float4*>(xa + (long long)(m0 + row) * hop +
-                                                       kt * kStageK + c4 * 4)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    };
-    auto store_a = [&](int stage) {  // registers -> bf16 shared memory
-#pragma unroll
-      for (int u = 0; u < kAVecs; ++u) {
-        const int i = threadIdx.x + u * kThreads;
-        const int row = i >> 3, c4 = i & 7;
-        uint2 v;
-        v.x = pack_bf16(ra[u].x, ra[u].y);
-        v.y = pack_bf16(ra[u].z, ra[u].w);
-        *reinterpret_cast<uint2*>(&sA[stage][row * kRow + c4 * 8]) = v;
-      }
-    };
-    auto load_b = [&](int kt, int stage) {  // Wt rows: 64 re, then 64 im
-      for (int i = threadIdx.x; i < 2 * kBF * 4; i += kThreads) {
-        const int row = i >> 2, c = (i & 3) * 16;
-        const int wrow = row < kBF ? f0 + row : F + f0 + row - kBF;
-        cp_async16(&sB[stage][row * kRow + c],
-                   wt + (long long)wrow * kbytes + kt * kStageK * 2 + c);
-      }
-      cp_async_commit();
-    };
+  const int R = p.R;
+  const int passes = kStacked ? 1 : p.G;
+  const int seg_rows = kStacked ? p.G * R - 1 : R - 1;  // product rows of a segment
+  // unit u: column block u % cols, row tile (u / cols) % tiles, group of G
+  // clips u / (cols tiles)
+  auto column = [&](long long u) { return (int)(u % p.cols) * kBF; };
+  auto tile = [&](long long u) { return (int)((u / p.cols) % p.tiles); };
+  auto group = [&](long long u) { return (int)(u / ((long long)p.cols * p.tiles)); };
 
-    // kShift: the first row tile zeroes the output rows whose source frame
-    // lies before the clip, the last tile those after its R - 1 frames
-    // (before the product, while no accumulator is live)
-    const bool first = blockIdx.y == 0, last = blockIdx.y == tiles - 1;
-    if (kMode == kShift && (first || last)) {
-      const int b = group * G + pass;
-      const int shift = row_shift(kMode, s0, b);
-      for (int i = threadIdx.x; i < rows_out * (kBF / 2); i += kThreads) {
-        const int j = i / (kBF / 2), f = f0 + (i % (kBF / 2)) * 2;
-        if ((first && j + shift < 0) || (last && j + shift > R - 2))
-          *reinterpret_cast<uint32_t*>(out + ((long long)b * rows_out + j) * F + f) = 0u;
-      }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      hw::mbar_init(&full[i], 1);
+      hw::mbar_init(&empty[i], kConsumerWarps);
     }
-    float acc[4][4][4] = {};  // [m tile][re 0-1, im 2-3][C regs]
-    load_a(0);
-    load_b(0, 0);
-    store_a(0);
-    cp_async_wait<0>();
-    __syncthreads();
-    for (int kt = 0; kt < nk; ++kt) {
-      const int st = kt & 1;
-      if (kt + 1 < nk) {
-        load_a(kt + 1);
-        load_b(kt + 1, st ^ 1);
-      }
-      const uint8_t* ta = sA[st] + (wm * 64) * kRow;
-      const uint8_t* tre = sB[st] + (wn * 16) * kRow;
-      const uint8_t* tim = sB[st] + (kBF + wn * 16) * kRow;
-#pragma unroll
-      for (int ks = 0; ks < kStageK / 16; ++ks) {
-        uint32_t af[4][4], bre[4], bim[4];
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi)
-          ldmatrix_x4(af[mi], a_frag_row(ta + mi * 16 * kRow + ks * 32, kRow, lane));
-        ldmatrix_x4(bre, b_frag_row(tre + ks * 32, kRow, lane));
-        ldmatrix_x4(bim, b_frag_row(tim + ks * 32, kRow, lane));
-#pragma unroll
-        for (int mi = 0; mi < 4; ++mi) {
-          MmaBf16::mma(acc[mi][0], af[mi], bre);
-          MmaBf16::mma(acc[mi][1], af[mi], bre + 2);
-          MmaBf16::mma(acc[mi][2], af[mi], bim);
-          MmaBf16::mma(acc[mi][3], af[mi], bim + 2);
+    hw::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = hw::warpgroup();
+  if (wg == 0) {  // ---- the loader: one thread issues every copy -----------
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == 0 && kCopies) {
+      int stage = 0;
+      unsigned phase = 0;
+      for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x) {
+        const int f0 = column(unit);
+        for (int pass = 0; pass < passes; ++pass) {
+          // the tile's first wave row: clip group * G + pass's, or the group's
+          const int row0 = (group(unit) * p.G + (kStacked ? 0 : pass)) * R + tile(unit) * kBM;
+          for (int kt = 0; kt < p.nk; ++kt) {
+            hw::mbar_wait(&empty[stage], phase ^ 1);
+            hw::mbar_expect_tx(&full[stage], kStageTx);
+            uint8_t* st = ring + stage * kStageBytes;
+            hw::tma_load_3d(st, &map_x, kt * kStageK, row0, 0, &full[stage]);
+            // box i: half i / 4 (w0, w1), columns re low, re high, im low, im high
+            for (int i = 0; i < 8; ++i) {
+              const int half = i / 4, chunk = i % 4;
+              const int col = (chunk < 2 ? f0 : p.F + f0) + (chunk % 2) * kWBox;
+              uint8_t* dst = st + kABytes + half * kWHalf + chunk * kWChunk;
+              const CUtensorMap* map = half ? &map_w1 : &map_w0;
+              hw::tma_load_3d(dst, map, col, kt * kStageK, 0, &full[stage]);
+            }
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
         }
       }
-      if (kt + 1 < nk) {
-        store_a(st ^ 1);  // stage st ^ 1 was last read before the previous sync
-        cp_async_wait<0>();
-      }
-      __syncthreads();
     }
+  } else {  // ---- warpgroups 1 and 2: 64 frame rows each --------------------
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int cw = wg - 1, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, q = lane % 4;
+    const int lrow = cw * 64 + warp * 16 + g;  // this thread's first row in the tile
+    const uint32_t ring_u = hw::smem_u32(ring);
+    float acc[128];
+    uint32_t fa[2][4][4] = {};  // A fragments of a stage: [k-step: half 2 + ks][reg]
+    int stage = 0;
+    unsigned phase = 0;
 
-    // epilogue: |.|^2 in registers, each frame row to its output row
-    const int g = lane >> 2, t = lane & 3;
+    auto release = [&](int s) {  // this warp is done with stage s
+      hw::fence_proxy_async();   // its reads, before the copies that refill it
+      __syncwarp();
+      if (lane == 0) hw::mbar_arrive(&empty[s]);
+    };
+    // A fragments of half h, k-step ks: rows lrow + h (+8), samples
+    // 16 ks + 2q, +1 (regs 0, 1) and 16 ks + 8 + 2q, +1 (regs 2, 3)
+    auto load_a = [&](uint32_t (&a)[4][4], const uint8_t* sa) {
 #pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
+      for (int i = 0; i < 4; ++i) {
+        const int h = i / 2, ks = i % 2;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = lrow + h + 8 * (r & 1);
+          const int col = (16 * ks + 8 * (r >> 1) + 2 * q) * 4;  // bytes
+          const float2 v = *reinterpret_cast<const float2*>(sa + hw::swizzle128(row, col));
+          a[i][r] = bf16x2(v.x, v.y);
+        }
+      }
+    };
+
+    for (long long unit = blockIdx.x; unit < p.units; unit += gridDim.x)
+    for (int pass = 0; pass < passes; ++pass) {
+      const int f0 = column(unit), by = tile(unit), m0 = by * kBM;
+      const int clip0 = group(unit) * p.G + (kStacked ? 0 : pass);  // the segment's first clip
+      if constexpr (kMode == kShift) {
+        // the first row tile zeroes the output rows whose source frame lies
+        // before the clip, the last tile those after its R - 1 frames
+        const int shift = row_shift(kMode, p.s0, clip0);
+        const int t = threadIdx.x - 128;
+        auto zero = [&](int j0, int j1) {
+          for (int i = t; i < (j1 - j0) * (kBF / 2); i += 256) {
+            const int j = j0 + i / (kBF / 2), f = f0 + 2 * (i % (kBF / 2));
+            *reinterpret_cast<uint32_t*>(p.out + ((long long)clip0 * p.rows_out + j) * p.F +
+                                         f) = 0u;
+          }
+        };
+        if (by == 0) zero(0, max(0, min(p.rows_out, -shift)));
+        if (by == p.tiles - 1) zero(max(0, R - 1 - shift), p.rows_out);
+      }
+      int held = -1;
+      for (int kt2 = 0; kt2 < p.nk; kt2 += 2) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {  // fa[u] is read by this stage's products
+          const int kt = kt2 + u;
+          if constexpr (kCopies) hw::mbar_wait(&full[stage], phase);
+          const uint8_t* sa = ring + stage * kStageBytes;
+          if constexpr (kConvert) load_a(fa[u], sa);
+          if constexpr (kLeaveOut == 2) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int r = 0; r < 4; ++r) asm volatile("" ::"r"(fa[u][i][r]));
+          }
+          if constexpr (kProducts) {
+            const uint32_t wb = ring_u + stage * kStageBytes + kABytes;
+            hw::wgmma_fence();
+            hw::fence_operand(acc);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {  // half i / 2 against w0 / w1, k-step i % 2
+              const uint64_t db = hw::smem_desc(wb + (i / 2) * kWHalf + (i % 2) * 16 *
+                                                hw::kSwizzleBytes, kWChunk, hw::kSbo);
+              hw::wgmma_bf16_rs_n256<1>(acc, fa[u][i], db, (kt | i) ? 1u : 0u);
+            }
+            hw::wgmma_commit();
+            hw::wgmma_wait<1>();  // the stage before this one is read
+            hw::fence_operand(acc);
+          }
+          if (kCopies && held >= 0) release(held);
+          held = stage;
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      hw::wgmma_wait<0>();
+      hw::fence_operand(acc);
+      if constexpr (kCopies) release(held);
+      if constexpr (!kProducts) continue;
+      if constexpr (!kStores) {  // the sums kept live by a store no call takes
+        float t = 0.f;
+#pragma unroll
+        for (int i = 0; i < 128; ++i) t += acc[i];
+        if (p.rows_out < 0) reinterpret_cast<float*>(p.out)[threadIdx.x] = t;
+        continue;
+      }
+
+      // epilogue: |.|^2 in registers, each frame row to its output row.  A
+      // thread's word jj holds frequencies f0 + 8 jj + 2q, +1; lanes q and
+      // q ^ 1 (one row) trade a word so that each stores 8 bytes: even q
+      // frequencies 8 jj + 2q .. +3, odd q 8 (jj + 1) + 2q - 2 .. +3, and
+      // each store instruction fills whole 32-byte sectors.
+      const bool odd = q & 1;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int s = m0 + wm * 64 + mi * 16 + g + 8 * h;
-        if (s >= n_rows) continue;
-        const int clip = kStacked ? s / R : pass;
-        const int r = kStacked ? s - clip * R : s;
-        if (r >= R - 1) continue;  // a stacked seam row
-        const int b = group * G + clip;
-        const int j = r - row_shift(kMode, s0, b);
-        if (j < 0 || j >= rows_out) continue;
+        const int s = m0 + lrow + 8 * h;  // the row in the segment
+        const int c = kStacked ? s / R : 0;
+        const int r = s - c * R;
+        const int b = clip0 + c;
+        // past the segment or a stacked seam row: not written
+        bool ok = s < seg_rows && r < R - 1;
+        const int j = ok ? r - row_shift(kMode, p.s0, b) : -1;
+        ok = ok && j >= 0 && j < p.rows_out;
+        __nv_bfloat16* o = p.out + ((long long)b * p.rows_out + j) * p.F + f0 + 2 * (q & 2);
 #pragma unroll
-        for (int nj = 0; nj < 2; ++nj) {
-          const float re0 = acc[mi][nj][2 * h], re1 = acc[mi][nj][2 * h + 1];
-          const float im0 = acc[mi][nj + 2][2 * h], im1 = acc[mi][nj + 2][2 * h + 1];
-          const float v0 = __fadd_rn(__fmul_rn(re0, re0), __fmul_rn(im0, im0));
-          const float v1 = __fadd_rn(__fmul_rn(re1, re1), __fmul_rn(im1, im1));
-          const int f = f0 + wn * 16 + nj * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(out + ((long long)b * rows_out + j) * F + f) =
-              pack_bf16(v0, v1);
+        for (int jj = 0; jj < kBF / 8; jj += 2) {
+          uint32_t w[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * (jj + e) + 2 * h;
+            w[e] = bf16x2(mag2(acc[i], acc[kImReg + i]), mag2(acc[i + 1], acc[kImReg + i + 1]));
+          }
+          const uint32_t got = __shfl_xor_sync(0xffffffffu, odd ? w[0] : w[1], 1);
+          if (ok)
+            *reinterpret_cast<uint2*>(o + 8 * (jj + odd)) =
+                odd ? make_uint2(got, w[1]) : make_uint2(w[0], got);
         }
       }
+    }
   }
 }
 
 template <int kMode, bool kStacked>
-int launch(const void* x, const void* wt, const void* s0, void* out, int B, int R, int hop,
-           int F, int rows_out, int G, cudaStream_t stream) {
-  const int rows = kStacked ? G * R - 1 : R - 1;
-  const int tiles = (rows + kBM - 1) / kBM;
-  const dim3 grid(F / kBF, tiles, B / G);
-  dft_mag2_kernel<kMode, kStacked><<<grid, kThreads, 0, stream>>>(
-      (const float*)x, (const uint8_t*)wt, (const int*)s0, (__nv_bfloat16*)out, R, hop, F,
-      rows_out, G, tiles);
+int launch(const CUtensorMap& mx, const CUtensorMap& m0, const CUtensorMap& m1,
+           const DftParams& p, int blocks, cudaStream_t stream) {
+  static bool sized = false;  // ask once for the dynamic shared memory
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(dft_mag2_kernel<kMode, kStacked>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kSmem);
+    if (e != cudaSuccess) return (int)e;
+    sized = true;
+  }
+  dft_mag2_kernel<kMode, kStacked><<<blocks, kThreads, kSmem, stream>>>(mx, m0, m1, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// x3 [B][R][hop] f32, wt = [w0; w1]^T [2F][2 hop] bf16, s0 [B] int32 (modes
-// 1-3; may be null in mode 0), out [B][rows_out][F] bf16.  hop a multiple of
-// 16, F of 64, B of G; stacked in mode 0 only; 16-byte aligned pointers.
-extern "C" int pcaudio_probe_dft_mag2(const void* x, const void* wt, const void* s0, void* out,
-                                      int B, int R, int hop, int F, int rows_out, int G,
-                                      int stacked, int mode, void* stream) {
-  if (B < 1 || R < 2 || hop < 16 || hop % 16 || F < kBF || F % kBF || rows_out < 1 ||
-      G < 1 || B % G || mode < kDirect || mode > kAligned || (mode != kDirect && !s0) ||
-      (stacked && mode != kDirect) || (mode == kDirect && rows_out > R - 1) ||
-      ((uintptr_t)x | (uintptr_t)wt | (uintptr_t)out) % 16)
+// x3 [B][R][hop] f32, w0 and w1 [hop][2F] bf16, s0 [B] int32 (modes 1-3;
+// may be null in mode 0), out [B][rows_out][F] bf16.  hop a multiple of
+// 64, F of 128, B of G; stacked in mode 0 only; 16-byte aligned pointers;
+// `blocks` persistent blocks (ops/kernels/featurize_probes.py::dft_plan:
+// one an SM, at most one a unit).
+extern "C" int pcaudio_probe_dft_mag2(const void* x, const void* w0, const void* w1,
+                                      const void* s0, void* out, int B, int R, int hop, int F,
+                                      int rows_out, int G, int stacked, int mode, int blocks,
+                                      void* stream) {
+  if (B < 1 || R < 2 || hop < 2 * kStageK || hop % (2 * kStageK) || F < kBF || F % kBF ||
+      rows_out < 1 || G < 1 || B % G || mode < kDirect || mode > kAligned ||
+      (mode != kDirect && !s0) || (stacked && mode != kDirect) ||
+      (mode == kDirect && rows_out > R - 1) || (long long)B * R > (1LL << 31) - 1 ||
+      blocks < 1 ||
+      ((uintptr_t)x | (uintptr_t)w0 | (uintptr_t)w1 | (uintptr_t)out) % 16)
     return (int)cudaErrorInvalidValue;
+  const int seg_rows = stacked ? G * R - 1 : R - 1;
+  const int tiles = (seg_rows + kBM - 1) / kBM;
+  CUtensorMap mx, mw0, mw1;
+  const cuuint64_t x_dims[3] = {(cuuint64_t)hop, (cuuint64_t)B * R, 1};
+  const cuuint64_t x_strides[2] = {(cuuint64_t)hop * 4, (cuuint64_t)B * R * hop * 4};
+  const cuuint32_t x_box[3] = {kStageK, kARows, 1};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)2 * F, (cuuint64_t)hop, 1};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)2 * F * 2, (cuuint64_t)hop * 2 * F * 2};
+  const cuuint32_t w_box[3] = {kWBox, kStageK, 1};
+  if (!hw::tensor_map_3d(&mx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, x_dims, x_strides, x_box) ||
+      !hw::tensor_map_3d(&mw0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w0, w_dims, w_strides, w_box) ||
+      !hw::tensor_map_3d(&mw1, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w1, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
+  DftParams p{};
+  p.s0 = static_cast<const int*>(s0);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.R = R;
+  p.F = F;
+  p.rows_out = rows_out;
+  p.G = G;
+  p.tiles = tiles;
+  p.nk = hop / kStageK;
+  p.cols = F / kBF;
+  p.units = (long long)p.cols * tiles * (B / G);
+  blocks = (int)(blocks < p.units ? blocks : p.units);
   const auto st = (cudaStream_t)stream;
-  if (stacked) return launch<kDirect, true>(x, wt, s0, out, B, R, hop, F, rows_out, G, st);
+  if (stacked) return launch<kDirect, true>(mx, mw0, mw1, p, blocks, st);
   switch (mode) {
-    case kDirect: return launch<kDirect, false>(x, wt, s0, out, B, R, hop, F, rows_out, G, st);
-    case kShift: return launch<kShift, false>(x, wt, s0, out, B, R, hop, F, rows_out, G, st);
-    case kShiftNoZero:
-      return launch<kShiftNoZero, false>(x, wt, s0, out, B, R, hop, F, rows_out, G, st);
-    default: return launch<kAligned, false>(x, wt, s0, out, B, R, hop, F, rows_out, G, st);
+    case kDirect: return launch<kDirect, false>(mx, mw0, mw1, p, blocks, st);
+    case kShift: return launch<kShift, false>(mx, mw0, mw1, p, blocks, st);
+    case kShiftNoZero: return launch<kShiftNoZero, false>(mx, mw0, mw1, p, blocks, st);
+    default: return launch<kAligned, false>(mx, mw0, mw1, p, blocks, st);
   }
 }

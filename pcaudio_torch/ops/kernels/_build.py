@@ -47,7 +47,7 @@ _SIGNATURES = {
     "pcaudio_probe_int16_gram": [_P, _P, _I, _I, _P],
     "pcaudio_probe_wave_sums": [_P, _P, _I, _I, _I, _P],
     "pcaudio_probe_relayout": [_P, _P] + [_I] * 5 + [_P],
-    "pcaudio_probe_dft_mag2": [_P] * 4 + [_I] * 8 + [_P],
+    "pcaudio_probe_dft_mag2": [_P] * 5 + [_I] * 9 + [_P],
 }
 
 

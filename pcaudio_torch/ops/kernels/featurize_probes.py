@@ -14,6 +14,7 @@ behind K3's design questions, each beside its plain PyTorch version.
                    (``k_matmul``, ``k_matmul_f``, ``k_scratch``, ``k_full``,
                    ``k_nozero``): the DFT of K3 as one bf16 product a clip,
                    |·|² in the epilogue, rows shifted per clip
+                   (:func:`dft_plan` is the kernel's tiling in Python)
 
 CPU tensors take the plain versions; CUDA tensors the kernels, never a
 fallback.  The plain versions compute in f32 (the card's TF32 off).
@@ -23,15 +24,18 @@ P8 and P9 are held to; the other probes are exact on their check inputs
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from pcaudio_torch.ops.kernels import _build
-from pcaudio_torch.ops.kernels.probes import U32
+from pcaudio_torch.ops.kernels.probes import U32, sm_count
 
 PCM_SCALE = 1.0 / 32768.0   # int16 PCM → [-1, 1): a power of two, exact
 LANES = 128                 # P7's chunk lane block
-DFT_BF = 64                 # dft_mag2's frequencies a block (F a multiple)
+DFT_BF = 128                # dft_mag2's frequencies a block (F a multiple)
 DFT_BM = 128                # dft_mag2's frame rows a block
+DFT_STAGE_K = 32            # samples of the hop a stage (hop a multiple of 2×)
 GRAM_MAX_L = 4096           # int16_gram stages one row in shared memory
 BF16_U = 2.0 ** -8          # bf16 unit roundoff
 # dft_mag2's row modes: the source frame of output row j of clip b is
@@ -274,6 +278,70 @@ def dft_mag2_bound(x3, w0, w1, C, Nt, mode="direct", s0=None):
     return select_frames(tol, x3, C, Nt, mode, s0).reshape(x3.shape[0], C, Nt, -1)
 
 
+@dataclass(frozen=True)
+class DftPlan:
+    """``csrc/probe_featurize.cu``'s tiling of one call.  A unit is one
+    (column block bx, row tile by, group bz of G clips), numbered u = (bz ·
+    tiles + by) · cols + bx; persistent block b runs units b, b + blocks,
+    ….  A unit runs ``passes`` segments one after another: each of its G
+    clips, or, stacked, the G clips as one row space.  A segment's product
+    row s is frame s mod R of clip s // R of the segment, computed from
+    wave rows s and s + 1 of the segment (x3 viewed as [B·R, hop] rows),
+    and written where it is a frame (s mod R < R − 1, s < ``seg_rows``)."""
+    B: int
+    R: int
+    hop: int
+    F: int
+    G: int
+    stacked: bool
+    seg_rows: int   # product rows of a segment: G·R − 1 stacked, else R − 1
+    tiles: int      # row tiles of DFT_BM a segment needs
+    units: tuple    # (cols = F / DFT_BF, tiles, groups = B / G)
+    blocks: int     # persistent blocks: one an SM, at most one a unit
+    passes: int     # segments a unit runs one after another
+    nk: int         # stages of DFT_STAGE_K samples a pass
+
+    def block_units(self, b):
+        """The units block ``b`` runs, in order, as (bx, by, bz)."""
+        cols, tiles, groups = self.units
+        return [(u % cols, u // cols % tiles, u // (cols * tiles))
+                for u in range(b, cols * tiles * groups, self.blocks)]
+
+
+def dft_plan(B, R, hop, F, G=1, stacked=False, mode="direct", sms=132):
+    """The kernel's plan for ``x3 [B, R, hop]``, ``F`` frequencies, ``G``
+    clips a unit, on ``sms`` SMs; raises ``ValueError`` naming the limit
+    for what its tiles do not take."""
+    if (F < DFT_BF or F % DFT_BF or hop < 2 * DFT_STAGE_K or hop % (2 * DFT_STAGE_K)
+            or G < 1 or B % G or R < 2 or (stacked and mode != "direct")):
+        raise ValueError(
+            f"the kernel takes F a multiple of {DFT_BF} (got {F}), hop a multiple of "
+            f"{2 * DFT_STAGE_K} (got {hop}), B = {B} a multiple of G = {G}, and "
+            f"stacked rows in direct mode only")
+    seg_rows = G * R - 1 if stacked else R - 1
+    tiles = -(-seg_rows // DFT_BM)
+    if B * R >= 2 ** 31:
+        raise ValueError(f"the kernel takes B·R < 2^31 wave rows, got {B * R}")
+    units = (F // DFT_BF, tiles, B // G)
+    return DftPlan(B, R, hop, F, G, bool(stacked), seg_rows, tiles, units,
+                   min(sms, units[0] * units[1] * units[2]), 1 if stacked else G,
+                   hop // DFT_STAGE_K)
+
+
+def dft_tile_rows(plan, by, bz, pass_=0):
+    """What unit (·, ``by``, ``bz``) computes in pass ``pass_``: the flat
+    wave row of its wave box's first row (the box holds rows row0 …
+    row0 + DFT_BM, zeros past B·R), and, for each of its DFT_BM product
+    rows, the clip, the frame and whether it is a frame the kernel writes
+    (the epilogue's rule), as ``[DFT_BM]`` tensors."""
+    seg = bz * plan.G + (0 if plan.stacked else pass_)   # the segment's first clip
+    s = by * DFT_BM + torch.arange(DFT_BM)              # rows in the segment
+    c = s // plan.R if plan.stacked else torch.zeros_like(s)
+    r = s - c * plan.R
+    frame = (s < plan.seg_rows) & (r < plan.R - 1)
+    return seg * plan.R + by * DFT_BM, seg + c, r, frame
+
+
 def dft_mag2(x3, w0, w1, C, Nt, mode="direct", s0=None, G=1, stacked=False):
     """K3's DFT core, as the TPU probes P8 and P9 run it: ``x3 [B, R, hop]``
     f32 waves (frame r is ``[x[r], x[r+1]]``), ``w0, w1 [hop, 2F]`` bf16 →
@@ -283,33 +351,30 @@ def dft_mag2(x3, w0, w1, C, Nt, mode="direct", s0=None, G=1, stacked=False):
     which only the plain version checks: a check on the card would wait for
     it, and the kernel bounds every row whatever s0 holds).
 
-    On the card one ``mma.sync`` bf16 GEMM a (clip, 128 rows, 64
-    frequencies) tile, f32 → bf16 rounded in the kernel, re and im paired in
-    registers and |·|² formed there.  ``G`` clips go to one block: one
-    after another (per-clip tiles), or with ``stacked`` as one row space
-    over the G clips' frames (direct mode only), whose seam frames are
-    computed and not written.  B must be a multiple of G, F of 64 and hop
-    of 16.  CPU tensors take :func:`dft_mag2_plain` (G and stacked only
-    change the kernel's blocking)."""
+    On the card one persistent ``wgmma`` kernel (:func:`dft_plan`): a unit
+    is 128 frame rows × 128 frequencies (re and im as one 256-column B
+    tile, paired in registers, |·|² formed there), the wave by one TMA box
+    a stage for both halves of the frame, rounded to bf16 in registers, w0
+    and w1 by TMA as they lie.  ``G`` clips go to one unit: one after
+    another (per-clip tiles), or with ``stacked`` as one row space over the
+    G clips' frames (direct mode only), whose seam frames are computed and
+    not written.  B must be a multiple of G, F of 128 and hop of 64.  CPU
+    tensors take :func:`dft_mag2_plain` (G and stacked only change the
+    kernel's blocking)."""
     if x3.device.type == "cpu":
         return dft_mag2_plain(x3, w0, w1, C, Nt, mode, s0)
     _check_dft(x3, w0, w1, C, Nt, mode, s0)
     B, R, hop = x3.shape
     F = w0.shape[1] // 2
-    if F % DFT_BF or hop % 16 or G < 1 or B % G or (stacked and mode != "direct"):
-        raise ValueError(f"the kernel takes F a multiple of {DFT_BF} (got {F}), hop "
-                         f"of 16 (got {hop}), B = {B} a multiple of G = {G}, and "
-                         f"stacked rows in direct mode only")
+    plan = dft_plan(B, R, hop, F, G, stacked, mode, sm_count(x3.get_device()))
     _cuda_contiguous(x3, w0, w1)
     if s0 is not None:
         _cuda_contiguous(s0)
-    # [w0; w1] transposed: [2F, 2·hop], K contiguous, the tensor-core B
-    wt = torch.cat([w0, w1]).t().contiguous()
     out = torch.empty((B, C, Nt, F), dtype=torch.bfloat16, device=x3.device)
     s0_ptr = s0.data_ptr() if s0 is not None else None
-    _build.launch("pcaudio_probe_dft_mag2", x3.data_ptr(), wt.data_ptr(), s0_ptr,
-                  out.data_ptr(), B, R, hop, F, C * Nt, G, int(stacked),
-                  DFT_MODES.index(mode), _build.stream_of(x3))
+    _build.launch("pcaudio_probe_dft_mag2", x3.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+                  s0_ptr, out.data_ptr(), B, R, hop, F, C * Nt, G, int(stacked),
+                  DFT_MODES.index(mode), plan.blocks, _build.stream_of(x3))
     dft_mag2.launches += 1
     return out
 
@@ -318,7 +383,7 @@ dft_mag2.launches = 0
 
 
 def dft_rows_per_block(R, G, stacked):
-    """The frame rows one block's tiles span: (tiles, rows computed, rows
+    """The frame rows one unit's tiles span: (tiles, rows computed, rows
     of useful frames), for the tile-waste account of P8."""
     rows = G * R - 1 if stacked else R - 1
     tiles = -(-rows // DFT_BM)

@@ -24,7 +24,6 @@ import torch
 from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.ops.kernels.featurize_probes import (
     dft_mag2, dft_mag2_bound, dft_mag2_plain, dft_rows_per_block, select_frames)
-from pcaudio_torch.ops.kernels.probes import MMA_BF16
 from pcaudio_torch.probes.timing import Case, measure, tf32_off
 
 SOURCE = "pcaudio_torch/csrc/probe_featurize.cu"
@@ -32,6 +31,8 @@ REPLACES = {False: "scripts/probe_featurize_blockc.py:78",
             True: "scripts/probe_featurize_blockc.py:93"}
 B, L = 1024, 220672
 N_FFT, HOP, NT = 1024, 512, 10
+INSTRUCTION = ("wgmma.mma_async.m64n256k16.f32.bf16.bf16, A from registers (one f32 TMA "
+               "box a stage for both halves; persistent blocks)")
 F = N_FFT // 2
 R = L // HOP
 C = (1 + R) // NT
@@ -67,13 +68,15 @@ def work(x3, w0, written=None):
 
 
 def case(name, kernel, plain, bound, replaces, x3, w0, written=None, library_call=None,
-         check=None):
+         check=None, args=()):
+    """``args``: ``dft_mag2``'s (x3, w0, w1, C, Nt, mode, s0, G, stacked),
+    for another design of the kernel."""
     ops, nbytes = work(x3, w0, written)
-    return Case(name, kernel, plain, bound, dft_mag2, SOURCE, replaces, MMA_BF16,
+    return Case(name, kernel, plain, bound, dft_mag2, SOURCE, replaces, INSTRUCTION,
                 ops=ops, nbytes=nbytes, library=library_call,
                 library_note="x → bf16, 2 bf16 torch.matmul, re² + im², rows → bf16 "
                              "(a composite of calls)",
-                iters=10, plain_iters=1, check=check)
+                iters=10, plain_iters=1, check=check, args=args)
 
 
 def cases(dev, gen, batch=B):
@@ -83,7 +86,8 @@ def cases(dev, gen, batch=B):
     lib = library(x3, w0, w1)
     return [case(f"G={G} {'stacked' if st else 'unrolled'}",
                  lambda G=G, st=st: dft_mag2(x3, w0, w1, C, NT, G=G, stacked=st),
-                 plain, bound, REPLACES[st], x3, w0, library_call=lib)
+                 plain, bound, REPLACES[st], x3, w0, library_call=lib,
+                 args=(x3, w0, w1, C, NT, "direct", None, G, st))
             for G, st in FORMS]
 
 

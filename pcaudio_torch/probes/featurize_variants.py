@@ -72,7 +72,8 @@ def cases(dev, gen, batch=B):
             name, kernel, plain, lambda ref, mode=mode: dft_mag2_bound(x3, w0, w1, C, NT,
                                                                        mode, s0),
             replaces, x3, w0, written=written, library_call=library(x3, w0, w1, mode, s0),
-            check=(lambda kernel=kernel, written=written: masked(kernel(), written), plain)))
+            check=(lambda kernel=kernel, written=written: masked(kernel(), written), plain),
+            args=(x3, w0, w1, C, NT, mode, s0, 1, False)))
     return out
 
 

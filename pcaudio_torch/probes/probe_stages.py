@@ -1,20 +1,30 @@
-"""The two probe kernels redesigned for Hopper (``csrc/probe_mma.cu``'s
-windowed GEMM, P1 and P2; ``csrc/probe_attend.cu``'s v6 attend, P3) beside
-the earlier ``mma.sync`` design, on the card, in one process.
+"""The probe kernels redesigned for Hopper (``csrc/probe_mma.cu``'s
+windowed GEMM, P1 and P2; ``csrc/probe_attend.cu``'s v6 attend, P3;
+``csrc/probe_featurize.cu``'s DFT, P8 and P9) beside their earlier
+``mma.sync`` design, on the card, in one process.
 
-The earlier sources (``--old-mma-source``, ``--old-attend-source``; by
-default ``probes/earlier/``, the ``mma.sync`` design as of git ``1bc6fde``)
-are each built as their own shared library into ``build/probe_stages/``,
-while the main library builds, and launched as their wrapper was (B
-transposed a call, ``per`` repeats a block; 16 groups of attend steps).
-At every shape of P1, P2a-c and P3 the script holds both designs against
-the plain version, then times plain, old, new, new, old, plain and the
-library call (CUDA events), and prints each beside the bound, TFLOP/s and
-% of the peak.
+The earlier sources (``--old-mma-source``, ``--old-attend-source``,
+``--old-dft-source``; by default ``probes/earlier/``, the ``mma.sync``
+designs as of git ``1bc6fde`` and, for the DFT, ``785c6d4``) are each
+built as their own shared library into ``build/probe_stages/``, while the
+main library builds, and launched as their wrapper was (B transposed a
+call, ``per`` repeats a block; 16 groups of attend steps; W concatenated
+and transposed a call).  At every shape of P1, P2a-c, P3, P8 (seven forms)
+and P9 (five variants) the script holds both designs against the plain
+version (P9 on the rows a variant writes), then times plain, old, new,
+new, old, plain and the library call (CUDA events), and prints each beside
+the bound, TFLOP/s and % of the peak.
 
 ``--attend-stages``: P3 as built and with parts of it left out (the
 copies and conversions alone, the copies and products, the conversions
 and products), each a library of its own: what limits the attend.
+
+``--dft-stages``: the DFT kernel as built and with parts of it left out
+or scheduled otherwise (``DFT_VARIANTS``), each a library of its own, at
+P8's G = 1 unrolled and G = 8 stacked forms and P9's v0, then the SM clock
+and power draw (``nvidia-smi``) under the kernel on the probe's data and
+on zeros, under its products alone, and under P2b's bf16 GEMM: what
+limits the DFT.
 
 ``--host``: where one P1 call's host time goes.  Each piece of the launch
 path (the wrapper's checks, the plan, the output's allocation, the stream
@@ -27,9 +37,10 @@ launch at the FST step's MAB0 attend with the stream looked up as before
 slows later launches), P1's device time a call, new and earlier.
 
     python -m pcaudio_torch.probes.probe_stages [--host] [--attend-stages]
-        [--old-mma-source PATH] [--old-attend-source PATH]
+        [--dft-stages] [--old-mma-source PATH] [--old-attend-source PATH]
+        [--old-dft-source PATH]
 
-(about 90 s on the card with its builds).
+(about 120 s on the card with its builds).
 """
 from __future__ import annotations
 
@@ -42,7 +53,9 @@ from pathlib import Path
 import torch
 
 from pcaudio_torch.ops.kernels import _build, probes
-from pcaudio_torch.probes import batched_dot, int8_attend, int8_matmul
+from pcaudio_torch.ops.kernels.featurize_probes import DFT_MODES, dft_plan, dft_written
+from pcaudio_torch.probes import (
+    batched_dot, featurize_blockc, featurize_variants, int8_attend, int8_matmul)
 from pcaudio_torch.probes.k2_stages import apply_edits
 from pcaudio_torch.probes.timing import (
     PEAK_OPS_PER_S, abs_err, bound_ms, card, cuda_ms, tf32_off)
@@ -53,9 +66,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 OLD_MATMUL_ARGS = [_P, _L, _P, _L, _P, _L] + [_I] * 8 + [_P]
 OLD_ATTEND_ARGS = [_P] * 5 + [_I] * 5 + [_P]
 OLD_ATTEND_GROUPS = 16
+OLD_DFT_ARGS = [_P] * 4 + [_I] * 8 + [_P]
+DFT_ARGS = [_P] * 5 + [_I] * 9 + [_P]
 EARLIER = Path(__file__).resolve().parent / "earlier"
 EARLIER_MMA = str(EARLIER / "probe_mma.cu")
 EARLIER_ATTEND = str(EARLIER / "probe_attend.cu")
+EARLIER_DFT = str(EARLIER / "probe_featurize.cu")
 
 
 def per_call_us(fn, calls: int = CALLS) -> float:
@@ -69,24 +85,31 @@ def per_call_us(fn, calls: int = CALLS) -> float:
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def start_old_builds(mma_source=EARLIER_MMA, attend_source=EARLIER_ATTEND) -> dict:
+def start_build(name: str, text: str, entry: str, args: list,
+                headers=("common.cuh", "mma.cuh")) -> tuple:
+    """Start ``nvcc`` on the source ``text`` into its own library under
+    ``OUT / name`` (with today's ``headers`` beside it), without waiting."""
+    d = OUT / name
+    d.mkdir(parents=True, exist_ok=True)
+    for header in headers:
+        (d / header).write_text((_build.CSRC / header).read_text())
+    (d / "src.cu").write_text(text)
+    return (d / "lib.so", entry, args, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+         str(d / "src.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+
+def start_old_builds(mma_source=EARLIER_MMA, attend_source=EARLIER_ATTEND,
+                     dft_source=EARLIER_DFT) -> dict:
     """Start ``nvcc`` on the earlier design's sources, each into its own
     library, without waiting (:func:`finish_old_builds` collects them)."""
     jobs = {}
     for name, src, entry, args in (
             ("old_mma", mma_source, "pcaudio_probe_matmul", OLD_MATMUL_ARGS),
-            ("old_attend", attend_source, "pcaudio_probe_attend", OLD_ATTEND_ARGS)):
-        if src is None:
-            continue
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        for header in ("common.cuh", "mma.cuh"):
-            (d / header).write_text((_build.CSRC / header).read_text())
-        (d / "src.cu").write_text(open(src).read())
-        jobs[name] = (d / "lib.so", entry, args, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "src.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+            ("old_attend", attend_source, "pcaudio_probe_attend", OLD_ATTEND_ARGS),
+            ("old_dft", dft_source, "pcaudio_probe_dft_mag2", OLD_DFT_ARGS)):
+        if src is not None:
+            jobs[name] = start_build(name, open(src).read(), entry, args)
     return jobs
 
 
@@ -143,6 +166,21 @@ def old_attend(fn, iq, kmat, mode, pairs, keys, steps):
     return out
 
 
+def old_dft(fn, x3, w0, w1, C, Nt, mode="direct", s0=None, G=1, stacked=False):
+    """The earlier wrapper (``785c6d4``'s ``dft_mag2``): ``[w0; w1]``
+    concatenated and transposed on every call, one entry point."""
+    B, R, hop = x3.shape
+    F = w0.shape[1] // 2
+    wt = torch.cat([w0, w1]).t().contiguous()
+    out = torch.empty((B, C, Nt, F), dtype=torch.bfloat16, device=x3.device)
+    code = fn(x3.data_ptr(), wt.data_ptr(), s0.data_ptr() if s0 is not None else None,
+              out.data_ptr(), B, R, hop, F, C * Nt, G, int(stacked), DFT_MODES.index(mode),
+              _build.stream_of(x3))
+    if code:
+        raise RuntimeError(f"the earlier pcaudio_probe_dft_mag2 failed ({code})")
+    return out
+
+
 def rate(work: float, ms: float, kind: str) -> str:
     """``work`` operations of type ``kind`` in ``ms``: the rate and its
     share of the card's peak."""
@@ -156,9 +194,9 @@ def compare(dev, old: dict, where: str) -> None:
     plain version, then timed in turns."""
     gen = torch.Generator(dev).manual_seed(0)
     with tf32_off():
-        for name, new, old_call, plain, bound, ops, nbytes, lib, fam, iters, p_iters in (
-                _matmul_cases(dev, gen) + _attend_cases(dev, gen)):
-            fn = old.get("old_mma" if fam == "mma" else "old_attend")
+        for (name, new, old_call, plain, bound, ops, nbytes, lib, fam, iters, p_iters,
+             post) in _matmul_cases(dev, gen) + _attend_cases(dev, gen) + _dft_cases(dev, gen):
+            fn = old.get("old_" + fam)
             old_fn = (lambda fn=fn, old_call=old_call: old_call(fn)) if fn else None
             ref = plain()
             tol = torch.as_tensor(bound(ref), dtype=torch.float32, device=ref.device)
@@ -166,7 +204,7 @@ def compare(dev, old: dict, where: str) -> None:
             for tag, f in (("new", new), ("old", old_fn)):
                 if f is None:
                     continue
-                err = abs_err(f(), ref)
+                err = abs_err(post(f()) if post else f(), ref)
                 if bool((err > tol).any()):
                     raise AssertionError(f"{name}: the {tag} design is outside its bound "
                                          f"({err.max().item():.3e})")
@@ -188,6 +226,7 @@ def compare(dev, old: dict, where: str) -> None:
             parts.append("max |err| " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                          + f" (bound {tol.max().item():.3e})")
             print(f"[compare] {name}: " + "; ".join(parts) + f" ({where})")
+            del ref, tol
 
 
 def _matmul_cases(dev, gen):
@@ -197,15 +236,31 @@ def _matmul_cases(dev, gen):
         kind = kind or {"big": "P2b", "attend": "P2c"}[c.name.split()[0]]
         cases.append((f"{kind} {c.name}", c.kernel,
                       lambda fn, args=c.args: old_matmul(fn, *args), c.plain, c.bound,
-                      c.ops, c.nbytes, c.library, "mma", c.iters, c.plain_iters))
+                      c.ops, c.nbytes, c.library, "mma", c.iters, c.plain_iters, None))
     return cases
 
 
 def _attend_cases(dev, gen):
     return [(f"P3 attend {c.name}", c.kernel,
              lambda fn, args=c.args: old_attend(fn, *args), c.plain, c.bound, c.ops,
-             c.nbytes, c.library, "attend", c.iters, c.plain_iters)
+             c.nbytes, c.library, "attend", c.iters, c.plain_iters, None)
             for c in int8_attend.cases(dev, gen)]
+
+
+def _dft_cases(dev, gen):
+    """P8's seven forms and P9's five variants; P9's outputs compared on
+    the rows a variant writes (``dft_written``), the others zeroed."""
+    cases = []
+    for tag, c in ([("P8", c) for c in featurize_blockc.cases(dev, gen)]
+                   + [("P9", c) for c in featurize_variants.cases(dev, gen)]):
+        x3, _, _, C, Nt, mode, s0 = c.args[:7]
+        written = dft_written(x3, C, Nt, mode, s0)
+        post = (lambda out, written=written: featurize_variants.masked(out, written)
+                ) if tag == "P9" else None
+        cases.append((f"{tag} {c.name}", c.kernel,
+                      lambda fn, args=c.args: old_dft(fn, *args), c.plain, c.bound, c.ops,
+                      c.nbytes, c.library, "dft", c.iters, c.plain_iters, post))
+    return cases
 
 
 ATTEND_VARIANTS = {  # kLeaveOut of csrc/probe_attend.cu
@@ -231,24 +286,11 @@ def attend_stages(dev, where) -> None:
     """P3 as built and with parts left out (ATTEND_VARIANTS), each its own
     library, at the probe's shape in both modes: what limits the kernel.
     Only the whole is a right answer; the others time parts."""
-    procs = {}
-    for name, text in attend_variant_sources().items():
-        d = OUT / ("attend_" + name.replace(" ", "_").replace(",", ""))
-        d.mkdir(parents=True, exist_ok=True)
-        for header in ("common.cuh", "mma.cuh", "hopper.cuh"):
-            (d / header).write_text((_build.CSRC / header).read_text())
-        (d / "src.cu").write_text(text)
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "src.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    fns = {}
-    for name, (lib, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for attend variant {name}:\n{log[-3000:]}")
-        fn = ctypes.CDLL(str(lib)).pcaudio_probe_attend
-        fn.argtypes, fn.restype = OLD_ATTEND_ARGS, ctypes.c_int
-        fns[name] = fn
+    jobs = {name: start_build("attend_" + name.replace(" ", "_").replace(",", ""), text,
+                              "pcaudio_probe_attend", OLD_ATTEND_ARGS,
+                              ("common.cuh", "mma.cuh", "hopper.cuh"))
+            for name, text in attend_variant_sources().items()}
+    fns = finish_old_builds(jobs)
     gen = torch.Generator(dev).manual_seed(0)
     for c in int8_attend.cases(dev, gen):
         iq, kmat, mode, pairs, keys, steps = c.args
@@ -268,6 +310,191 @@ def attend_stages(dev, where) -> None:
         ms["whole (again)"] = cuda_ms(lambda: run(fns["whole"]), c.iters)
         print(f"[attend stages] {mode}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
               + f" ({where})")
+
+
+def _leave_out(v):
+    return [("constexpr int kLeaveOut = 0;", f"constexpr int kLeaveOut = {v};")]
+
+
+DFT_VARIANTS = {  # edits of csrc/probe_featurize.cu (kLeaveOut, or another schedule)
+    "whole": [],
+    "copies only": _leave_out(1),
+    "copies and conversions, no products": _leave_out(2),
+    "copies and products, no conversion": _leave_out(3),
+    "products only, no copies": _leave_out(4),
+    "products only, nothing stored": _leave_out(5),
+    # the products alone with A from shared memory (whatever the ring
+    # holds, K-major), against A from registers: what the RS form costs
+    "products only, A from shared memory": _leave_out(4) + [(
+        "hw::wgmma_bf16_rs_n256<1>(acc, fa[u][i], db, (kt | i) ? 1u : 0u);",
+        "hw::wgmma_bf16_ss_n256<1>(acc, hw::smem_desc(ring_u + stage * kStageBytes + cw * "
+        "8192 + (i % 2) * 32 + (i / 2) * 64, 16, hw::kSbo), db, (kt | i) ? 1u : 0u);")],
+    # each warpgroup waits for its stage's products and frees the stage at
+    # once: one stage held a warpgroup, not two, so one more in flight
+    # the proxy fence that orders a warp's reads of a stage before the
+    # copies that refill it, left out: what it costs
+    "whole, no proxy fence on release": [
+        ("hw::fence_proxy_async();   // its reads, before the copies that refill it", "")],
+    "whole, each stage freed after its own products": [
+        ("hw::wgmma_wait<1>();  // the stage before this one is read", "hw::wgmma_wait<0>();"),
+        ("if (kCopies && held >= 0) release(held);", "if (kCopies) release(stage);"),
+        ("if constexpr (kCopies) release(held);", "")],
+}
+DFT_STAGE_CASES = ("P8 G=1 unrolled", "P8 G=8 stacked", "P9 v0 matmul+sq (bf16 in)")
+
+
+def ptxas_lines(kernel: str) -> list:
+    """The main build's ptxas lines (registers, spills, C75xx notes) for
+    every instantiation of ``kernel`` (``build.log``)."""
+    lines, current = [], False
+    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = kernel in line
+            if current:
+                lines.append(f"ptxas {line.split(chr(39))[1][:100]}")
+        elif current and ("registers" in line or "spill" in line or "C75" in line):
+            lines.append(f"ptxas   {line.strip()[:160]}")
+    return lines
+
+
+def dft_variant_sources() -> dict:
+    """csrc/probe_featurize.cu with its variant constants set (k2_stages'
+    edits: each must apply)."""
+    text = (_build.CSRC / "probe_featurize.cu").read_text()
+    return {name: apply_edits(text, e, f"DFT variant {name!r}")
+            for name, e in DFT_VARIANTS.items()}
+
+
+# Wrong builds of csrc/probe_featurize.cu that the card tests feed the
+# probes' check (which must then fail): the last K stage's wave fragments
+# zeroed (its products dropped), and w0 and w1 swapped.
+DFT_WRONG = {
+    "one K stage dropped": [(
+        "load_a(fa[u], sa);",
+        "load_a(fa[u], sa);\n          if (kt == p.nk - 1)\n"
+        "            for (auto& k : fa[u]) for (auto& r : k) r = 0u;")],
+    "w0 and w1 swapped": [(
+        "const CUtensorMap* map = half ? &map_w1 : &map_w0;",
+        "const CUtensorMap* map = half ? &map_w0 : &map_w1;")],
+}
+
+
+def dft_wrong_sources() -> dict:
+    """csrc/probe_featurize.cu with each DFT_WRONG edit (each must apply)."""
+    text = (_build.CSRC / "probe_featurize.cu").read_text()
+    return {name: apply_edits(text, e, f"wrong DFT build {name!r}")
+            for name, e in DFT_WRONG.items()}
+
+
+def build_dft_sources(sources: dict, prefix: str) -> dict:
+    """Each DFT source of ``sources`` built into its own library at once;
+    their entry points by name."""
+    return finish_old_builds({
+        name: start_build(prefix + name.replace(" ", "_").replace(",", ""), text,
+                          "pcaudio_probe_dft_mag2", DFT_ARGS, ("hopper.cuh",))
+        for name, text in sources.items()})
+
+
+def dft_call(fn, x3, w0, w1, C, Nt, mode="direct", s0=None, G=1, stacked=False):
+    """``dft_mag2``'s launch through another build's entry point ``fn``."""
+    B, R, hop = x3.shape
+    F = w0.shape[1] // 2
+    plan = dft_plan(B, R, hop, F, G, stacked, mode, probes.sm_count(x3.get_device()))
+    out = torch.empty((B, C, Nt, F), dtype=torch.bfloat16, device=x3.device)
+    code = fn(x3.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+              s0.data_ptr() if s0 is not None else None, out.data_ptr(), B, R, hop, F,
+              C * Nt, G, int(stacked), DFT_MODES.index(mode), plan.blocks,
+              _build.stream_of(x3))
+    if code:
+        raise RuntimeError(f"a DFT build's pcaudio_probe_dft_mag2 failed ({code})")
+    return out
+
+
+def clocks_under_load(fn, seconds: float = 3.0) -> dict:
+    """``fn`` called back to back for ``seconds`` while ``nvidia-smi``
+    samples the card every 100 ms: the median SM clock (MHz), power draw
+    (W) and the calls' rate.  The sampler is stopped before returning."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100", "-i", "0"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0, calls = time.perf_counter(), 0
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(10):
+                fn()
+            calls += 10
+            torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        smi.terminate()
+        out = smi.communicate()[0]
+    samples = [tuple(float(v) for v in line.split(",")) for line in out.splitlines()
+               if line.count(",") == 1]
+    samples = samples[len(samples) // 4:]  # past the ramp
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no samples")
+    clk = sorted(c for c, _ in samples)
+    pwr = sorted(w for _, w in samples)
+    return {"sm_mhz": clk[len(clk) // 2], "watts": pwr[len(pwr) // 2],
+            "ms": elapsed / calls * 1e3, "samples": len(samples)}
+
+
+def dft_clocks(dev, fns, where) -> None:
+    """The SM clock and power under the DFT kernel (P8 G = 1 on the
+    probe's data and on zeros), its products alone, and P2b's bf16 GEMM."""
+    gen = torch.Generator(dev).manual_seed(0)
+    c8 = {c.name: c for c in featurize_blockc.cases(dev, gen)}["G=1 unrolled"]
+    x3, w0, w1 = c8.args[:3]
+    zeros = (torch.zeros_like(x3),) + c8.args[1:]
+    gemm = {c.name: c for c in int8_matmul.cases(dev, gen)}["big bf16"]
+    runs = {"DFT whole, the probe's data": lambda: dft_call(fns["whole"], *c8.args),
+            "DFT whole, a zero wave": lambda: dft_call(fns["whole"], *zeros),
+            "DFT products only (zeros)": lambda: dft_call(fns["products only, no copies"],
+                                                          *c8.args),
+            "P2b bf16 GEMM (integers in [-4, 4))": gemm.kernel}
+    for name, fn in runs.items():
+        r = clocks_under_load(fn)
+        print(f"[dft clocks] {name}: SM clock {r['sm_mhz']:.0f} MHz, power {r['watts']:.1f} W, "
+              f"{r['ms']:.4f} ms a call ({r['samples']} samples; {where})")
+
+
+def dft_stages(dev, where) -> None:
+    """The DFT kernel as built and with parts left out (DFT_VARIANTS), each
+    its own library, at DFT_STAGE_CASES: what limits the kernel.  The
+    whole is held against the plain version; the others time parts."""
+    fns = build_dft_sources(dft_variant_sources(), "dft_")
+    for line in ptxas_lines("dft_mag2_kernel"):
+        print(f"[dft stages] {line}")
+    gen = torch.Generator(dev).manual_seed(0)
+    with tf32_off():
+        for tag, mod in (("P8", featurize_blockc), ("P9", featurize_variants)):
+            for c in mod.cases(dev, gen):
+                name = f"{tag} {c.name}"
+                if name not in DFT_STAGE_CASES:
+                    continue
+                x3, _, _, C, Nt, mode, s0 = c.args[:7]
+                written = dft_written(x3, C, Nt, mode, s0)
+
+                def run(fn, args=c.args):
+                    return dft_call(fn, *args)
+                ref = c.plain()
+                tol = torch.as_tensor(c.bound(ref), dtype=torch.float32, device=dev)
+                for v, fn in fns.items():
+                    if v.startswith("whole"):
+                        err = abs_err(featurize_variants.masked(run(fn), written), ref)
+                        if bool((err > tol).any()):
+                            raise AssertionError(f"{name}: DFT variant {v!r} is outside its "
+                                                 f"bound ({err.max().item():.3e})")
+                del ref, tol
+                ms = {v: cuda_ms(lambda fn=fn: run(fn), c.iters) for v, fn in fns.items()}
+                ms["whole (again)"] = cuda_ms(lambda: run(fns["whole"]), c.iters)
+                print(f"[dft stages] {name}: " + "; ".join(
+                    f"{k} {v:.4f} ms" + (f" ({rate(c.ops['bf16'], v, 'bf16')})"
+                                         if k.startswith("whole") else "")
+                    for k, v in ms.items()) + f" ({where})")
+    dft_clocks(dev, fns, where)
 
 
 def host_split(dev, old: dict) -> dict:
@@ -361,10 +588,14 @@ def main(argv=None):
     ap.add_argument("--host", action="store_true", help="split one P1 call's host time")
     ap.add_argument("--attend-stages", action="store_true",
                     help="time P3 with parts left out (ATTEND_VARIANTS)")
+    ap.add_argument("--dft-stages", action="store_true",
+                    help="time the DFT with parts left out and other clusters (DFT_VARIANTS)")
     ap.add_argument("--old-mma-source", default=EARLIER_MMA,
                     help="an earlier csrc/probe_mma.cu (default: probes/earlier/)")
     ap.add_argument("--old-attend-source", default=EARLIER_ATTEND,
                     help="an earlier csrc/probe_attend.cu (default: probes/earlier/)")
+    ap.add_argument("--old-dft-source", default=EARLIER_DFT,
+                    help="an earlier csrc/probe_featurize.cu (default: probes/earlier/)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("probe_stages needs an NVIDIA GPU")
@@ -372,7 +603,7 @@ def main(argv=None):
     where = card()
     print(f"[probe_stages] {where}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    jobs = start_old_builds(args.old_mma_source, args.old_attend_source)
+    jobs = start_old_builds(args.old_mma_source, args.old_attend_source, args.old_dft_source)
     _build.library()
     old = finish_old_builds(jobs)
     print(f"[probe_stages] built in {time.perf_counter() - t0:.1f} s: {sorted(old)}")
@@ -383,6 +614,8 @@ def main(argv=None):
     compare(dev, old, where)
     if args.attend_stages:
         attend_stages(dev, where)
+    if args.dft_stages:
+        dft_stages(dev, where)
     if args.host:
         device_times(dev, old, where)
 

@@ -908,7 +908,7 @@ def _dft_inputs(cuda, B, R, hop, F, s0_high, seed=3):
 
 
 @pytest.mark.parametrize("B,R,hop,F,C,Nt,s0_high", [
-    (8, 21, 64, 64, 5, 4, 16),             # one row tile a clip
+    (8, 21, 64, 128, 5, 4, 16),            # one row tile a clip
     (8, 300, 128, 128, 29, 10, 40),        # three tiles, 290 of 299 frames
     (32, 431, 512, 512, 43, 10, 40),       # the scripts' widths, 32 clips
 ], ids=["small", "mid", "script"])
@@ -983,6 +983,93 @@ def test_probe_dft_check_catches_a_wrong_kernel(cuda, probe, case, wrong):
         c.check = (wrong_kernel, plain)
         with pytest.raises(AssertionError, match="outside its bound"):
             measure(c)
+
+
+P8_FORMS = [f"G={G} {'stacked' if st else 'unrolled'}" for G, st in
+            [(1, False), (2, False), (4, False), (8, False), (2, True), (4, True), (8, True)]]
+P9_VARIANTS = ["v0 matmul+sq (bf16 in)", "v0f + f32->bf16 conv", "v1 + scratch+aligned read",
+               "v2 + zeroinit + switch", "v3 switch, no zero-init"]
+
+
+def _dft_case(cuda, probe, case, batch=None):
+    from pcaudio_torch.probes import featurize_blockc, featurize_variants
+    mod = {"featurize_blockc": featurize_blockc, "featurize_variants": featurize_variants}[probe]
+    gen = torch.Generator(cuda).manual_seed(0)
+    cases = mod.cases(cuda, gen) if batch is None else mod.cases(cuda, gen, batch=batch)
+    c = {c.name: c for c in cases}[case]
+    c.iters = c.plain_iters = 1
+    c.library = None
+    return c
+
+
+@pytest.mark.parametrize("probe,case", [("featurize_blockc", n) for n in P8_FORMS]
+                         + [("featurize_variants", n) for n in P9_VARIANTS], ids=str)
+def test_probe_dft_full_size_within_bound(cuda, probe, case):
+    """Every P8 form (B = 1024) and P9 variant (B = 512) at the scripts'
+    full size, through the probe's own check (``timing.measure``: within
+    dft_mag2_bound on the rows the variant writes), its launches counted."""
+    from pcaudio_torch.probes.timing import measure, tf32_off
+    with tf32_off():
+        r = measure(_dft_case(cuda, probe, case))
+    assert r["launches"] == 4 and r["max_abs_err"] <= r["tol"]  # paired_ms: 2 x (1 + 1)
+
+
+@pytest.fixture(scope="module")
+def wrong_dft_builds():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    from pcaudio_torch.probes.probe_stages import build_dft_sources, dft_wrong_sources
+    return build_dft_sources(dft_wrong_sources(), "wrong_dft_")
+
+
+@pytest.mark.parametrize("wrong", ["one K stage dropped", "w0 and w1 swapped"])
+@pytest.mark.parametrize("probe,case", [("featurize_blockc", "G=1 unrolled"),
+                                        ("featurize_blockc", "G=8 stacked"),
+                                        ("featurize_variants", "v2 + zeroinit + switch")],
+                         ids=str)
+def test_probe_dft_check_catches_a_wrong_build(cuda, wrong_dft_builds, probe, case, wrong):
+    """The probes' check passes the kernel and raises on a build of its
+    source that drops the last K stage's products, or that swaps w0 and
+    w1 (``probe_stages.DFT_WRONG``)."""
+    from pcaudio_torch.probes.featurize_variants import masked
+    from pcaudio_torch.probes.probe_stages import dft_call
+    from pcaudio_torch.probes.timing import measure, tf32_off
+    with tf32_off():
+        c = _dft_case(cuda, probe, case, batch=16)
+        measure(c)
+        x3, _, _, C, Nt, mode, s0 = c.args[:7]
+        written = dft_written(x3, C, Nt, mode, s0)
+        fn = wrong_dft_builds[wrong]
+        c.check = (lambda: masked(dft_call(fn, *c.args), written), c.plain)
+        with pytest.raises(AssertionError, match="outside its bound"):
+            measure(c)
+
+
+@pytest.mark.parametrize("hop,F,B,G,mode,stacked,what", [
+    (64, 64, 4, 1, "direct", False, "F a multiple of 128"),
+    (96, 128, 4, 1, "direct", False, "hop a multiple of 64"),
+    (32, 128, 4, 1, "direct", False, "hop a multiple of 64"),
+    (64, 128, 4, 3, "direct", False, "multiple of G"),
+    (64, 128, 4, 2, "shift", True, "stacked rows in direct mode only"),
+], ids=str)
+def test_probe_dft_refuses_shapes_its_tiles_do_not_take(cuda, hop, F, B, G, mode, stacked,
+                                                        what):
+    x3 = torch.zeros(B, 21, hop, device=cuda)
+    w = torch.zeros(hop, 2 * F, dtype=torch.bfloat16, device=cuda)
+    s0 = torch.zeros(B, dtype=torch.int32, device=cuda)
+    n0 = dft_mag2.launches
+    with pytest.raises(ValueError, match=what):
+        dft_mag2(x3, w, w, 5, 4, mode, s0, G=G, stacked=stacked)
+    assert dft_mag2.launches == n0
+
+
+def test_probe_dft_runs_are_bitwise_equal(cuda):
+    """No atomics: each output element is one block's sum in a fixed
+    order, so two runs of P8 (G = 1) and of P9's v2 agree bit for bit."""
+    for probe, case in (("featurize_blockc", "G=1 unrolled"),
+                        ("featurize_variants", "v2 + zeroinit + switch")):
+        c = _dft_case(cuda, probe, case)
+        assert torch.equal(c.kernel(), c.kernel())
 
 
 def test_featurize_probe_kernels_reject_what_they_do_not_take(cuda):

@@ -57,13 +57,15 @@
    holding each probe kernel against its plain version (the integer
    products and sums exactly, the DFT within a bound derived per element)
    and printing each probe's answer beside the card's name and power limit;
-   then the three wgmma kernels (the windowed GEMM of P1 and P2, the v6
-   attend of P3, the DFT of P8 and P9) beside their earlier mma.sync
-   design (pcaudio_torch/probes/earlier/, built while phase 1 builds) at
-   every P1, P2a-c, P3 shape, P8 form and P9 variant in this process
+   then the redesigned probe kernels (the wgmma windowed GEMM of P1 and
+   P2, the v6 attend of P3, the bf16 chain of P4a and the DFT of P8 and
+   P9; the tiled int16 gram of P6a) beside their earlier design
+   (pcaudio_torch/probes/earlier/, built while phase 1 builds) at every
+   P1, P2a-c, P3, P4a, P6a shape, P8 form and P9 variant in this process
    (plain, old, new, new, old, plain, the library call; TFLOP/s and % of
-   peak), ptxas' registers and spills for them, and the HGMMA / IGMMA
-   count of their SASS (every instantiation must hold one);
+   peak; P4a held exactly at the signed permutation), ptxas' registers
+   and spills for the wgmma kernels, and the HGMMA / IGMMA count of their
+   SASS (every instantiation must hold one);
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
    batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
@@ -185,10 +187,19 @@ EVAL_3ST_CLIPS, EVAL_3ST_K, EVAL_3ST_RUNS = 8, [1, 2561, 5120], 2
 INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
 
 
-WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel", "dft_mag2_kernel")
+WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel", "dft_mag2_kernel", "chain_kernel")
 # instantiations that must issue HGMMA / IGMMA: the GEMM and the attend in
-# bf16 and s8 (2 each), the DFT in its four row modes and stacked (5)
-WGMMA_INSTANCES = {"window_gemm_kernel": 2, "attend_kernel": 2, "dft_mag2_kernel": 5}
+# bf16 and s8 (2 each), the DFT in its four row modes and stacked (5), the
+# chain at d 64 and 128 (2)
+WGMMA_INSTANCES = {"window_gemm_kernel": 2, "attend_kernel": 2, "dft_mag2_kernel": 5,
+                   "chain_kernel": 2}
+
+
+def wgmma_kernel_of(mangled):
+    """The WGMMA_KERNELS entry a mangled kernel name is an instantiation of:
+    matched with its length prefix (``12chain_kernel``), so that
+    ``16exp_chain_kernel`` is not taken for ``chain_kernel``."""
+    return next((k for k in WGMMA_KERNELS if f"{len(k)}{k}" in mangled), None)
 
 
 def wgmma_report(lib_path):
@@ -199,7 +210,7 @@ def wgmma_report(lib_path):
     lines, current = [], None
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            current = next((k for k in WGMMA_KERNELS if k in line), None)
+            current = wgmma_kernel_of(line)
             if current:
                 lines.append(f"ptxas {line.split(chr(39))[1][:90]}")
         elif current and ("registers" in line or "spill" in line or "C75" in line):
@@ -213,12 +224,12 @@ def wgmma_report(lib_path):
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            fn = fn if any(k in fn for k in WGMMA_KERNELS) else None
+            fn = fn if wgmma_kernel_of(fn) else None
         elif fn and ("HGMMA" in line or "IGMMA" in line):
             c = counts.setdefault(fn, {"HGMMA": 0, "IGMMA": 0})
             c["HGMMA" if "HGMMA" in line else "IGMMA"] += 1
     for k, n in WGMMA_INSTANCES.items():
-        have = [fn for fn in counts if k in fn]
+        have = [fn for fn in counts if wgmma_kernel_of(fn) == k]
         check(len(have) == n, f"SASS: {len(have)} of the {n} instantiations of {k} issue "
               f"HGMMA / IGMMA ({sorted(counts)})")
     return lines + [f"SASS {fn[:90]}: {c['HGMMA']} HGMMA, {c['IGMMA']} IGMMA"
@@ -899,7 +910,7 @@ def main():
 
     # ---- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    # the earlier design of the three redesigned probe kernels (phase 8),
+    # the earlier design of the redesigned probe kernels (phase 8),
     # its compilers started beside the main build's
     old_jobs = probe_stages.start_old_builds()
     try:
@@ -1339,7 +1350,7 @@ def main():
         log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
         del res
         torch.cuda.empty_cache()
-    # the wgmma redesigns of P1, P2, P3, P8 and P9 beside their earlier
+    # the redesigns of P1, P2, P3, P4a, P6a, P8 and P9 beside their earlier
     # design, in this process: ms, the library call, the bound, rates and %
     # of peak
     t0 = time.perf_counter()

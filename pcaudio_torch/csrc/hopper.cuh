@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (probe_mma.cu's windowed GEMM, probe_attend.cu's v6 attend,
-// probe_featurize.cu's DFT):
+// (probe_mma.cu's windowed GEMM and bf16 chain, probe_attend.cu's v6
+// attend, probe_featurize.cu's DFT):
 //
 //   - mbarriers: init, arrive, arrive with an expected byte count, wait on
 //     a phase parity;
@@ -8,9 +8,9 @@
 //     copy, each completing on an mbarrier; the proxy fence a thread issues
 //     after writing shared memory that wgmma or TMA will then read;
 //   - the wgmma shared-memory matrix descriptor for the 128-byte swizzle;
-//   - wgmma m64n128k16 and m64n256k16 (bf16 -> f32) and m64n128k32 (s8 ->
-//     s32), A from shared memory or registers, with the warpgroup fence,
-//     commit and wait;
+//   - wgmma m64n64k16, m64n128k16 and m64n256k16 (bf16 -> f32) and
+//     m64n128k32 (s8 -> s32), A from shared memory or registers, with the
+//     warpgroup fence, commit and wait;
 //   - on the host, tiled tensor maps from cuTensorMapEncodeTiled, reached
 //     through the runtime's driver entry point (no -lcuda), cached by
 //     pointer and shape.
@@ -170,6 +170,7 @@ __device__ __forceinline__ void fence_operand(int (&d)[64]) {
 #define PCAUDIO_D4(c, i) c(d[i]), c(d[i + 1]), c(d[i + 2]), c(d[i + 3])
 #define PCAUDIO_D16(c, i) \
   PCAUDIO_D4(c, i), PCAUDIO_D4(c, i + 4), PCAUDIO_D4(c, i + 8), PCAUDIO_D4(c, i + 12)
+#define PCAUDIO_D32(c) PCAUDIO_D16(c, 0), PCAUDIO_D16(c, 16)
 #define PCAUDIO_D64(c) \
   PCAUDIO_D16(c, 0), PCAUDIO_D16(c, 16), PCAUDIO_D16(c, 32), PCAUDIO_D16(c, 48)
 #define PCAUDIO_D128(c) PCAUDIO_D64(c), PCAUDIO_D64_AT(c, 64)
@@ -185,6 +186,9 @@ __device__ __forceinline__ void fence_operand(int (&d)[64]) {
   "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, " \
   "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, " \
   "%123, %124, %125, %126, %127}"
+#define PCAUDIO_R32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 #define PCAUDIO_R64                                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
@@ -232,6 +236,20 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " PCAUDIO_R64
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : PCAUDIO_D64("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64] with A from registers, as for
+// wgmma_bf16_rs: thread t holds d[4j + 2h + e] = D[16w + g + 8h][8j + 2q + e],
+// j < 8.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_bf16_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t b, uint32_t scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCAUDIO_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : PCAUDIO_D32("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
@@ -313,9 +331,11 @@ __device__ __forceinline__ int warpgroup() {
 
 #undef PCAUDIO_D4
 #undef PCAUDIO_D16
+#undef PCAUDIO_D32
 #undef PCAUDIO_D64
 #undef PCAUDIO_D64_AT
 #undef PCAUDIO_D128
+#undef PCAUDIO_R32
 #undef PCAUDIO_R64
 #undef PCAUDIO_R128
 

@@ -50,9 +50,25 @@
 // is the hardware's); across a tile's blocks, atomics in arrival order.
 // ops/kernels/probes.py::matmul_plan is the same plan in Python.
 //
-// The chain keeps a 16-row slice of x in each warp's registers through all
-// its products (mma.sync m16n8k16): an m16n8 accumulator tile is the next
-// product's A fragment after a bf16 pack.
+// The chain (redesigned for Hopper): a dependent product cannot be split
+// along K or batched with the next, so the design keeps enough independent
+// chains in flight on each SM.  A block is one warpgroup, one chain of 64
+// rows of x at a time, held in registers as wgmma A fragments through all
+// its products (m64n128k16 at d 128, m64n64k16 at d 64, A from registers):
+// columns 16kk .. 16kk + 15 of a step's f32 accumulators are, after a
+// bf16 pack, the next step's A fragment for k-step kk, so no operand of x
+// touches shared memory.  Each step's first product starts its sums with
+// scale-d 0 (no write of the accumulators between wgmmas).  w stays
+// resident in shared memory as it lies ([K, N], N contiguous: MN-major B,
+// 128-byte swizzle, the second 64 columns LBO bytes on), loaded once a
+// block by TMA, so the wrapper makes no transposed copy.  Between two steps
+// a warpgroup waits for its products, packs and fences: 2 blocks an SM at
+// d 128 (a step's 8 products take about 512 tensor-core clocks, more than
+// the turnaround) and 4 at d 64 (128 clocks), so that one block's products
+// run while another packs.  The blocks walk units (row tile, repeat) in
+// contiguous balanced runs (ops/kernels/probes.py::chain_plan), keep a
+// tile's repeat sum in registers and add it into the zeroed output with
+// atomics when they leave the tile: exact in any order, as above.
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -271,74 +287,130 @@ int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mb, const GemmParams& 
   return (int)cudaGetLastError();
 }
 
-constexpr int kChainThreads = 128;  // 4 warps, 16 rows each
+// ---- P4a: the dependent bf16 chain ---------------------------------------
 
+constexpr int kChainThreads = 128;  // one warpgroup: one chain of 64 rows of x
+constexpr int kChainRows = 64;
+// blocks (chains in flight) an SM, as registers allow: 172 a thread at d
+// 128 (64 accumulators, 32 A, 64 repeat sums), 92 at d 64 (ptxas); 3 and 5
+// were no faster (PERF.md)
+constexpr int kChainBlocksPerSm128 = 2, kChainBlocksPerSm64 = 4;
+// stage probe (probes/probe_stages.py CHAIN_VARIANTS): 1 the products
+// alone (A kept, no pack), 2 the pack alone (and an unpack, no products)
+constexpr int kChainLeaveOut = 0;
+
+// Adds a warpgroup's repeat sums of row tile `tile` into out and zeroes
+// them: thread (w, g, q) holds sum[4j + 2h + e] = row 16w + g + 8h, column
+// 8j + 2q + e of the tile (the wgmma accumulator layout).
 template <int D>
-__global__ void __launch_bounds__(kChainThreads)
-chain_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
-             float* __restrict__ out, int reps, int per) {
-  constexpr int kRowW = D * 2 + 16;  // padded bytes per row of w^T
-  __shared__ __align__(16) uint8_t sw[D * kRowW];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  for (int i = threadIdx.x; i < D * D / 8; i += kChainThreads) {
-    const int row = i / (D / 8), c = (i % (D / 8)) * 16;
-    *reinterpret_cast<uint4*>(&sw[row * kRowW + c]) =
-        *reinterpret_cast<const uint4*>(reinterpret_cast<const uint8_t*>(wt) + row * D * 2 + c);
+__device__ __forceinline__ void flush_chain(float* out, int tile, float (&sum)[D / 2],
+                                            int warp, int g, int q) {
+  float* o = out + ((long long)tile * kChainRows + 16 * warp + g) * D + 2 * q;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* p = o + h * 8 * D + 8 * j;  // 8-byte aligned
+      atomicAdd(reinterpret_cast<float2*>(p),
+                make_float2(sum[4 * j + 2 * h], sum[4 * j + 2 * h + 1]));
+      sum[4 * j + 2 * h] = sum[4 * j + 2 * h + 1] = 0.f;
+    }
+}
+
+// One warpgroup a block, `blocks` blocks walking units (row tile, repeat)
+// u0 .. u1 - 1 in order (ops/kernels/probes.py::chain_plan): each unit is
+// one chain of `reps` dependent products of its 64 rows of x by w.
+template <int D>
+__global__ void __launch_bounds__(kChainThreads,
+                                  D == 128 ? kChainBlocksPerSm128 : kChainBlocksPerSm64)
+chain_kernel(const __grid_constant__ CUtensorMap map_w, const __nv_bfloat16* __restrict__ x,
+             float* __restrict__ out, int reps, int repeats, long long units, int blocks) {
+  constexpr int kAcc = D / 2;     // f32 accumulators of m64nD a thread
+  constexpr int kSteps = D / 16;  // k16 products a step
+  constexpr int kPairs = kAcc / 2;
+  constexpr uint32_t kLbo = D * hw::kSwizzleBytes;  // w's second 64 columns
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t w_full;
+  uint8_t* sw = smem_raw + ((hw::kAtomBytes - (hw::smem_u32(smem_raw) & (hw::kAtomBytes - 1))) &
+                            (hw::kAtomBytes - 1));
+  if (threadIdx.x == 0) {
+    hw::mbar_init(&w_full, 1);
+    hw::mbar_fence_init();
+    hw::mbar_expect_tx(&w_full, D * D * 2);
+    // w [K][N] as it lies, one box of 64 columns (128 bytes) x D rows a
+    // half: wgmma's MN-major B under the 128-byte swizzle
+    for (int h = 0; h < D / 64; ++h)
+      hw::tma_load_3d(sw + h * D * hw::kSwizzleBytes, &map_w, h * 64, 0, 0, &w_full);
   }
   __syncthreads();
 
-  const int r0 = blockIdx.x * 64 + warp * 16;
-  float sum[D / 8][4] = {};
-  for (int rep = 0; rep < per; ++rep) {
-    uint32_t xa[D / 16][4];  // this warp's 16 rows of x as A fragments
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, q = lane % 4;
+  const long long u0 = units * blockIdx.x / blocks, u1 = units * (blockIdx.x + 1) / blocks;
+  const uint32_t w_u = hw::smem_u32(sw);
+  float acc[kAcc], sum[kAcc];
+  uint32_t a[kSteps][4];  // this warp's 16 rows of x as the A fragments
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+  for (int i = 0; i < kAcc; ++i) acc[i] = sum[i] = 0.f;
+  hw::mbar_wait(&w_full, 0);
+  int cur = -1;
+  for (long long u = u0; u < u1; ++u) {
+    const int tile = (int)(u / repeats);
+    if (tile != cur) {
+      if (cur >= 0) flush_chain<D>(out, cur, sum, warp, g, q);
+      cur = tile;
+    }
+    // a[kk][r]: row 16w + g + 8 (r & 1), k 16kk + 8 (r >> 1) + 2q, + 1
+    const __nv_bfloat16* xr = x + ((long long)tile * kChainRows + 16 * warp + g) * D + 2 * q;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = r0 + g + 8 * (q & 1), col = kk * 16 + 8 * (q >> 1) + 2 * t;
-        xa[kk][q] = *reinterpret_cast<const uint32_t*>(x + (long long)row * D + col);
-      }
+    for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[kk][r] = *reinterpret_cast<const uint32_t*>(xr + (r & 1) * 8 * D + kk * 16 +
+                                                      (r >> 1) * 8);
     for (int s = 0; s < reps; ++s) {
-      float c[D / 8][4] = {};
+      if constexpr (kChainLeaveOut != 2) {
+        hw::wgmma_fence();  // this step's A fragments, written by the pack
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-        for (int np = 0; np < D / 16; ++np) {
-          uint32_t bf[4];
-          ldmatrix_x4(bf, b_frag_row(sw + np * 16 * kRowW + kk * 32, kRowW, lane));
-          MmaBf16::mma(c[2 * np], xa[kk], bf);
-          MmaBf16::mma(c[2 * np + 1], xa[kk], bf + 2);
+        for (int kk = 0; kk < kSteps; ++kk) {
+          // rows 16kk .. 16kk + 15 of w; the first product starts the sums
+          const uint64_t db = hw::smem_desc(w_u + kk * 16 * hw::kSwizzleBytes, kLbo, hw::kSbo);
+          if constexpr (D == 128)
+            hw::wgmma_bf16_rs<1>(acc, a[kk], db, kk ? 1u : 0u);
+          else
+            hw::wgmma_bf16_rs_n64<1>(acc, a[kk], db, kk ? 1u : 0u);
         }
-      // the product's columns 16kk..16kk+15 are the next A's k-step kk
+        hw::wgmma_commit();
+        hw::wgmma_wait<0>();
+        hw::fence_operand(acc);
+      }
+      if constexpr (kChainLeaveOut == 1) {  // keeps every step's products (never taken)
+        if (blocks < 0)
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        xa[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-        xa[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-        xa[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-        xa[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+          for (int i = 0; i < kAcc; ++i) out[threadIdx.x * kAcc + i] = acc[i];
+      }
+      if constexpr (kChainLeaveOut != 1) {
+        // the product's columns 16kk .. 16kk + 15 are the next A's k-step
+        // kk: a[kk][r] = (acc[8kk + 2r], acc[8kk + 2r + 1]) rounded
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i)
+          a[i / 4][i % 4] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+      }
+      if constexpr (kChainLeaveOut == 2) {  // each step's pack reads new values
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+          acc[2 * i] = __uint_as_float(a[i / 4][i % 4] << 16);
+          acc[2 * i + 1] = __uint_as_float(a[i / 4][i % 4] & 0xFFFF0000u);
+        }
       }
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 v = unpack_bf16(xa[kk][q]);
-        // A reg q: rows g / g+8 (q & 1), columns 8 (q >> 1) + 2t of step kk,
-        // i.e. n-tile 2kk + (q >> 1), C regs 2 (q & 1), +1
-        float* s2 = &sum[2 * kk + (q >> 1)][2 * (q & 1)];
-        s2[0] += v.x;
-        s2[1] += v.y;
-      }
+    for (int i = 0; i < kPairs; ++i) {
+      const float2 v = unpack_bf16(a[i / 4][i % 4]);
+      sum[2 * i] += v.x;
+      sum[2 * i + 1] += v.y;
+    }
   }
-#pragma unroll
-  for (int nj = 0; nj < D / 8; ++nj)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float* p = out + (long long)(r0 + g + 8 * h) * D + nj * 8 + 2 * t;
-      atomicAdd(p, sum[nj][2 * h]);
-      atomicAdd(p + 1, sum[nj][2 * h + 1]);
-    }
+  if (cur >= 0) flush_chain<D>(out, cur, sum, warp, g, q);
 }
 
 __global__ void exp_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -356,11 +428,11 @@ __global__ void exp_chain_kernel(const float* __restrict__ x, float* __restrict_
 }
 
 template <int D>
-int launch_chain(const void* x, const void* wt, float* out, int n, int reps, int repeats,
-                 int per, cudaStream_t stream) {
-  const dim3 grid(n / 64, repeats / per);
-  chain_kernel<D><<<grid, kChainThreads, 0, stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)wt, out, reps, per);
+int launch_chain(const CUtensorMap& mw, const void* x, float* out, int reps, int repeats,
+                 long long units, int blocks, cudaStream_t st) {
+  constexpr int smem = D * D * 2 + hw::kAtomBytes;  // w, from a 1,024-byte boundary
+  chain_kernel<D><<<blocks, kChainThreads, smem, st>>>(mw, (const __nv_bfloat16*)x, out, reps,
+                                                       repeats, units, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -430,17 +502,26 @@ extern "C" int pcaudio_probe_matmul(const void* a, const void* b, void* out, con
               : launch_gemm<false>(ma, mb, p, grid, smem, st);
 }
 
-// x [n][d] bf16, wt = w^T [d][d] bf16, out [n][d] f32 zeroed: out += the
-// chain's result once per repeat.  d 64 or 128, n a multiple of 64.
-extern "C" int pcaudio_probe_chain(const void* x, const void* wt, void* out, int n, int d,
-                                   int reps, int repeats, int per, void* stream) {
-  if (n < 64 || n % 64 || reps < 1 || repeats < 1 || per < 1 || repeats % per ||
-      ((uintptr_t)x | (uintptr_t)wt) % 16)
+// x [n][d] bf16, w [d][d] bf16 as it lies (K rows, N contiguous), out
+// [n][d] f32 zeroed: out += the chain's result once per repeat.  The
+// integers come as one array: n (a multiple of 64), d (64 or 128), reps,
+// repeats, blocks (ops/kernels/probes.py::chain_plan).
+extern "C" int pcaudio_probe_chain(const void* x, const void* w, void* out, const int* args,
+                                   void* stream) {
+  const int n = args[0], d = args[1], reps = args[2], repeats = args[3], blocks = args[4];
+  if (n < kChainRows || n % kChainRows || (d != 64 && d != 128) || reps < 1 || repeats < 1 ||
+      blocks < 1 || ((uintptr_t)x | (uintptr_t)w) % 16)
     return (int)cudaErrorInvalidValue;
+  CUtensorMap mw;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)d, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)d * d * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)d, 1};
+  if (!hw::tensor_map_3d(&mw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, dims, strides, box))
+    return (int)cudaErrorInvalidValue;
+  const long long units = (long long)(n / kChainRows) * repeats;
   const auto st = (cudaStream_t)stream;
-  if (d == 64) return launch_chain<64>(x, wt, (float*)out, n, reps, repeats, per, st);
-  if (d == 128) return launch_chain<128>(x, wt, (float*)out, n, reps, repeats, per, st);
-  return (int)cudaErrorInvalidValue;
+  return d == 64 ? launch_chain<64>(mw, x, (float*)out, reps, repeats, units, blocks, st)
+                 : launch_chain<128>(mw, x, (float*)out, reps, repeats, units, blocks, st);
 }
 
 // x [n] f32, out [n] f32 zeroed: out += the exp chain once per repeat.

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P] * 5,
-    "pcaudio_probe_chain": [_P, _P, _P] + [_I] * 5 + [_P],
+    "pcaudio_probe_chain": [_P] * 5,
     "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],
     "pcaudio_probe_attend": [_P] * 5 + [_I] * 5 + [_P],
     "pcaudio_probe_int16_gram": [_P, _P, _I, _I, _P],

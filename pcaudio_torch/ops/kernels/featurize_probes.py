@@ -24,6 +24,7 @@ P8 and P9 are held to; the other probes are exact on their check inputs
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -36,7 +37,6 @@ LANES = 128                 # P7's chunk lane block
 DFT_BF = 128                # dft_mag2's frequencies a block (F a multiple)
 DFT_BM = 128                # dft_mag2's frame rows a block
 DFT_STAGE_K = 32            # samples of the hop a stage (hop a multiple of 2×)
-GRAM_MAX_L = 4096           # int16_gram stages one row in shared memory
 BF16_U = 2.0 ** -8          # bf16 unit roundoff
 # dft_mag2's row modes: the source frame of output row j of clip b is
 # j + shift(b); "direct" has shift 0 (k_matmul, k_matmul_f, k_unroll,
@@ -54,9 +54,16 @@ def _cuda_contiguous(*ts):
 
 # ---- P6a: int16 load, convert, x·xᵀ --------------------------------------
 
-def _check_gram(x):
-    if x.dtype != torch.int16 or x.dim() != 2:
-        raise ValueError(f"x must be int16 [n, L], got {x.dtype} {tuple(x.shape)}")
+def _check_gram_shape(shape, dtype):
+    if dtype != torch.int16 or len(shape) != 2:
+        raise ValueError(f"x must be int16 [n, L], got {dtype} {tuple(shape)}")
+
+
+@functools.lru_cache(maxsize=256)
+def _gram_call(shape, dtype):
+    """One call's checks, made once per shape: ``(n, L)``."""
+    _check_gram_shape(shape, dtype)
+    return int(shape[0]), int(shape[1])
 
 
 def pcm_to_float(x):
@@ -66,23 +73,21 @@ def pcm_to_float(x):
 
 def int16_gram_plain(x):
     """Plain version of :func:`int16_gram`: one f32 product."""
-    _check_gram(x)
+    _check_gram_shape(x.shape, x.dtype)
     xf = pcm_to_float(x)
     return xf @ xf.t()
 
 
 def int16_gram(x):
     """``x [n, L]`` int16 → ``[n, n]`` f32: ``(x/32768)·(x/32768)ᵀ``.  One
-    SIMT kernel (f32 FMAs) on the card, ``L ≤ 4096``; CPU tensors take
-    :func:`int16_gram_plain`."""
+    tiled SIMT kernel (f32 FMAs; 8 × 8 outputs a block, each output's K
+    split over 4 threads, K staged 512 at a time) on the card, any shape;
+    CPU tensors take :func:`int16_gram_plain`."""
     if x.device.type == "cpu":
         return int16_gram_plain(x)
-    _check_gram(x)
     _cuda_contiguous(x)
-    n, L = x.shape
-    if L > GRAM_MAX_L:
-        raise ValueError(f"the kernel takes L ≤ {GRAM_MAX_L}, got {L}")
-    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
+    n, L = _gram_call(x.shape, x.dtype)
+    out = x.new_empty((n, n), dtype=torch.float32)
     _build.launch("pcaudio_probe_int16_gram", x.data_ptr(), out.data_ptr(), n, L,
                   _build.stream_of(x))
     int16_gram.launches += 1

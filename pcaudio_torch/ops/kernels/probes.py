@@ -6,7 +6,7 @@ each beside its plain PyTorch version.
                    ``scripts/probe_int8_matmul.py`` (``kern``, ``make_big``,
                    ``make``): sums of windowed bf16 or int8 products
   probe_chain      P4a ``scripts/probe_lane_width.py::chain_kernel``:
-                   x ← bf16(x·w), ``reps`` dependent products
+                   x ← bf16(x·w), ``reps`` dependent products (wgmma)
   probe_exp_chain  P4b ``probe_lane_width.py``'s ``vpu_kernel``:
                    x ← exp(0.5·x), ``reps`` times
   probe_attend     P3 ``scripts/probe_int8_attend.py::make_kernel``: the v6
@@ -18,11 +18,13 @@ the output depends on every copy's work.  CPU tensors take the plain
 versions; CUDA tensors the kernels, never a fallback.  The plain versions
 compute in f32 (the card's TF32 off); the ``*_bound`` functions give the
 elementwise bound on |kernel − plain| that each probe is held to, and the
-chain is held exactly at a :func:`signed_permutation` w.
+chain is held exactly at a :func:`signed_permutation` w and on
+:func:`rounding_chain_inputs`.
 
-:func:`matmul_plan` and :func:`attend_plan` are the two wgmma kernels'
-plans (their grids and how each block's run of work units is cut), which
-the kernels follow and the CPU tests hold to covering every product once.
+:func:`matmul_plan`, :func:`chain_plan` and :func:`attend_plan` are the
+wgmma kernels' plans (their grids and how each block's run of work units
+is cut), which the kernels follow and the CPU tests hold to covering every
+product once.
 """
 from __future__ import annotations
 
@@ -35,16 +37,19 @@ import torch
 from pcaudio_torch.ops.kernels import _build
 
 WGMMA_BF16 = "wgmma.mma_async.m64n128k16.f32.bf16.bf16 (TMA ring, B resident)"
+WGMMA_CHAIN = "wgmma m64n{64,128}k16 bf16, A from registers, w resident (TMA)"
 WGMMA_S8 = "wgmma.mma_async.m64n128k32.s32.s8.s8 (TMA ring, B resident)"
 WGMMA_ATTEND_BF16 = "wgmma m64n128k16 bf16, P from registers (bulk-copy ring)"
 WGMMA_ATTEND_S8 = "wgmma m64n128k32 s8, P from registers (bulk-copy ring)"
-MMA_BF16 = "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
-MMA_S8 = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
 EXP_SFU = "__expf (ex2.approx on the MUFU special-function units)"
 TILE = 128        # probe_matmul's output tile; M and N are multiples
 ATTEND_DV = 128   # probe_attend's widths (the v6 attend: dv2 and K)
 ATTEND_KEYS = 128
 ATTEND_ROWS = 256  # query rows a block (two warpgroups of 128)
+CHAIN_ROWS = 64   # probe_chain's rows a chain (one warpgroup's wgmma tile)
+# probe_chain's blocks (chains in flight) an SM, by d: csrc/probe_mma.cu's
+# kChainBlocksPerSm128 and kChainBlocksPerSm64
+CHAIN_BLOCKS_PER_SM = {128: 2, 64: 4}
 U32 = 2.0 ** -24  # f32 unit roundoff
 PLAIN_CHUNK = 512  # attends the plain attend batches at once (memory)
 # probe_matmul's shared memory (csrc/hopper.cuh, csrc/probe_mma.cu)
@@ -241,19 +246,19 @@ probe_matmul.launches = 0
 
 # ---- P4a: the dependent bf16 product chain -------------------------------
 
-def _check_chain(x, w):
-    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-        raise TypeError(f"x and w must be bfloat16, got {x.dtype}, {w.dtype}")
-    if x.dim() != 2 or w.shape != (x.shape[1], x.shape[1]):
-        raise ValueError(f"x [n, d] and w [d, d] expected, got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}")
+def _check_chain_shapes(x_shape, w_shape, x_dtype, w_dtype):
+    if x_dtype != torch.bfloat16 or w_dtype != torch.bfloat16:
+        raise TypeError(f"x and w must be bfloat16, got {x_dtype}, {w_dtype}")
+    if len(x_shape) != 2 or tuple(w_shape) != (x_shape[1], x_shape[1]):
+        raise ValueError(f"x [n, d] and w [d, d] expected, got {tuple(x_shape)}, "
+                         f"{tuple(w_shape)}")
 
 
 def probe_chain_plain(x, w, reps=64, repeats=1):
     """Plain version of :func:`probe_chain`: the repeats as a batch, each
     step an f32 product rounded to bf16, the repeats' results summed in
     f32 (exact: `repeats` copies of one bf16 value)."""
-    _check_chain(x, w)
+    _check_chain_shapes(x.shape, w.shape, x.dtype, w.dtype)
     y = x.expand(repeats, *x.shape)
     wf = w.float()
     for _ in range(reps):
@@ -290,25 +295,86 @@ def signed_permutation(d, generator=None, device=None):
     return w.bfloat16()
 
 
+def rounding_chain_inputs(n, d, generator=None, device=None):
+    """``[n, d]`` x and ``[d, d]`` w, bf16, on which every step of the
+    chain rounds and every sum is still exact: |x| in [1, 2) and
+    w = P + 2⁻⁹·Q, P a :func:`signed_permutation` and Q one with its
+    nonzeros elsewhere (P's columns moved by a random offset, new signs).
+    An element of x·w is then a + 2⁻⁹·b for two elements a, b of x; over
+    64 steps |x| stays within [0.7, 2.3], so each sum spans at most 19
+    bits (exact in f32 in any order) and its rounding to bf16 drops set
+    bits: a pack that truncates or breaks ties otherwise than to even gives
+    another result.  At a signed permutation alone every product is
+    already a bf16 value, which no rounding changes."""
+    sign = 2.0 * torch.randint(0, 2, (n, d), generator=generator, device=device) - 1
+    mant = torch.randint(0, 128, (n, d), generator=generator, device=device)
+    x = (sign * (1 + mant / 128)).bfloat16()
+    p = signed_permutation(d, generator, device).float()
+    shift = int(torch.randint(1, d, (1,), generator=generator, device=device))
+    flip = 2.0 * torch.randint(0, 2, (d, 1), generator=generator, device=device) - 1
+    q = torch.roll(p, shift, dims=1) * flip
+    return x, (p + 2.0 ** -9 * q).bfloat16()
+
+
+class ChainPlan(NamedTuple):
+    """``probe_chain``'s grid: ``blocks`` blocks of one warpgroup, each
+    walking one contiguous run of the ``units`` (64-row tile, repeat), in
+    that order; runs differ by at most one unit."""
+
+    blocks: int
+    units: int
+
+
+def chain_plan(n, d, repeats, sms) -> ChainPlan:
+    """The plan of ``csrc/probe_mma.cu``'s chain: as many blocks as the SMs
+    hold at once (``CHAIN_BLOCKS_PER_SM`` chains in flight on each), at
+    most one a unit; raises ``ValueError`` for shapes its tiles do not
+    take."""
+    if d not in CHAIN_BLOCKS_PER_SM or n < CHAIN_ROWS or n % CHAIN_ROWS:
+        raise ValueError(f"the kernel takes d 64 or 128 and n a multiple of {CHAIN_ROWS}, "
+                         f"got n={n}, d={d}")
+    if repeats < 1 or sms < 1:
+        raise ValueError(f"repeats={repeats} and sms={sms} must be at least 1")
+    units = (n // CHAIN_ROWS) * repeats
+    return ChainPlan(min(units, sms * CHAIN_BLOCKS_PER_SM[d]), units)
+
+
+def chain_units(plan: ChainPlan, block: int, repeats: int):
+    """The (tile, repeat) units of block ``block``'s run, as the kernel
+    walks them."""
+    for u in range(plan.units * block // plan.blocks,
+                   plan.units * (block + 1) // plan.blocks):
+        yield divmod(u, repeats)
+
+
+@functools.lru_cache(maxsize=256)
+def _chain_call(x_shape, w_shape, x_dtype, w_dtype, reps, repeats, device_index):
+    """One call's checks, plan and the kernel's integer arguments (one
+    ctypes array), made once per shape."""
+    _check_chain_shapes(x_shape, w_shape, x_dtype, w_dtype)
+    n, d = x_shape
+    if reps < 1:
+        raise ValueError(f"reps={reps} must be at least 1")
+    plan = chain_plan(n, d, repeats, sm_count(device_index))
+    params = (ctypes.c_int * 5)(n, d, reps, repeats, plan.blocks)
+    return params, ctypes.addressof(params)
+
+
 def probe_chain(x, w, reps=64, repeats=1):
     """``x [n, d]`` bf16, ``w [d, d]`` bf16 → ``[n, d]`` f32: the sum over
     ``repeats`` copies of x after ``reps`` steps of ``x ← bf16(x·w)`` (f32
-    accumulation).  d is 64 or 128 and n a multiple of 64 on the card;
-    each warp keeps 16 rows of x in registers through the whole chain.  CPU
-    tensors take :func:`probe_chain_plain`."""
+    accumulation).  On the card d is 64 or 128, n a multiple of 64 and w
+    contiguous (read as it lies): one wgmma kernel, each warpgroup keeping
+    a chain's 64 rows in registers (:func:`chain_plan`).  CPU tensors take
+    :func:`probe_chain_plain`."""
     if x.device.type == "cpu":
         return probe_chain_plain(x, w, reps, repeats)
-    _check_chain(x, w)
-    n, d = x.shape
-    if d not in (64, 128) or n % 64:
-        raise ValueError(f"the kernel takes d 64 or 128 and n a multiple of 64, "
-                         f"got {tuple(x.shape)}")
-    if not (x.is_cuda and w.is_cuda and x.is_contiguous()):
-        raise ValueError("x and w must be CUDA tensors, x contiguous")
-    wt = w.t().contiguous()
-    out = torch.zeros((n, d), dtype=torch.float32, device=x.device)
-    _build.launch("pcaudio_probe_chain", x.data_ptr(), wt.data_ptr(), out.data_ptr(),
-                  n, d, reps, repeats, _per(repeats), _build.stream_of(x))
+    if not (x.is_cuda and w.is_cuda and x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous CUDA tensors")
+    _, ptr = _chain_call(x.shape, w.shape, x.dtype, w.dtype, reps, repeats, x.get_device())
+    out = x.new_zeros(x.shape, dtype=torch.float32)
+    _build.launch("pcaudio_probe_chain", x.data_ptr(), w.data_ptr(), out.data_ptr(), ptr,
+                  _build.stream_of(x))
     probe_chain.launches += 1
     return out
 

@@ -2,8 +2,8 @@
 ``kern2`` at :38): on the TPU, whether a kernel can take int16 PCM blocks
 and convert them itself, which would halve K3's input bytes.  Here:
 
-- kern: [64, 512] int16 → f32·(1/32768), then x·xᵀ (f32 FMAs, one SIMT
-  kernel), held to ``matmul_bound``;
+- kern: [64, 512] int16 → f32·(1/32768), then x·xᵀ (f32 FMAs, one tiled
+  SIMT kernel), held to ``matmul_bound``;
 - sweep: one f32 sum per [432, 512] block of 512 waves, int16 against f32,
   i.e. the time to read K3's input at either width.  The script times all
   zeros, where a wrong kernel would pass; it is timed on those and checked
@@ -44,9 +44,10 @@ def cases(dev, gen):
     out = [Case(
         "kern", lambda: int16_gram(x), lambda: int16_gram_plain(x),
         lambda ref: matmul_bound(xf, xf.t()), int16_gram, SOURCE, REPLACES["kern"],
-        "f32 FMA (SIMT)", ops={"f32": 2.0 * B * B * L}, nbytes=2 * x.numel() + 4 * B * B,
+        "f32 FMA (SIMT, 8 x 8 outputs a block, K split 4 ways)", ops={"f32": 2.0 * B * B * L},
+        nbytes=2 * x.numel() + 4 * B * B,
         library=_gram_library(x), library_note="x.float()·(1/32768), torch.mm",
-        iters=50, plain_iters=50)]
+        iters=50, plain_iters=50, args=(x,))]
     for dt, name in ((torch.int16, "int16"), (torch.float32, "f32")):
         zeros = torch.zeros(WAVES, ROWS, HOP, dtype=dt, device=dev)
         ints = torch.randint(-4, 4, (WAVES, ROWS, HOP), generator=gen, device=dev, dtype=dt)

@@ -20,6 +20,12 @@ import torch
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "tf32": 495e12, "f32": 67e12,
                   "sfu": 132 * 16 * 1.98e9}
 HBM_BYTES_PER_S = 3.35e12
+# Tensor-core operations a clock an SM (dense).  The data sheet's tensor
+# rates are these x 132 SMs at 1.83 GHz, while its f32 rate (and "sfu")
+# take the 1.98 GHz boost: a tensor kernel that the card runs above 1.83
+# GHz can beat the rate of its bound_ms.  tensor_bound_ms is the bound at
+# the SM clock measured under the kernel.
+TENSOR_OPS_PER_CLOCK = {"bf16": 4096, "int8": 8192, "tf32": 2048}
 
 
 def card() -> str:
@@ -121,6 +127,12 @@ def bound_ms(ops: Dict[str, float], nbytes: float):
     return (t_ops * 1e3, "operations") if t_ops >= t_bytes else (t_bytes * 1e3, "bytes")
 
 
+def tensor_bound_ms(ops: float, kind: str, sm_mhz: float, sms: int) -> float:
+    """The least ms for ``ops`` tensor-core operations of ``kind`` on
+    ``sms`` SMs held at ``sm_mhz`` MHz."""
+    return ops / (TENSOR_OPS_PER_CLOCK[kind] * sms * sm_mhz * 1e6) * 1e3
+
+
 def abs_err(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """|got − ref| in f32, 0 where the two are equal (infinities included)."""
     got, ref = got.float(), ref.float()
@@ -154,6 +166,7 @@ class Case:
     plain_iters: int = 2
     check: Optional[Tuple[Callable[[], torch.Tensor], Callable[[], torch.Tensor]]] = None
     args: tuple = ()  # the kernel call's operands and shape, for another design
+    check_args: tuple = ()  # the check's kernel calls' operands, a tuple each
 
 
 def measure(case: Case) -> dict:

@@ -702,12 +702,14 @@ def test_lane_width_check_catches_a_wrong_kernel(cuda, case, wrong):
         c = {c.name: c for c in lane_width.cases(cuda, gen)}[case]
         c.iters = c.plain_iters = 1
         measure(c)  # raises outside the bound
-        args, plain = c.check[0].__defaults__, c.check[1]
+        kernel, plain = c.check
         wrong_kernel = {
             "one step short": lambda: (
-                probe_chain(*args, lane_width.REPS - 1, lane_width.GRID)
+                lane_width.chain_check(lambda x, w, reps, grid: probe_chain(x, w, reps - 1, grid),
+                                       c.check_args)
                 if case.startswith("chain") else
-                probe_exp_chain(*args, lane_width.CHECK_EXP_REPS - 1, lane_width.GRID)),
+                probe_exp_chain(*kernel.__defaults__, lane_width.CHECK_EXP_REPS - 1,
+                                lane_width.GRID)),
             "writes zeros": lambda: torch.zeros_like(plain()),
             "writes +inf": lambda: torch.full_like(plain(), float("inf")),
         }[wrong]
@@ -846,10 +848,12 @@ from pcaudio_torch.ops.kernels.featurize_probes import (  # noqa: E402
     dft_written, int16_gram, int16_gram_plain, wave_block_sums, wave_block_sums_plain)
 
 
-@pytest.mark.parametrize("n,L", [(64, 512), (5, 37)], ids=["script", "ragged"])
+@pytest.mark.parametrize("n,L", [(64, 512), (5, 37), (1, 1), (130, 4096), (3, 5000)],
+                         ids=["script", "ragged", "one", "wide", "past 4096"])
 def test_probe_int16_gram_matches_plain(cuda, n, L):
     """P6a: int16 → f32·(1/32768) is exact; the f32 products within
-    matmul_bound (2·(L + 1)·2^-24·Σ|a||b|)."""
+    matmul_bound (2·(L + 1)·2^-24·Σ|a||b|); ragged tiles and rows, and K
+    past one staged chunk."""
     gen = torch.Generator(cuda).manual_seed(0)
     x = torch.randint(-32768, 32767, (n, L), generator=gen, device=cuda, dtype=torch.int16)
     n0 = int16_gram.launches
@@ -1084,8 +1088,8 @@ def test_featurize_probe_kernels_reject_what_they_do_not_take(cuda):
         dft_mag2(x3, w, w, 6, 4)
     with pytest.raises(ValueError, match="128"):
         chunk_relayout(torch.zeros(2, 12, 20, device=cuda), 3, 4, True)
-    with pytest.raises(ValueError, match="L ≤"):
-        int16_gram(torch.zeros(2, 5000, dtype=torch.int16, device=cuda))
+    with pytest.raises(ValueError, match="int16"):
+        int16_gram(torch.zeros(2, 5000, dtype=torch.int32, device=cuda))
 
 
 # ---- K4 on the eval sweeps' path (pcaudio_torch.eval.experiments) ----------

@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py
 
+Each phase's start is logged in seconds of script time (``[phase]``).
+
 0. prints the card (name, power limit), torch and CUDA versions, and turns
    TF32 off for the plain references;
 1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a);
@@ -65,7 +67,8 @@
    (plain, old, new, new, old, plain, the library call; TFLOP/s and % of
    peak; P4a held exactly at the signed permutation), ptxas' registers
    and spills for the wgmma kernels, and the HGMMA / IGMMA count of their
-   SASS (every instantiation must hold one);
+   SASS (every instantiation must hold one; cuobjdump reads it in a
+   process of its own from the end of phase 1 on);
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
    batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
@@ -74,8 +77,9 @@
    through the ring's 6 slots, then runs the probe's timings
    (``pcaudio_torch.probes.ingest``: decode-only and end-to-end clips/s,
    H2D and compute ms a batch, the idle share, request latency p50/p99);
-10. runs the paper's evaluation on the card: generates the synthetic ESC-10
-   corpus at its full 40 clips per class, classifies the FST recipe's
+10. runs the paper's evaluation on the card on the synthetic ESC-10 corpus
+   at its full 40 clips per class (written by a process of its own while
+   phase 8 runs; phase 10 waits for it), classifies the FST recipe's
    17,280 test clouds with the trained FST checkpoint
    (artifacts/roundtrip/FST_roundtrip_net.pth) three ways (K4, K1 and the
    f32 plain ST; the f32 accuracy must round to the 0.9828 the JAX package
@@ -88,7 +92,24 @@
    counts K4's launches and profiles one expt-2 microbatch for K4's share
    of the device time; then runs a seeded full-width 3ST's expt 1 and expt 2
    (8 clips, K 1, 2561 and 5120, 2 runs) on both engines, whose logits
-   must agree tie-aware.
+   must agree tie-aware;
+11. runs the paper's two baselines, FB and CNN_temp, which no kernel serves
+   (each kernel's launches over this path are printed): on phase 6's corpus
+   ``cli train FB`` and ``cli train CNNTemp`` for one epoch at full width
+   on the card (every step loss finite), one batch's loss and gradients on
+   the card against the CPU with the recipe's seeded weights and dropout
+   off (within 1e-4 of the gradient vector's largest entry), and each
+   recipe's step time (CUDA events, 20 steps); then on phase 10's corpus
+   ``cli eval`` of each, expt 1 (n_fft pinned) and expt 2 ("replace"), on
+   the card from the ``.pth`` and ``reference_config.json`` training
+   wrote: each file has the keys and lists of
+   artifacts/cli_cycle/paper_plots/, every maxK spread is 0, and a cut
+   (expt 1 at 44.1 kHz and two windows, maxK at three K) on 16 test clips
+   (every fifth)
+   agrees, card against CPU, within 0.01, with the trained and with the
+   seeded weights; each sweep's wall time is printed, and each trained
+   recipe's step is profiled by kernel at the end of the run.  No kernel
+   may launch over this path.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -99,11 +120,13 @@ never calls).
 Any failure raises, so the exit code is non-zero.  The second-to-last line
 of output is the kernels' JSON record, the last one the device record.
 """
+import atexit
 import dataclasses
 import json
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -114,10 +137,12 @@ import torch.nn.functional as F
 from pcaudio_torch import cli, native
 from pcaudio_torch.checkpoint import load_reference_pth
 from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves
+from pcaudio_torch.core.config import ExperimentConfig
 from pcaudio_torch.eval import (
-    TemporalPipelineConfig, extract_chunk_clouds, make_3st_chunk_classifier,
-    make_cloud_classifier, make_temporal_classifier, temporal_expt1,
-    temporal_expt2)
+    TemporalPipelineConfig, extract_chunk_clouds, framewise_expt1,
+    framewise_expt2, make_3st_chunk_classifier, make_cloud_classifier,
+    make_cnn_chunk_classifier, make_fb_frame_classifier,
+    make_temporal_classifier, temporal_expt1, temporal_expt2)
 from pcaudio_torch.eval.experiments import (
     _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
 from pcaudio_torch.nn import ST
@@ -139,8 +164,8 @@ from pcaudio_torch.probes.timing import (
     bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
 from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
-    RECIPES, build_trainer, make_train_step, prepare_framewise_data,
-    prepare_temporal_data)
+    RECIPES, build_trainer, make_train_step, prepare_data,
+    prepare_framewise_data, prepare_temporal_data)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_B = 1024
@@ -185,6 +210,13 @@ SWEEP_TOL = 0.01      # |port - JAX package| of a sweep cell (phase 10)
 ANCHOR_ACC = 0.9828   # the f32 ST on the 17,280 test clouds (roundtrip_report.json)
 EVAL_3ST_CLIPS, EVAL_3ST_K, EVAL_3ST_RUNS = 8, [1, 2561, 5120], 2
 INGEST_FILES, INGEST_BATCH = 2048, 512   # the ingest probe's shape
+BASELINES = ("FB", "CNNTemp")
+# phase 11's cut of each baseline sweep, card against CPU: expt 1 at
+# the full rate and two windows (the training window and half of it; FB's
+# 2048 and 1024), maxK at three K (first, middle, last of the list)
+BASE_CPU_WINDOWS = {"FB": [2048, 1024], "CNNTemp": [1024, 512]}
+BASE_GRAD_TOL = 1e-4  # card vs CPU: of the gradient vector's largest entry
+BASE_CUT_STRIDE = 5  # that cut on every 5th test clip: 16 of 80, every class
 
 
 WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel", "dft_mag2_kernel", "chain_kernel")
@@ -202,11 +234,29 @@ def wgmma_kernel_of(mangled):
     return next((k for k in WGMMA_KERNELS if f"{len(k)}{k}" in mangled), None)
 
 
-def wgmma_report(lib_path):
+def start_sass_dump(lib_path):
+    """Start ``cuobjdump -sass`` of the built library in a process of its
+    own, into a file (about 15 s on one core, 42 MB of text), so that it
+    runs beside phases 2-7 and not in phase 8, which reads it; None where
+    cuobjdump does not exist."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    work = tempfile.mkdtemp(prefix="pcaudio_sass_")
+    atexit.register(shutil.rmtree, work, True)
+    path = os.path.join(work, "sass.txt")
+    with open(path, "w") as out:
+        proc = subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out,
+                                stderr=subprocess.DEVNULL)
+    atexit.register(proc.kill)
+    return proc, path
+
+
+def wgmma_report(sass_job):
     """Phase 8: ptxas' registers, shared memory and spills of the wgmma
     kernels (build.log), and, where cuobjdump exists, how many HGMMA /
-    IGMMA instructions each one's SASS holds; fails unless every
-    instantiation of WGMMA_INSTANCES holds one."""
+    IGMMA instructions each one's SASS holds (``start_sass_dump``'s file);
+    fails unless every instantiation of WGMMA_INSTANCES holds one."""
     lines, current = [], None
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "Compiling entry function" in line:
@@ -215,11 +265,12 @@ def wgmma_report(lib_path):
                 lines.append(f"ptxas {line.split(chr(39))[1][:90]}")
         elif current and ("registers" in line or "spill" in line or "C75" in line):
             lines.append(f"ptxas   {line.strip()[:160]}")
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
+    if sass_job is None:
         return lines + ["cuobjdump: not found, SASS not read"]
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True).stdout
+    proc, path = sass_job
+    proc.wait()
+    with open(path) as f:
+        sass = f.read()
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -238,6 +289,14 @@ def wgmma_report(lib_path):
 
 def log(msg):
     print(msg, flush=True)
+
+
+T_START = time.perf_counter()
+
+
+def phase(title):
+    """Log a phase's start in seconds of script time."""
+    log(f"[phase] {title}: starts at {time.perf_counter() - T_START:.1f} s")
 
 
 def seeded_st(din, seed):
@@ -554,7 +613,8 @@ def train_phase(work, dev):
     cfg, batch = batches["FST"] = recipe_batch("FST", csv, audio, dev)
     res = {}
     for fused in (True, False):
-        model, apply_fn, _ = build_trainer(cfg, dev, fused_attn=fused)
+        state, apply_fn = build_trainer(cfg, dev, fused_attn=fused)
+        model = state.model
         model.load_state_dict(weights["FST"])
         loss = torch.nn.functional.cross_entropy(apply_fn(batch),
                                                  batch["labels"])
@@ -609,7 +669,225 @@ def train_phase(work, dev):
     log(f"[train] the saved 3ST served from 3ST_net.pth with the default "
         f"top_k {clf.pipeline.top_k} through K1-K3 ({served}): labels {lg.argmax(-1).tolist()}, {agree}/10 agree with "
         f"the plain path ({decided} decided), max logit dev {ldev:.3e}")
-    return {"launches": launches, "weights": weights, "batches": batches}
+    return {"launches": launches, "weights": weights, "batches": batches,
+            "corpus": (csv, audio)}
+
+
+def kernel_counts():
+    return {k: w.launches for k, (w, _, _) in KERNELS.items()}
+
+
+def zero_counts():
+    for w, _, _ in KERNELS.values():
+        w.launches = 0
+
+
+def baselines_train_phase(corpus, out_dir, dev, name_limit):
+    """Phase 11, its training half, on phase 6's corpus: ``cli train FB``
+    and ``cli train CNNTemp`` for one epoch at full width on the card
+    (every step loss finite, no kernel launched), one batch's loss and
+    gradients on the card against the CPU with the recipe's seeded weights
+    and dropout off, and each recipe's step time.  Returns each recipe's
+    output directory."""
+    csv, audio = corpus
+    t_phase = time.perf_counter()
+    dirs = {}
+    for tag in BASELINES:
+        cfg = RECIPES[tag]()
+        d = dirs[tag] = os.path.join(out_dir, tag)
+        zero_counts()
+        t0 = time.perf_counter()
+        state, hist = cli.main(["train", tag, "--out-dir", d, "--esc-csv", csv,
+                                "--esc-audio", audio, "--epochs", "1",
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in kernel_counts().items() if n}
+        check(not counts, f"cli train {tag} launched kernels {counts}")
+        losses = hist[0]["step_losses"]
+        check(len(losses) > 0 and bool(np.isfinite(losses).all()),
+              f"{tag}: step losses {losses}")
+        check(next(state.model.parameters()).is_cuda, f"{tag} trained off the card")
+        trained = state.model.state_dict()
+        log(f"[base] {tag} full width (layers {cfg.layers}, dropout "
+            f"{cfg.dropout_prob}), 1 epoch = {len(losses)} steps of "
+            f"{cfg.batch_size} on the card in {wall:.1f} s: first loss "
+            f"{losses[0]:.4f}, mean of the last 10 {np.mean(losses[-10:]):.4f}, "
+            f"test accuracy {hist[0]['test_accuracy']:.4f}; no kernel launched")
+
+        # one batch of the first test clips, dropout off, card against CPU at
+        # the recipe's seeded weights (after one epoch FB's double softmax
+        # saturates, its gradients near 1e-29: no scale to hold them to)
+        waves, lengths, labels = load_esc_split_waves(csv, audio, cfg.numpy_seed,
+                                                      split="test")
+        data = prepare_data(waves[:8], lengths[:8], labels[:8], cfg, device=dev)
+        n = cfg.batch_size
+        check(len(data["labels"]) >= n, f"{tag}: fewer than {n} test inputs")
+        x = torch.from_numpy(data["x"][:n])
+        y = torch.from_numpy(data["labels"][:n]).long()
+        seeded = build_trainer(cfg, "cpu")[0].model.state_dict()
+        res = {}
+        for where in ("cuda", "cpu"):
+            model = cfg.build_model()
+            model.load_state_dict(seeded)
+            model = model.to(where).eval()
+            loss = F.cross_entropy(model(x.to(where)), y.to(where))
+            loss.backward()
+            res[where] = loss.item(), torch.cat(
+                [p.grad.flatten().cpu() for p in model.parameters()])
+        (lg, gg), (lc, gc) = res["cuda"], res["cpu"]
+        gscale = gc.abs().max().item()
+        gerr = (gg - gc).abs().max().item()
+        rel = abs(lg - lc) / abs(lc)
+        log(f"[base] {tag} seeded weights, one batch of {n}, dropout off, "
+            f"card vs CPU: loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}), "
+            f"gradient max |err| {gerr:.3e} of its largest entry "
+            f"{gscale:.3e} ({gerr / max(gscale, 1e-30):.2e}; bar "
+            f"{BASE_GRAD_TOL})")
+        check(rel <= BASE_GRAD_TOL, f"{tag}: card loss {lg} vs CPU {lc}")
+        check(gerr <= BASE_GRAD_TOL * gscale,
+              f"{tag}: card gradients {gerr:.3e} from the CPU's "
+              f"(scale {gscale:.3e})")
+
+        # the recipe's train step (forward with dropout, backward, Adam) at
+        # the trained weights
+        state, apply_fn = build_trainer(cfg, dev)
+        state.model.load_state_dict(trained)
+        step = make_train_step(apply_fn, state.optimizer)
+        batch = {"x": x.to(dev), "labels": y.to(dev)}
+        ms = cuda_ms(lambda: step(batch), 20)
+        log(f"[time] {tag} recipe step (fwd + bwd + Adam, dropout on), batch "
+            f"{n} x {tuple(x.shape[1:])}: {ms:.4f} ms = {n / ms * 1e3:.1f} "
+            f"inputs/s (CUDA events, 20 steps) ({name_limit})")
+    log(f"[base] training half: {time.perf_counter() - t_phase:.1f} s")
+    return dirs
+
+
+def baselines_eval_phase(csv, audio, dirs, name_limit):
+    """Phase 11, its evaluation half, on phase 10's corpus: ``cli eval``
+    of each trained baseline, expt 1 and expt 2, on the card from the
+    ``.pth`` and ``reference_config.json`` that training wrote; each file
+    has the keys and lists of ``artifacts/cli_cycle/paper_plots/``, every
+    maxK spread is 0, no kernel is launched, and a cut of the sweep (expt 1
+    at the full rate and two windows, maxK at three K) on every fifth test
+    clip agrees, card against CPU, within SWEEP_TOL, with the trained
+    weights and with the recipe's seeded ones."""
+    t_phase = time.perf_counter()
+    for tag in BASELINES:
+        d = dirs[tag]
+        config = os.path.join(d, "reference_config.json")
+        pth = os.path.join(d, f"{tag}_net.pth")
+        out = os.path.join(d, "eval")
+        zero_counts()
+        t0 = time.perf_counter()
+        results, prov = cli.main(["eval", "--config", config, "--pth", pth,
+                                  "--esc-csv", csv, "--esc-audio", audio,
+                                  "--experiments", "expt1", "expt2",
+                                  "--out-dir", out, "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: n for k, n in kernel_counts().items() if n}
+        check(not counts, f"cli eval {tag} launched kernels {counts}")
+        check(prov["engine"] == "plain" and prov["backend"] == "cuda",
+              f"{tag} eval: engine {prov['engine']} on {prov['backend']}")
+        names = [f"{tag}_expt1.json", f"{tag}_randK_expt2.json",
+                 f"{tag}_maxK_expt2.json"]
+        check(sorted(results) == sorted(names), f"{tag} eval wrote {sorted(results)}")
+        for name in names:
+            with open(os.path.join(out, name)) as f:
+                got = json.load(f)
+            with open(os.path.join(ROOT, "artifacts", "cli_cycle", "paper_plots",
+                                   name)) as f:
+                ref = json.load(f)
+            with open(os.path.join(out, name.replace(".json", ".provenance.json"))) as f:
+                sweep_s = json.load(f)["wall_s"]
+            check(list(got) == list(ref), f"{name}: keys {list(got)} vs {list(ref)}")
+            for key in ref:
+                if key != "data":
+                    check(got[key] == ref[key], f"{name}: {key} differs")
+            check(list(got["data"]) == list(ref["data"]), f"{name}: data keys differ")
+            check(all(len(g) == len(r) for g, r in zip(got["data"].values(),
+                                                        ref["data"].values())),
+                  f"{name}: cell counts differ")
+            if "maxK" in name:
+                check(all(v[1] == 0 for v in got["data"].values()),
+                      f"{name}: a maxK spread is not 0")
+            cells = [a for v in got["data"].values()
+                     for a in (v if "list_N" in got else v[:1])]
+            log(f"[base] {name}: {sweep_s:.2f} s of wall time on the card; keys "
+                f"and lists identical to the JAX package's file; accuracies "
+                f"{min(cells):.4f}-{max(cells):.4f} ({name_limit})")
+        log(f"[base] cli eval {tag} expt1 expt2: {wall:.1f} s, engine "
+            f"{prov['engine']}; no kernel launched")
+
+        # the cut on the card and on the CPU with the trained weights and,
+        # since a trained FB can name one class everywhere, with the
+        # recipe's seeded ones
+        t0 = time.perf_counter()
+        cfg = ExperimentConfig.from_reference_json(config)
+        trained = cfg.build_model()
+        trained.load_state_dict(load_reference_pth(pth))
+        waves, lengths, labels = load_esc_split_waves(csv, audio, cfg.numpy_seed,
+                                                      split="test")
+        few = slice(0, None, BASE_CUT_STRIDE)
+        list_K = results[names[2]]["list_K"]
+        windows = BASE_CPU_WINDOWS[tag]
+        Ks = [list_K[0], list_K[len(list_K) // 2], list_K[-1]]
+        names_cut = [f"expt1 N={N}" for N in windows] + [f"maxK K={K}" for K in Ks]
+        for which, model in (("trained", trained),
+                             ("seeded", build_trainer(cfg, "cpu")[0].model)):
+            on_card, on_cpu = (baseline_cut(tag, cfg, model, waves[few], lengths[few],
+                                            labels[few], windows, Ks, where)
+                               for where in ("cuda", "cpu"))
+            devs = [(abs(a - b), f"{c} card {a:.6f} CPU {b:.6f}")
+                    for c, a, b in zip(names_cut, on_card, on_cpu)]
+            log(f"[base] {tag} sweep cut, {which} weights, {len(labels[few])} clips, "
+                "card vs CPU: " + "; ".join(c for _, c in devs))
+            for dv, cell in devs:
+                check(dv <= SWEEP_TOL,
+                      f"{tag} {which} card vs CPU: {cell} beyond {SWEEP_TOL}")
+        log(f"[base] {tag} sweep cuts: {time.perf_counter() - t0:.1f} s")
+
+        # the trained recipe's step by kernel, profiled here at the end of
+        # the run: a profile leaves later host-bound launches slower
+        state, apply_fn = build_trainer(cfg, "cuda")
+        state.model.load_state_dict(load_reference_pth(pth))
+        data = prepare_data(waves[:8], lengths[:8], labels[:8], cfg, device="cuda")
+        n = cfg.batch_size
+        batch = {"x": torch.from_numpy(data["x"][:n]).cuda(),
+                 "labels": torch.from_numpy(data["labels"][:n]).long().cuda()}
+        step = make_train_step(apply_fn, state.optimizer)
+        per, idle = profile_device(lambda: step(batch), 5)
+        check(not any(k.startswith("Optimizer.") for k in per),
+              f"{tag} step profile counts an annotation range: {list(per)[:5]}")
+        log(f"[time] {tag} step profile: device {sum(per.values()):.4f} ms a step in "
+            f"{len(per)} kernels, idle share {idle:.4f}; by kernel: "
+            + "; ".join(f"{_short(k)} {v:.4f}" for k, v in list(per.items())[:8])
+            + f" ({name_limit})")
+    log(f"[base] evaluation half: {time.perf_counter() - t_phase:.1f} s")
+
+
+@torch.no_grad()
+def baseline_cut(tag, cfg, model, waves, lengths, labels, windows, Ks, device):
+    """Phase 11's cut of a baseline sweep on ``device``: expt 1's accuracies
+    at the full rate and ``windows``, then maxK's at ``Ks``."""
+    model = model.to(device).eval()
+    common = dict(fsog=cfg.sampling_rate, Nfft=cfg.window_size,
+                  hf=cfg.hop_factor, tDb=cfg.trim_dB, device=device)
+    if tag == "FB":
+        fn = make_fb_frame_classifier(model)
+        e1 = framewise_expt1(fn, waves, lengths, labels, fixed_nfft=True,
+                             list_Fs=[cfg.sampling_rate], list_N=windows, **common)
+        _, mx = framewise_expt2(fn, None, waves, lengths, labels, mode="replace",
+                                list_K=Ks, nruns=1, **common)
+    else:
+        fn = make_cnn_chunk_classifier(model)
+        e1 = temporal_expt1(fn, waves, lengths, labels, Ntemp=cfg.Ntemp,
+                            fixed_nfft=True, list_Fs=[cfg.sampling_rate],
+                            list_N=windows, **common)
+        _, mx = temporal_expt2(None, fn, waves, lengths, labels, mode="replace",
+                               Ntemp=cfg.Ntemp, list_K=Ks, nruns=1, **common)
+    return e1["data"][cfg.sampling_rate] + [mx["data"][K][0] for K in Ks]
 
 
 def ingest_phase(name_limit):
@@ -811,15 +1089,30 @@ def eval_3st_phase(csv, audio, name_limit):
         f"logit dev {dev:.3e}; largest accuracy difference {max(diffs):.3e}")
 
 
-def eval_phase(name_limit):
-    """Phase 10; returns K4's forward launches in ``cli eval``."""
-    work = tempfile.mkdtemp(prefix="pcaudio_eval_")
+def start_eval_corpus(work):
+    """Start writing phase 10's corpus (40 clips a class) in a process of
+    its own, beside phase 8's GPU-bound probes, so that its 15 s of numpy
+    do not add to the run; phase 10 waits for it."""
+    corpus_dir = os.path.join(work, "corpus")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from pcaudio_torch.data import "
+         "generate_esc_corpus; generate_esc_corpus(sys.argv[1], clips_per_class=40)",
+         corpus_dir], cwd=ROOT)
+    atexit.register(proc.kill)
+    return proc, corpus_dir
+
+
+def eval_phase(name_limit, base_dirs, work, corpus_job, corpus_dir):
+    """Phase 10, then phase 11's evaluation half on its corpus; returns K4's
+    forward launches in ``cli eval``."""
     try:
         t0 = time.perf_counter()
-        csv, audio = generate_esc_corpus(os.path.join(work, "corpus"),
-                                         clips_per_class=40)
-        log(f"[eval] synthetic ESC-10 corpus, 40 clips per class, written in "
-            f"{time.perf_counter() - t0:.1f} s")
+        rc = corpus_job.wait()
+        check(rc == 0, f"the eval corpus' writer exited with {rc}")
+        # the writer left every clip in place: this writes the csv only
+        csv, audio = generate_esc_corpus(corpus_dir, clips_per_class=40)
+        log(f"[eval] synthetic ESC-10 corpus, 40 clips per class, written "
+            f"during phase 8; waited {time.perf_counter() - t0:.1f} s for it")
         pts, y = anchor_phase(csv, audio, name_limit)
 
         config = os.path.join(work, "FST_config.json")
@@ -887,6 +1180,9 @@ def eval_phase(name_limit):
         del pts, y, model
         torch.cuda.empty_cache()
         eval_3st_phase(csv, audio, name_limit)
+        # ---- 11, second half: the baselines' sweeps on this corpus ---------
+        phase("11, second half: the baselines' sweeps on this corpus")
+        baselines_eval_phase(csv, audio, base_dirs, name_limit)
         return launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -895,10 +1191,10 @@ def eval_phase(name_limit):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
 
     # ---- 0. the card -------------------------------------------------------
+    phase("0. the card")
     name_limit = card()
     log(name_limit)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -909,6 +1205,7 @@ def main():
         f"cudnn={torch.backends.cudnn.allow_tf32}")
 
     # ---- 1. build ----------------------------------------------------------
+    phase("1. build")
     t0 = time.perf_counter()
     # the earlier design of the redesigned probe kernels (phase 8),
     # its compilers started beside the main build's
@@ -921,11 +1218,13 @@ def main():
             proc.kill()
         raise
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    sass_job = start_sass_dump(lib_path)
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
 
     # ---- 2. each kernel vs its plain version at main-path shapes ------------
+    phase("2. each kernel vs its plain version at main-path shapes")
     rng = np.random.default_rng(0)
     w_np, len_np = synthetic_waves(64, rng)
     waves = torch.from_numpy(w_np).to(dev)
@@ -1072,6 +1371,7 @@ def main():
     del grids, cloud, got, ref
 
     # ---- 3. the slice: AudioClassifier answers three requests ---------------
+    phase("3. the slice: AudioClassifier answers three requests")
     clf = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
                           buffer_len=L, device="cuda")
     plain_clf = AudioClassifier(model=model, pipeline=CFG, batch_size=64,
@@ -1101,6 +1401,7 @@ def main():
             f"max logit dev {ldev:.3e}")
 
     # ---- 4. timings at the bench shape --------------------------------------
+    phase("4. timings at the bench shape")
     gen = torch.Generator(dev).manual_seed(0)
     bw = 0.1 * torch.randn(BENCH_B, L, device=dev, generator=gen)
     bl = torch.full((BENCH_B,), 220500, dtype=torch.int32, device=dev)
@@ -1245,6 +1546,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 5. K4 vs its plain pair at the recipes' attends --------------------
+    phase("5. K4 vs its plain pair at the recipes' attends")
     gen = torch.Generator(dev).manual_seed(5)
     k4_fwd_err = k4_bwd_err = 0.0
     cases = ([(128, N, M, {}) for N, M in FST_ATTENDS.values()]
@@ -1263,14 +1565,22 @@ def main():
     errs["fused_mha_fwd"], errs["fused_mha_bwd"] = k4_fwd_err, k4_bwd_err
 
     # ---- 6. training through the CLI ----------------------------------------
+    phase("6. training through the CLI")
     work = tempfile.mkdtemp(prefix="pcaudio_smoke_")
+    base_dir = tempfile.mkdtemp(prefix="pcaudio_baselines_")
+    atexit.register(shutil.rmtree, base_dir, True)
     try:
         train_out = train_phase(work, dev)
+        # ---- 11, first half: the baselines trained on phase 6's corpus -----
+        phase("11, first half: the baselines trained on phase 6's corpus")
+        base_dirs = baselines_train_phase(train_out["corpus"], base_dir, dev,
+                                          name_limit)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches.update(train_out["launches"])
 
     # ---- 7. K4 and the recipe steps, timed ------------------------------------
+    phase("7. K4 and the recipe steps, timed")
     scale = 1.0 / DV ** 0.5
     k4_ms = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     k4_lib = {"fwd": 0.0, "bwd": 0.0}
@@ -1317,9 +1627,9 @@ def main():
     for tag, (cfg, batch) in train_out["batches"].items():
         steps = {}
         for fused in (True, False):
-            model, apply_fn, opt = build_trainer(cfg, dev, fused_attn=fused)
-            model.load_state_dict(train_out["weights"][tag])
-            steps[fused] = make_train_step(apply_fn, opt)
+            state, apply_fn = build_trainer(cfg, dev, fused_attn=fused)
+            state.model.load_state_dict(train_out["weights"][tag])
+            steps[fused] = make_train_step(apply_fn, state.optimizer)
         k_ms, p_ms = paired_ms(lambda: steps[True](batch),
                                lambda: steps[False](batch), 20, 20)
         n = cfg.batch_size
@@ -1330,6 +1640,10 @@ def main():
         step_profile(tag, lambda: steps[True](batch), name_limit)
 
     # ---- 8. the probes at their TPU scripts' shapes ---------------------------
+    phase("8. the probes at their TPU scripts' shapes")
+    eval_work = tempfile.mkdtemp(prefix="pcaudio_eval_")
+    atexit.register(shutil.rmtree, eval_work, True)
+    corpus_job, corpus_dir = start_eval_corpus(eval_work)
     # each probe is its own path: a probe kernel's count starts at 0 before
     # its timed launches and is read after them (timing.measure)
     probe_rows = []
@@ -1356,14 +1670,17 @@ def main():
     t0 = time.perf_counter()
     old = probe_stages.finish_old_builds(old_jobs)
     probe_stages.compare(dev, old, name_limit)
-    for line in wgmma_report(lib_path):
+    for line in wgmma_report(sass_job):
         log(f"[probe] {line}")
     log(f"[probe] old against new: {time.perf_counter() - t0:.1f} s")
     # ---- 9. the serving ingest: WAV files through classify_paths -----------
+    phase("9. the serving ingest: WAV files through classify_paths")
     ingest_phase(name_limit)
     # ---- 10. the paper's evaluation: cli eval through K4 --------------------
-    launches["fused_mha_fwd"] += eval_phase(name_limit)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    phase("10. the paper's evaluation: cli eval through K4")
+    launches["fused_mha_fwd"] += eval_phase(name_limit, base_dirs, eval_work,
+                                            corpus_job, corpus_dir)
+    log(f"[done] {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,

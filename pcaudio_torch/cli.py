@@ -1,28 +1,34 @@
 """pcaudio_torch command-line interface (counterpart of ``pcaudio/cli.py``).
 
-    python -m pcaudio_torch.cli train FST --esc-csv esc50.csv \\
-        --esc-audio audio/ --out-dir runs/fst [--epochs N] \\
-        [--checkpoint-every N] [--max-steps N] [--device cuda|cpu]
+    python -m pcaudio_torch.cli train FST|FB|3ST|CNNTemp \\
+        --esc-csv esc50.csv --esc-audio audio/ --out-dir runs/fst \\
+        [--epochs N] [--checkpoint-every N] [--max-steps N] \\
+        [--device cuda|cpu]
     python -m pcaudio_torch.cli eval --config FST_config.json \\
         (--pth FST_net.pth | --checkpoint runs/fst) --esc-csv esc50.csv \\
         --esc-audio audio/ [--experiments expt1 expt2] [--out-dir DIR] \\
         [--device cuda|cpu]
+    python -m pcaudio_torch.cli plots --results-dir DIR --out-dir figures/
 
 ``train`` featurizes the seeded ESC-10 train/test split on the device, trains
 the recipe (``pcaudio_torch.train.recipes``) and writes, under ``--out-dir``,
 the training checkpoints ``step_<epoch>.pt``, the reference config sidecar
 ``reference_config.json`` and the weights as a reference-convention
-``<recipe>_net.pth``, which ``pcaudio_torch.serve.AudioClassifier.
-from_reference_checkpoint`` loads for a 3ST.
+``<recipe>_net.pth`` (with the ``module.`` prefix for FST and 3ST, without
+for FB and CNNTemp, as the reference saves them), which ``pcaudio_torch.
+serve.AudioClassifier.from_reference_checkpoint`` loads for a 3ST.
 
 ``eval`` runs the paper's robustness sweeps (``pcaudio_torch.eval.
-experiments``) for an FST or a 3ST on the config's seeded test split and
-writes ``<tag>_expt1.json``, ``<tag>_randK_expt2.json`` and
-``<tag>_maxK_expt2.json`` in the reference's schema, each with a
-``.provenance.json`` side-file.
+experiments``) for the config's model (FST, FB, 3ST or CNN_Temp) on its
+seeded test split and writes ``<tag>_expt1.json``,
+``<tag>_randK_expt2.json`` and ``<tag>_maxK_expt2.json`` in the
+reference's schema, each with a ``.provenance.json`` side-file.
 
-Each command runs on ``cuda`` unless ``--device cpu`` is given; without a
-CUDA device that is an error.
+``plots`` draws the paper's five figures from a directory of those files
+(``pcaudio_torch.eval.plots``; needs matplotlib).
+
+``train`` and ``eval`` run on ``cuda`` unless ``--device cpu`` is given;
+without a CUDA device that is an error.
 """
 from __future__ import annotations
 
@@ -46,11 +52,10 @@ def cmd_train(args):
     import torch
 
     from pcaudio_torch.checkpoint import export_reference_pth, save_checkpoint
-    from pcaudio_torch.core.config import ARCH_FST
     from pcaudio_torch.data import load_esc_split_waves
     from pcaudio_torch.train import (
-        RECIPES, TrainState, build_trainer, fit, make_eval_step,
-        make_train_step, prepare_framewise_data, prepare_temporal_data)
+        RECIPES, build_trainer, fit, make_eval_step, make_train_step,
+        prepare_data)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
@@ -58,21 +63,19 @@ def cmd_train(args):
     cfg = RECIPES[args.recipe]()
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
-    prep = (prepare_framewise_data if cfg.architecture == ARCH_FST
-            else prepare_temporal_data)
     splits = {}
     for split in ("train", "test"):
         waves, lengths, labels = load_esc_split_waves(
             args.esc_csv, args.esc_audio, cfg.numpy_seed, split=split)
-        splits[split] = prep(waves, lengths, labels, cfg, device=device)
+        splits[split] = prepare_data(waves, lengths, labels, cfg, device=device)
+    key, what = ("points", "clouds") if cfg.is_set_model else ("x", "inputs")
     print(f"{args.recipe}: {len(splits['train']['labels'])} train / "
-          f"{len(splits['test']['labels'])} test clouds of "
-          f"{splits['train']['points'].shape[1]} points on {device}")
+          f"{len(splits['test']['labels'])} test {what} of shape "
+          f"{tuple(splits['train'][key].shape[1:])} on {device}")
 
-    model, apply_fn, optimizer = build_trainer(cfg, device=device)
-    state = TrainState(model, optimizer)
+    state, apply_fn = build_trainer(cfg, device=device)
     state, history = fit(
-        state, make_train_step(apply_fn, optimizer), splits["train"],
+        state, make_train_step(apply_fn, state.optimizer), splits["train"],
         batch_size=cfg.batch_size, epochs=cfg.epochs, seed=cfg.numpy_seed,
         eval_data=splits["test"], eval_step=make_eval_step(apply_fn),
         eval_every=10, checkpoint_dir=args.out_dir,
@@ -81,7 +84,7 @@ def cmd_train(args):
     last = history[-1]["epoch"] + 1 if history else cfg.epochs
     save_checkpoint(args.out_dir, state, cfg, step=last)
     pth = os.path.join(args.out_dir, f"{args.recipe}_net.pth")
-    export_reference_pth(model, pth)
+    export_reference_pth(state.model, pth, cfg)
     print(f"saved checkpoint step_{last}.pt and {os.path.basename(pth)} "
           f"to {args.out_dir}")
     return state, history
@@ -181,11 +184,13 @@ def cmd_eval(args):
     """Run the sweeps of ``args.experiments`` and write their files; returns
     ``{file name: result dict}`` and the provenance.
 
-    On a CUDA device the sweeps' attention runs through kernel K4 unless
-    ``PCAUDIO_FUSED_ATTN=0``, after :func:`_fused_parity_gate` holds the K4
-    model against the plain one.  Unlike the JAX ``cmd_eval``, which falls
-    back to its XLA path when the gate fails, a failed gate prints the
-    gate's record and exits non-zero: no fallback hides the kernel."""
+    On a CUDA device an FST's or a 3ST's attention runs through kernel K4
+    unless ``PCAUDIO_FUSED_ATTN=0``, after :func:`_fused_parity_gate`
+    holds the K4 model against the plain one; the baselines have no
+    attention and run plain (provenance ``engine: "plain"``).  Unlike the
+    JAX ``cmd_eval``, which falls back to its XLA path when the gate fails,
+    a failed gate prints the gate's record and exits non-zero: no fallback
+    hides the kernel."""
     import torch
 
     from pcaudio_torch.checkpoint import load_checkpoint, load_reference_pth
@@ -195,24 +200,23 @@ def cmd_eval(args):
     from pcaudio_torch.data import load_esc_split_waves
     from pcaudio_torch.eval import (
         framewise_expt1, framewise_expt2, make_3st_chunk_classifier,
-        make_cloud_classifier, make_fst_frame_classifier, temporal_expt1,
+        make_cloud_classifier, make_cnn_chunk_classifier,
+        make_fb_frame_classifier, make_fst_frame_classifier, temporal_expt1,
         temporal_expt2)
     from pcaudio_torch.utils.metrics import dump_with_provenance
 
     cfg = ExperimentConfig.from_reference_json(args.config)
     arch = cfg.architecture
-    if arch in (ARCH_FB, ARCH_CNN):
-        raise NotImplementedError(
-            f"eval of {arch!r}: its model is not ported yet (ROADMAP Queue 1 "
-            f"item 6)")
-    if arch not in (ARCH_FST, ARCH_3ST):
+    tags = {ARCH_FST: "FST", ARCH_FB: "FB", ARCH_3ST: "3ST", ARCH_CNN: "CNNTemp"}
+    if arch not in tags:
         raise ValueError(f"unknown architecture {arch!r}")
     if "rebut" in args.experiments:
         raise NotImplementedError("the rebuttal sweep needs ops/subsample.py, "
                                   "which is not ported yet (ROADMAP Queue 1 "
                                   "item 5)")
     device = resolve_device(args.device)
-    fused = _fused_attn_choice(device)
+    # the baselines have no attention: no K4, no gate
+    fused = _fused_attn_choice(device) and cfg.is_set_model
     state_dict = (load_reference_pth(args.pth) if args.pth
                   else load_checkpoint(args.checkpoint)[0]["model"])
     model = _model(cfg, state_dict, False, device)
@@ -240,7 +244,7 @@ def cmd_eval(args):
               f"real data, {gate['agreement'][0]}/{gate['agreement'][1]})",
               flush=True)
 
-    tag = "FST" if arch == ARCH_FST else "3ST"
+    tag = tags[arch]
     os.makedirs(args.out_dir, exist_ok=True)
     results = {}
 
@@ -257,9 +261,16 @@ def cmd_eval(args):
         if arch == ARCH_FST:
             out = framewise_expt1(make_fst_frame_classifier(model), waves,
                                   lengths, labels, **common)
-        else:
+        elif arch == ARCH_FB:
+            out = framewise_expt1(make_fb_frame_classifier(model), waves,
+                                  lengths, labels, fixed_nfft=True, **common)
+        elif arch == ARCH_3ST:
             out = temporal_expt1(make_3st_chunk_classifier(model), waves,
                                  lengths, labels, Ntemp=cfg.Ntemp, **common)
+        else:
+            out = temporal_expt1(make_cnn_chunk_classifier(model), waves,
+                                 lengths, labels, Ntemp=cfg.Ntemp,
+                                 fixed_nfft=True, **common)
         dump(out, f"{tag}_expt1.json", t0)
     if "expt2" in args.experiments:
         t0 = time.perf_counter()
@@ -267,20 +278,38 @@ def cmd_eval(args):
             rnd, mx = framewise_expt2(None, make_cloud_classifier(model),
                                       waves, lengths, labels, mode="cloud",
                                       **common)
-        else:
+        elif arch == ARCH_FB:
+            rnd, mx = framewise_expt2(make_fb_frame_classifier(model), None,
+                                      waves, lengths, labels, mode="replace",
+                                      **common)
+        elif arch == ARCH_3ST:
             rnd, mx = temporal_expt2(make_cloud_classifier(model), None,
                                      waves, lengths, labels, mode="cloud",
+                                     Ntemp=cfg.Ntemp, **common)
+        else:
+            rnd, mx = temporal_expt2(None, make_cnn_chunk_classifier(model),
+                                     waves, lengths, labels, mode="replace",
                                      Ntemp=cfg.Ntemp, **common)
         dump(rnd, f"{tag}_randK_expt2.json", t0)
         dump(mx, f"{tag}_maxK_expt2.json", t0)
     return results, prov
 
 
+def cmd_plots(args):
+    """Draw the paper's figures; returns their paths."""
+    from pcaudio_torch.eval.plots import generate_all
+
+    outs = generate_all(args.results_dir, args.out_dir)
+    for o in outs:
+        print(o)
+    return outs
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pcaudio_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("train", help="train a reference recipe")
-    p.add_argument("recipe", choices=["FST", "3ST"])
+    p.add_argument("recipe", choices=["FST", "FB", "3ST", "CNNTemp"])
     _add_esc_args(p)
     p.add_argument("--epochs", type=int, default=None,
                    help="override the recipe's 500 epochs")
@@ -304,6 +333,12 @@ def build_parser() -> argparse.ArgumentParser:
     e.add_argument("--out-dir", default="paper_plots")
     e.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     e.set_defaults(fn=cmd_eval)
+
+    pl = sub.add_parser("plots", help="draw the paper's figures")
+    pl.add_argument("--results-dir", required=True,
+                    help="directory of the eval result files")
+    pl.add_argument("--out-dir", required=True)
+    pl.set_defaults(fn=cmd_plots)
     return ap
 
 

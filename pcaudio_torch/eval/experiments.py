@@ -1,9 +1,10 @@
-"""The paper's evaluation sweeps for the set models (counterpart of
-``pcaudio/eval/experiments.py``, FST and 3ST).
+"""The paper's evaluation sweeps (counterpart of
+``pcaudio/eval/experiments.py``) for its four models.
 
 The reference's eval scripts (``Code/pceval.py`` for FST,
-``Code/pc_temp3d_eval.py`` for 3ST) re-run the classifier under shifted
-conditions.  The emitted dicts serialize to exactly the reference's
+``Code/baseline_eval.py`` for FB, ``Code/pc_temp3d_eval.py`` for 3ST,
+``Code/baseline_temp_eval.py`` for CNN_temp) re-run the classifier under
+shifted conditions.  The emitted dicts serialize to exactly the reference's
 ``Code/paper_plots/*.json`` schemas:
 
   expt1:  ``{"data": {Fs: [acc per N]}, "list_Fs": [...], "list_N": [...]}``
@@ -13,8 +14,14 @@ Featurization per sweep point (``pceval.py:76``): ``n_fft =
 2^ceil(log2 N)``, window N, hop ``N·hf``, magnitude / N, the clip trimmed at
 the original rate and then resampled to Fs; the temporal variant drops the
 Nyquist row and chunks into Ntemp frames (``pc_temp3d_eval.py:75-78``).
-Expt 2 keeps K points of each cloud: the K largest log-magnitudes (maxK)
-and ``nruns`` uniform random K-subsets (randK, ``pceval.py:114``).
+The grid baselines take a fixed input width, so their sweep pins n_fft to
+the training window (``fixed_nfft``: the window shrinks inside it, the
+magnitude is divided by n_fft, and no window is longer than it;
+``Code/baseline_eval.py:54``).  Expt 2 keeps K points of each cloud:
+the K largest log-magnitudes (maxK) and ``nruns`` uniform random K-subsets
+(randK, ``pceval.py:114``); the baselines' "replace" mode zeroes the
+grid's other bins instead (``baseline_eval.py:105-183``), the grid ranked
+by its own values and, for CNN_temp, flattened frequency-fastest.
 
 Expt 2 is a rank mask over the full cloud in original point order:
 ``rank < K`` where ``rank`` is a point's place in a stable descending sort
@@ -29,11 +36,7 @@ Not ported, because each works around an XLA compile or a TPU dispatch
 cost that eager PyTorch does not have: ``_SweepPrefetcher`` and
 ``_compile_workers`` (compiles of sweep points in threads), the
 ``PCAUDIO_EVAL_K_CHUNK`` slicing of the K axis and the padding of the last
-microbatch (one compiled program).  The FB and CNN_temp "replace" modes and
-the rebuttal sweep need models and ``ops/subsample.py`` that are not ported
-yet (ROADMAP Queue 1 items 5-6) and raise; so does their featurization
-with n_fft pinned to the training window (the JAX ``fixed_nfft``), which
-comes with them.
+microbatch (one compiled program).
 
 Deviation kept from the JAX package: accuracy is over ALL valid frames or
 chunks, where the reference drops the shuffled DataLoader's last partial
@@ -62,9 +65,6 @@ _MB_FRAMES = 1024
 _MB_CHUNKS = 256
 CLIPS_PER_PASS = 64  # clips featurized together: bounds the STFT's memory
 
-_NOT_PORTED = ("needs a model that is not ported yet (ROADMAP Queue 1 item "
-               "6: the FB and CNN_temp baselines)")
-
 
 def default_list_N(Nfft: int, include_larger: bool = True) -> List[int]:
     """The reference window sweep (``Code/pceval.py:56``); set models also
@@ -90,17 +90,19 @@ def default_list_K(n_total: int) -> List[int]:
     return [int(k) for k in ks]
 
 
-def sweep_featurize_config(F, N: int, *, fsog: int, hf: float,
-                           tDb: float) -> FeaturizeConfig:
-    """Featurizer for one (sampling-rate, window) sweep point of a set
-    model."""
+def sweep_featurize_config(F, N: int, *, fsog: int, hf: float, tDb: float,
+                           fixed_nfft: Optional[int] = None) -> FeaturizeConfig:
+    """Featurizer for one (sampling-rate, window) sweep point: n_fft is
+    ``2^ceil(log2 N)`` and the magnitude is divided by N, or, with
+    ``fixed_nfft`` (the grid baselines), both are ``fixed_nfft``."""
+    pinned = fixed_nfft is not None
     return FeaturizeConfig(
         fs=fsog,
         target_fs=None if int(F) == fsog else int(F),
-        n_fft=2 ** int(math.ceil(math.log2(N))),
+        n_fft=fixed_nfft if pinned else 2 ** int(math.ceil(math.log2(N))),
         win_length=N,
         hop_length_override=int(N * hf),
-        mag_norm=float(N),
+        mag_norm=float(fixed_nfft) if pinned else float(N),
         top_db=tDb,
         trim=True,
     )
@@ -126,10 +128,11 @@ def _featurize(kept, cfg: FeaturizeConfig):
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
 
 
-def _sweep_configs(F, list_N, fsog, hf, tDb):
+def _sweep_configs(F, list_N, fsog, hf, tDb, fixed_nfft=None):
     """The featurizers of one rate's sweep points; trim and resampling
     depend on the rate alone, so the sweep runs them once a rate."""
-    return [sweep_featurize_config(F, N, fsog=fsog, hf=hf, tDb=tDb)
+    return [sweep_featurize_config(F, N, fsog=fsog, hf=hf, tDb=tDb,
+                                   fixed_nfft=fixed_nfft)
             for N in list_N]
 
 
@@ -263,30 +266,40 @@ def _run_masked_sweep(mb_counts: Callable, arrays: Sequence[torch.Tensor],
 # experiment 1: (Fs, N) robustness sweeps
 # ---------------------------------------------------------------------------
 
-def _expt1_lists(fsog, Nfft, list_Fs, list_N):
+def _expt1_lists(fsog, Nfft, list_Fs, list_N, fixed_nfft):
+    """The sweep's rates and windows; a pinned n_fft takes no window
+    longer than the training window (``Code/baseline_eval.py:54``)."""
     list_Fs = list(default_list_Fs(fsog) if list_Fs is None else list_Fs)
-    list_N = default_list_N(Nfft) if list_N is None else list_N
-    return list_Fs, [int(n) for n in list_N]
+    if list_N is None:
+        list_N = default_list_N(Nfft, include_larger=not fixed_nfft)
+    list_N = [int(n) for n in list_N]
+    if fixed_nfft and max(list_N) > Nfft:
+        raise ValueError(f"windows {list_N} exceed the pinned n_fft {Nfft}")
+    return list_Fs, list_N
 
 
 @torch.no_grad()
 def framewise_expt1(frame_classifier: Callable, waves, lengths, labels, *,
                     fsog: int = 44100, Nfft: int = 2048, hf: float = 0.5,
-                    tDb: float = 60.0, list_Fs: Optional[Sequence] = None,
+                    tDb: float = 60.0, fixed_nfft: bool = False,
+                    list_Fs: Optional[Sequence] = None,
                     list_N: Optional[Sequence[int]] = None,
                     device="cuda") -> Dict:
-    """FST experiment 1 (``Code/pceval.py:55-105``): the accuracy over the
-    valid frames of the clips at each rate of ``list_Fs`` and window of
-    ``list_N``.
+    """FST / FB experiment 1 (``Code/pceval.py:55-105`` /
+    ``Code/baseline_eval.py:53-103``): the accuracy over the valid frames
+    of the clips at each rate of ``list_Fs`` and window of ``list_N``.
 
     ``frame_classifier(frames [Nb, bins], farr [bins]) -> logits`` (see
-    :func:`make_fst_frame_classifier`).  Runs on ``device``."""
+    :func:`make_fst_frame_classifier`, :func:`make_fb_frame_classifier`).
+    ``fixed_nfft=True`` is FB's featurization: n_fft pinned to ``Nfft``.
+    Runs on ``device``."""
     device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
-    list_Fs, list_N = _expt1_lists(fsog, Nfft, list_Fs, list_N)
+    list_Fs, list_N = _expt1_lists(fsog, Nfft, list_Fs, list_N, fixed_nfft)
     out = {"data": {F: [] for F in list_Fs}, "list_Fs": list_Fs,
            "list_N": list_N}
     for F in list_Fs:
-        cfgs = _sweep_configs(F, list_N, fsog, hf, tDb)
+        cfgs = _sweep_configs(F, list_N, fsog, hf, tDb,
+                              Nfft if fixed_nfft else None)
         kept = _kept(waves, lengths, cfgs[0])
         for cfg in cfgs:
             frames, valid, flabels = _valid_frames(*_featurize(kept, cfg),
@@ -302,21 +315,25 @@ def framewise_expt1(frame_classifier: Callable, waves, lengths, labels, *,
 def temporal_expt1(chunk_classifier: Callable, waves, lengths, labels, *,
                    fsog: int = 44100, Nfft: int = 1024, Ntemp: int = 10,
                    hf: float = 0.5, tDb: float = 60.0,
+                   fixed_nfft: bool = False,
                    list_Fs: Optional[Sequence] = None,
                    list_N: Optional[Sequence[int]] = None,
                    device="cuda") -> Dict:
-    """3ST experiment 1 (``Code/pc_temp3d_eval.py:56-106``) over the valid
-    ``Ntemp``-frame chunks.
+    """3ST / CNN_temp experiment 1 (``Code/pc_temp3d_eval.py:56-106`` /
+    ``Code/baseline_temp_eval.py:53-102``) over the valid ``Ntemp``-frame
+    chunks.
 
     ``chunk_classifier(chunks [Nb, Ntemp, bins], farr, tarr) -> logits``;
     ``tarr`` is recomputed with the sweep's window and rate
-    (``Code/pc_temp3d_eval.py:87``)."""
+    (``Code/pc_temp3d_eval.py:87``).  ``fixed_nfft=True`` is CNN_temp's
+    featurization: n_fft pinned to ``Nfft``."""
     device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
-    list_Fs, list_N = _expt1_lists(fsog, Nfft, list_Fs, list_N)
+    list_Fs, list_N = _expt1_lists(fsog, Nfft, list_Fs, list_N, fixed_nfft)
     out = {"data": {F: [] for F in list_Fs}, "list_Fs": list_Fs,
            "list_N": list_N}
     for F in list_Fs:
-        cfgs = _sweep_configs(F, list_N, fsog, hf, tDb)
+        cfgs = _sweep_configs(F, list_N, fsog, hf, tDb,
+                              Nfft if fixed_nfft else None)
         kept = _kept(waves, lengths, cfgs[0])
         for N, cfg in zip(list_N, cfgs):
             flat, valid, clabels = _temporal_rows(*_featurize(kept, cfg),
@@ -342,15 +359,16 @@ def framewise_expt2(frame_classifier: Optional[Callable],
                     hf: float = 0.5, tDb: float = 60.0,
                     list_K: Optional[Sequence[int]] = None, nruns: int = 10,
                     seed: int = 0, device="cuda"):
-    """FST experiment 2 (``Code/pceval.py:107-192``).  Returns ``(randK_dict,
+    """FST / FB experiment 2 (``Code/pceval.py:107-192`` /
+    ``Code/baseline_eval.py:105-183``).  Returns ``(randK_dict,
     maxK_dict)``.
 
-    ``cloud_classifier(points [Nb, n, 2], mask [Nb, n]) -> logits``; mode
-    "cloud" only (the FB "replace" mode raises).  Every K and run reuses the
-    microbatch's clouds with another key mask (the engine note above)."""
-    if mode == "replace":
-        raise NotImplementedError(f"mode 'replace' {_NOT_PORTED}")
-    if mode != "cloud":
+    Mode "cloud" (FST): ``cloud_classifier(points [Nb, n, 2], mask [Nb, n])
+    -> logits``; every K and run reuses the microbatch's clouds with
+    another key mask (the engine note above).  Mode "replace" (FB):
+    ``frame_classifier(frames [Nb, bins], farr)`` on the frames with the
+    unkept bins zeroed, the kept ones chosen by the same ranks."""
+    if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
     device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
     list_K = (default_list_K(Nfft // 2) if list_K is None
@@ -362,9 +380,13 @@ def framewise_expt2(frame_classifier: Optional[Callable],
     R = int(nruns)
 
     def mb_counts(frames_mb, labels_mb, gen, Ks):
-        return _prefix_mask_counts(cloud_classifier,
-                                   frame_cloud(frames_mb, farr), frames_mb,
-                                   labels_mb, None, gen, Ks, R)
+        if mode == "cloud":
+            return _prefix_mask_counts(cloud_classifier,
+                                       frame_cloud(frames_mb, farr), frames_mb,
+                                       labels_mb, None, gen, Ks, R)
+        return _prefix_mask_counts(
+            lambda fr, keep: frame_classifier(torch.where(keep, fr, 0.0), farr),
+            frames_mb, frames_mb, labels_mb, None, gen, Ks, R)
 
     return _run_masked_sweep(mb_counts, [frames[valid]], flabels[valid], seed,
                              list_K, _MB_FRAMES, R)
@@ -377,13 +399,14 @@ def temporal_expt2(cloud_classifier: Callable,
                    Ntemp: int = 10, hf: float = 0.5, tDb: float = 60.0,
                    list_K: Optional[Sequence[int]] = None, nruns: int = 10,
                    seed: int = 0, device="cuda"):
-    """3ST experiment 2 (``Code/pc_temp3d_eval.py:109-200``), the engine of
-    :func:`framewise_expt2` over temporal clouds flattened frequency-fastest
-    (the reference's row order).  Mode "cloud" only (the CNN_temp "replace"
-    mode raises)."""
-    if mode == "replace":
-        raise NotImplementedError(f"mode 'replace' {_NOT_PORTED}")
-    if mode != "cloud":
+    """3ST / CNN_temp experiment 2 (``Code/pc_temp3d_eval.py:109-200`` /
+    ``Code/baseline_temp_eval.py:104-197``), the engine of
+    :func:`framewise_expt2` over temporal clouds and grids flattened
+    frequency-fastest (the reference's row order).  Mode "cloud" (3ST):
+    ``cloud_classifier``; mode "replace" (CNN_temp): ``grid_classifier(
+    chunks [Nb, Ntemp, bins])`` on the chunks with the unkept bins
+    zeroed."""
+    if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
     device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
     n_total = Nfft * Ntemp // 2
@@ -397,10 +420,15 @@ def temporal_expt2(cloud_classifier: Callable,
     R = int(nruns)
 
     def mb_counts(flat_mb, labels_mb, gen, Ks):
+        vals = flat_mb.reshape(flat_mb.shape[0], -1)
+        if mode == "cloud":
+            return _prefix_mask_counts(
+                cloud_classifier, grid_cloud(flat_mb, farr, tarr), vals,
+                labels_mb, None, gen, Ks, R)
         return _prefix_mask_counts(
-            cloud_classifier, grid_cloud(flat_mb, farr, tarr),
-            flat_mb.reshape(flat_mb.shape[0], -1), labels_mb, None, gen, Ks,
-            R)
+            lambda fl, keep: grid_classifier(
+                torch.where(keep.reshape(fl.shape), fl, 0.0)),
+            flat_mb, vals, labels_mb, None, gen, Ks, R)
 
     return _run_masked_sweep(mb_counts, [flat[valid]], clabels[valid], seed,
                              list_K, _MB_CHUNKS, R)
@@ -415,6 +443,23 @@ def make_fst_frame_classifier(model):
     ``Code/dataset.py:50-54``)."""
     def fn(frames, farr):
         return model(frame_cloud(frames, farr))
+    return fn
+
+
+def make_fb_frame_classifier(model):
+    """frames ``[Nb, bins]`` → FB logits (``ESC_baseline``,
+    ``Code/dataset.py:27``); ``farr`` is unused, kept for expt 1's
+    signature.  The model is expected in eval mode (no dropout)."""
+    def fn(frames, farr=None):
+        return model(frames)
+    return fn
+
+
+def make_cnn_chunk_classifier(model):
+    """chunks ``[Nb, Ntemp, bins]`` → CNN_temp logits
+    (``ESC_baseline_temporal``); the coordinates are unused."""
+    def fn(chunks, farr=None, tarr=None):
+        return model(chunks)
     return fn
 
 

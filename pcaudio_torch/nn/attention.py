@@ -10,7 +10,10 @@ reference's quirks are kept, because the shipped checkpoints depend on them:
   * heads are feature splits: head i sees features ``[i·dh, (i+1)·dh)``;
   * the residual adds the *projected* query;
   * the rFF is a single ReLU'd linear;
-  * no LayerNorms (``ln=False``, every shipped checkpoint).
+  * ``ln=True`` adds LayerNorms ``ln0`` after the attention residual and
+    ``ln1`` after the rFF residual, at torch's ε 1e-5 (flax's default,
+    which the JAX package's MAB takes, is 1e-6); every shipped checkpoint
+    has ``ln=False``.
 
 Every block takes an optional boolean key mask; rows whose keys are all
 masked attend to nothing and get zeros, not NaN.  ``fused_attn=True``
@@ -30,11 +33,12 @@ from pcaudio_torch.ops.kernels.mha import fused_mha, fused_mha_plain
 
 
 class MAB(nn.Module):
-    """Multihead Attention Block: ``o = Q' + Att(Q', K', V')``,
-    ``MAB(Q, K) = o + relu(fc_o(o))``."""
+    """Multihead Attention Block: ``o = LN0(Q' + Att(Q', K', V'))``,
+    ``MAB(Q, K) = LN1(o + relu(fc_o(o)))``, the LayerNorms only with
+    ``ln=True``."""
 
     def __init__(self, dim_Q: int, dim_K: int, dim_V: int, num_heads: int,
-                 fused_attn: bool = False):
+                 fused_attn: bool = False, ln: bool = False):
         super().__init__()
         if dim_V % num_heads:
             raise ValueError(f"dim_V={dim_V} not divisible by "
@@ -42,9 +46,13 @@ class MAB(nn.Module):
         self.dim_V = dim_V
         self.num_heads = num_heads
         self.fused_attn = fused_attn
+        self.ln = ln
         self.fc_q = nn.Linear(dim_Q, dim_V)
         self.fc_k = nn.Linear(dim_K, dim_V)
         self.fc_v = nn.Linear(dim_K, dim_V)
+        if ln:
+            self.ln0 = nn.LayerNorm(dim_V)
+            self.ln1 = nn.LayerNorm(dim_V)
         self.fc_o = nn.Linear(dim_V, dim_V)
 
     def forward(self, Q: torch.Tensor, K: torch.Tensor,
@@ -55,16 +63,19 @@ class MAB(nn.Module):
         attend = fused_mha if self.fused_attn else fused_mha_plain
         o = q + attend(q, k, v, key_mask, self.num_heads,
                        1.0 / math.sqrt(self.dim_V))
-        return o + torch.relu(self.fc_o(o))
+        if self.ln:
+            o = self.ln0(o)
+        o = o + torch.relu(self.fc_o(o))
+        return self.ln1(o) if self.ln else o
 
 
 class SAB(nn.Module):
     """Self-Attention Block: ``SAB(X) = MAB(X, X)``."""
 
     def __init__(self, dim_in: int, dim_out: int, num_heads: int,
-                 fused_attn: bool = False):
+                 fused_attn: bool = False, ln: bool = False):
         super().__init__()
-        self.mab = MAB(dim_in, dim_in, dim_out, num_heads, fused_attn)
+        self.mab = MAB(dim_in, dim_in, dim_out, num_heads, fused_attn, ln)
 
     def forward(self, X, mask=None):
         return self.mab(X, X, key_mask=mask)
@@ -75,12 +86,12 @@ class ISAB(nn.Module):
     then ``MAB1(X, H)`` unmasked (H is always fully valid)."""
 
     def __init__(self, dim_in: int, dim_out: int, num_heads: int,
-                 num_inds: int, fused_attn: bool = False):
+                 num_inds: int, fused_attn: bool = False, ln: bool = False):
         super().__init__()
         self.I = nn.Parameter(torch.empty(1, num_inds, dim_out))
         nn.init.xavier_uniform_(self.I)
-        self.mab0 = MAB(dim_out, dim_in, dim_out, num_heads, fused_attn)
-        self.mab1 = MAB(dim_in, dim_out, dim_out, num_heads, fused_attn)
+        self.mab0 = MAB(dim_out, dim_in, dim_out, num_heads, fused_attn, ln)
+        self.mab1 = MAB(dim_in, dim_out, dim_out, num_heads, fused_attn, ln)
 
     def forward(self, X, mask=None):
         H = self.mab0(self.I.expand(X.shape[0], -1, -1), X, key_mask=mask)
@@ -92,11 +103,11 @@ class PMA(nn.Module):
     over the masked set → ``[B, num_seeds, dim]``."""
 
     def __init__(self, dim: int, num_heads: int, num_seeds: int,
-                 fused_attn: bool = False):
+                 fused_attn: bool = False, ln: bool = False):
         super().__init__()
         self.S = nn.Parameter(torch.empty(1, num_seeds, dim))
         nn.init.xavier_uniform_(self.S)
-        self.mab = MAB(dim, dim, dim, num_heads, fused_attn)
+        self.mab = MAB(dim, dim, dim, num_heads, fused_attn, ln)
 
     def forward(self, X, mask=None):
         return self.mab(self.S.expand(X.shape[0], -1, -1), X, key_mask=mask)

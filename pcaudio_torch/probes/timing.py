@@ -83,7 +83,6 @@ def profile_device(fn, iters: int):
     activity's start to the last one's end, busy where any device activity
     runs (copies on another stream overlap kernels).  Raises where the
     trace holds no device activity."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -92,7 +91,7 @@ def profile_device(fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev = device_events(prof.events())
     if not dev:
         raise RuntimeError("torch.profiler recorded no device activity")
     per: Dict[str, float] = {}
@@ -102,6 +101,20 @@ def profile_device(fn, iters: int):
     span = max(e for _, e in spans) - min(s for s, _ in spans)
     return (dict(sorted(per.items(), key=lambda kv: -kv[1])),
             1.0 - busy_time(spans) / span)
+
+
+def device_events(events):
+    """The device activity among a profile's events: kernels and copies,
+    without the ranges of user annotations (``Optimizer.step#Adam.step``),
+    which the profiler also places on the device's timeline and which span
+    kernels already counted."""
+    from torch.autograd import DeviceType
+
+    events = list(events)
+    # a device range mirrors a host-side annotation of the same name
+    notes = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and e.name not in notes]
 
 
 def busy_time(intervals) -> float:

@@ -1,4 +1,4 @@
-from pcaudio_torch.train.glue import pointcloud_apply
+from pcaudio_torch.train.glue import dropout_apply, pointcloud_apply
 from pcaudio_torch.train.loop import fit
 from pcaudio_torch.train.recipes import (
     RECIPES,
@@ -6,6 +6,7 @@ from pcaudio_torch.train.recipes import (
     cnn_temp_config,
     fb_config,
     fst_config,
+    prepare_data,
     prepare_framewise_data,
     prepare_temporal_data,
     st3_config,
@@ -14,7 +15,7 @@ from pcaudio_torch.train.step import TrainState, make_eval_step, make_train_step
 
 __all__ = [
     "TrainState", "make_train_step", "make_eval_step", "pointcloud_apply",
-    "fit", "RECIPES", "fst_config", "fb_config", "st3_config",
+    "dropout_apply", "fit", "RECIPES", "fst_config", "fb_config", "st3_config",
     "cnn_temp_config", "build_trainer", "prepare_framewise_data",
-    "prepare_temporal_data",
+    "prepare_temporal_data", "prepare_data",
 ]

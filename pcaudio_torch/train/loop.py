@@ -51,14 +51,16 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
     """Run the training loop; returns ``(state, history)``.
 
     ``data``/``eval_data`` are dicts of equal-leading-dim arrays (numpy or
-    torch; must include ``labels``), moved to the model's device whole when
+    torch; must include ``labels``, and the inputs the adapter reads:
+    ``points`` for the set models, ``x`` for the baselines), moved to the model's device whole when
     they fit in half its free memory, else batch by batch.
     ``train_step(batch)`` updates
     ``state.model`` through ``state.optimizer``; ``eval_step(batch) ->
     (correct, total)``.  Each epoch's record holds its mean loss and
     accuracy and every ``step_losses`` value.  ``resume=True`` continues
     from the latest checkpoint in ``checkpoint_dir``, drawing the batches
-    an uninterrupted run would draw.  ``max_steps`` ends the run after that
+    an uninterrupted run would draw, and the dropout masks too where
+    ``state.generator`` is set.  ``max_steps`` ends the run after that
     many optimizer steps in all.
     """
     from pcaudio_torch.checkpoint import (
@@ -81,6 +83,8 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
         state.model.load_state_dict(tree["model"])
         state.optimizer.load_state_dict(tree["optimizer"])
         state.step = tree["train_steps"]
+        if state.generator is not None:
+            state.generator.set_state(tree["generator"].cpu())
         for _ in range(start):  # the permutations of the epochs done
             rng.permutation(n)
         log(f"resumed from epoch {start} ({state.step} steps)")

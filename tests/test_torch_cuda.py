@@ -1401,3 +1401,58 @@ def test_k4_launches_rise_during_a_sweep(cuda):
     assert len(calls) >= 4 and fused_mha_fwd.launches - f0 == 5 * len(calls)
     assert fused_mha_bwd.launches == b0
     assert all(0.0 <= a <= 1.0 for v in out["data"].values() for a in v)
+
+
+def _baseline(recipe, device):
+    """The recipe's baseline at full width from torch_seed 0, and one batch
+    of log-magnitude-like inputs."""
+    from pcaudio_torch.train import RECIPES
+
+    cfg = RECIPES[recipe]()
+    torch.manual_seed(0)
+    model = cfg.build_model().to(device)
+    shape = (cfg.batch_size, 1025) if recipe == "FB" else (cfg.batch_size, 10, 512)
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy((3.0 * rng.standard_normal(shape) - 8.0).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, cfg.batch_size))
+    return model, x.to(device), y.to(device)
+
+
+@pytest.mark.parametrize("recipe", ["FB", "CNNTemp"])
+def test_baseline_card_matches_cpu(cuda, recipe):
+    """One batch at full width, dropout off: the loss within 1e-5 relative
+    and the gradient vector within 1e-4 of its largest entry, card against
+    CPU."""
+    res = {}
+    for dev in ("cpu", cuda):
+        model, x, y = _baseline(recipe, dev)
+        loss = torch.nn.functional.cross_entropy(model.eval()(x), y)
+        loss.backward()
+        res[str(dev)] = loss.item(), torch.cat(
+            [p.grad.flatten().cpu() for p in model.parameters()])
+    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+    err = (gg - gc).abs().max().item()
+    assert err <= 1e-4 * gc.abs().max().item(), err
+
+
+def test_cnn_output_ignores_cudnn_tf32(cuda):
+    """CNN_temp's convolution is a matrix product: with cuDNN's TF32 flag
+    on (PyTorch's default) the output is bit for bit the output with it
+    off, and within 1e-5 relative of the CPU's."""
+    model, x, _ = _baseline("CNNTemp", cuda)
+    model.eval()
+    flag = torch.backends.cudnn.allow_tf32
+    try:
+        with torch.no_grad():
+            torch.backends.cudnn.allow_tf32 = True
+            on = model(x)
+            torch.backends.cudnn.allow_tf32 = False
+            off = model(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    assert torch.equal(on, off)
+    with torch.no_grad():
+        ref = model.cpu()(x.cpu())
+    err = (on.cpu() - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), err

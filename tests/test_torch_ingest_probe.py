@@ -1,7 +1,9 @@
 """The ingest probe's host-side parts (``pcaudio_torch/probes/ingest.py``):
 its corpus is ``scripts/bench_serving_ingest.py``'s clips, written once and
 copied; its request loop takes requests in turn; and the idle share of a
-trace counts overlapping copies and kernels once (``timing.busy_time``).
+trace counts overlapping copies and kernels once (``timing.busy_time``)
+and leaves out the annotation ranges the profiler places on the device's
+timeline (``timing.device_events``).
 The timings themselves need the card (``chip_smoke.py`` phase 9)."""
 import filecmp
 import os
@@ -12,7 +14,7 @@ import pytest
 from pcaudio.data import synthetic as jax_synthetic
 from pcaudio_torch.data.audio_io import load_wav
 from pcaudio_torch.probes import ingest
-from pcaudio_torch.probes.timing import busy_time
+from pcaudio_torch.probes.timing import busy_time, device_events
 
 
 def test_corpus_is_the_jax_scripts_clips_copied(tmp_path):
@@ -51,3 +53,21 @@ def test_latency_takes_requests_in_turn(size, n):
 ])
 def test_busy_time_is_the_union_of_intervals(spans, busy):
     assert busy_time(spans) == busy
+
+
+def test_device_events_leave_out_annotations():
+    """An optimizer step's annotation range on the device's timeline spans
+    its kernels: counted, it would count them twice and hide idle time."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    def event(name, device, note):
+        return SimpleNamespace(name=name, device_type=device, is_user_annotation=note)
+
+    adam = "Optimizer.step#Adam.step"
+    for device_note in (True, False):  # however the device's range is flagged
+        ev = [event("k", DeviceType.CUDA, False), event(adam, DeviceType.CPU, True),
+              event(adam, DeviceType.CUDA, device_note),
+              event("aten::add", DeviceType.CPU, False)]
+        assert [e.name for e in device_events(ev)] == ["k"]

@@ -28,8 +28,9 @@ def test_port_never_imports_jax():
     """A fresh interpreter imports every module of the port, probes and
     the native loader included, builds the full-width 3ST classifier and
     serves one request of clips and one of WAV files,
-    and takes two train steps through K4's route, on the CPU without
-    loading jax or any module of the JAX package ``pcaudio``."""
+    and takes two train steps through K4's route and two of each baseline
+    (FB, CNNTemp) at full width, on the CPU without loading jax or any
+    module of the JAX package ``pcaudio``."""
     code = textwrap.dedent("""
         import dataclasses
         import importlib
@@ -50,7 +51,7 @@ def test_port_never_imports_jax():
         import pcaudio_torch.core, pcaudio_torch.checkpoint, pcaudio_torch.dsp
         import pcaudio_torch.cli, pcaudio_torch.ops.cloud
         from pcaudio_torch.train import (
-            RECIPES, TrainState, build_trainer, fit, make_train_step)
+            RECIPES, build_trainer, fit, make_train_step)
 
         torch.manual_seed(0)
         model = ST(dim_input=3, dim_output=10, num_inds=64, dim_hidden=64,
@@ -73,13 +74,21 @@ def test_port_never_imports_jax():
 
         cfg = dataclasses.replace(RECIPES["FST"](), dhidden=8, nheads=2,
                                   ninds=4, batch_size=4)
-        model, apply_fn, opt = build_trainer(cfg, "cpu", fused_attn=True)
+        state, apply_fn = build_trainer(cfg, "cpu", fused_attn=True)
         data = {"points": np.zeros((8, 16, 2), np.float32),
                 "labels": np.zeros(8, np.int32)}
-        state, hist = fit(TrainState(model, opt),
-                          make_train_step(apply_fn, opt), data, batch_size=4,
-                          epochs=1, log=lambda s: None)
+        state, hist = fit(state, make_train_step(apply_fn, state.optimizer),
+                          data, batch_size=4, epochs=1, log=lambda s: None)
         assert state.step == 2 and np.isfinite(hist[0]["train_loss"])
+        for name, shape in (("FB", (8, 1025)), ("CNNTemp", (8, 10, 512))):
+            cfg = dataclasses.replace(RECIPES[name](), batch_size=4)
+            state, apply_fn = build_trainer(cfg, "cpu")
+            data = {"x": np.zeros(shape, np.float32),
+                    "labels": np.zeros(8, np.int32)}
+            state, hist = fit(state, make_train_step(apply_fn, state.optimizer),
+                              data, batch_size=4, epochs=1, log=lambda s: None)
+            assert state.step == 2 and np.isfinite(hist[0]["train_loss"])
+        import pcaudio_torch.eval.plots
         assert "jax" not in sys.modules, "pcaudio_torch imported jax"
         jaxpkg = [m for m in sys.modules
                   if m == "pcaudio" or m.startswith("pcaudio.")]

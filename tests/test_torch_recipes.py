@@ -1,6 +1,8 @@
 """The port's training featurizer, cloud builders, recipe data preparation
 and config round-trip == the JAX package's, on a few ~1 s synthetic ESC
 clips (pcaudio.data.synthetic.synth_clip)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -76,16 +78,18 @@ def test_featurize_batch_matches_jax(n_fft):
 
 @pytest.mark.parametrize("what", ["resample", "FB", "CNNTemp"])
 def test_unported_parts_raise(what):
-    """Resampling in the serving pipeline and the recipes whose models are
-    not ported raise, never run something else.  (``featurize_batch``
-    resamples since the eval sweeps were ported: tests/
-    test_torch_featurize_sweep.py holds it against the JAX package.)"""
-    with pytest.raises(NotImplementedError):
-        if what == "resample":
+    """Resampling in the serving pipeline raises, never runs something
+    else.  (``featurize_batch`` resamples since the eval sweeps were
+    ported: tests/test_torch_featurize_sweep.py holds it against the JAX
+    package.)  The FB and CNNTemp recipes, which raised until their models
+    were ported, now give the JAX package's configs field for field."""
+    if what == "resample":
+        with pytest.raises(NotImplementedError):
             TemporalPipelineConfig(fs=FS, target_fs=16000,
                                    top_k=128).check_ported()
-        else:
-            recipes.RECIPES[what]()
+        return
+    got, ref = recipes.RECIPES[what](), jax_recipes.RECIPES[what]()
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 def test_cloud_builders_match_jax():

@@ -23,7 +23,7 @@ from pcaudio_torch.checkpoint import (
 from pcaudio_torch.cli import main as cli_main
 from pcaudio_torch.core.config import ARCH_3ST, ExperimentConfig
 from pcaudio_torch.eval import TemporalPipelineConfig
-from pcaudio_torch.nn import ST
+from pcaudio_torch.nn import ST, BaselineFF, CNNClassifier
 from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
     RECIPES, TrainState, build_trainer, fit, make_eval_step, make_train_step,
@@ -144,10 +144,10 @@ def _tiny_fst():
 
 
 def _fit_tiny(cfg, data, ckpt, epochs, resume=False, seed_offset=0):
-    model, apply_fn, opt = build_trainer(
+    state, apply_fn = build_trainer(
         dataclasses.replace(cfg, torch_seed=cfg.torch_seed + seed_offset),
         "cpu")
-    state, hist = fit(TrainState(model, opt), make_train_step(apply_fn, opt),
+    state, hist = fit(state, make_train_step(apply_fn, state.optimizer),
                       data, batch_size=cfg.batch_size, epochs=epochs,
                       seed=cfg.numpy_seed, checkpoint_dir=ckpt,
                       checkpoint_every=2, config=cfg, resume=resume,
@@ -183,9 +183,10 @@ def test_saved_3st_serves_through_reference_checkpoint(tmp_path):
     it was saved from."""
     cfg = ExperimentConfig(architecture=ARCH_3ST, window_size=1024, Ntemp=10,
                            dhidden=16, nheads=4, ninds=8, batch_size=16)
-    model, _, opt = build_trainer(cfg, "cpu")
-    save_checkpoint(str(tmp_path), TrainState(model, opt), cfg, step=1)
-    export_reference_pth(model, str(tmp_path / "3ST_net.pth"))
+    state, _ = build_trainer(cfg, "cpu")
+    model = state.model
+    save_checkpoint(str(tmp_path), state, cfg, step=1)
+    export_reference_pth(model, str(tmp_path / "3ST_net.pth"), cfg)
     sd = torch.load(str(tmp_path / "3ST_net.pth"))
     assert all(k.startswith("module.") for k in sd)
     clf = AudioClassifier.from_reference_checkpoint(
@@ -205,8 +206,8 @@ def test_fst_recipe_learns_synthetic_sets():
     cfg = dataclasses.replace(_tiny_fst(), dhidden=16, nheads=4, ninds=8,
                               batch_size=32)
     pts, lbl = _synthetic_sets(np.random.default_rng(1), 64)
-    model, apply_fn, opt = build_trainer(cfg, "cpu", fused_attn=True)
-    state, hist = fit(TrainState(model, opt), make_train_step(apply_fn, opt),
+    state, apply_fn = build_trainer(cfg, "cpu", fused_attn=True)
+    state, hist = fit(state, make_train_step(apply_fn, state.optimizer),
                       {"points": pts, "labels": lbl}, batch_size=32,
                       epochs=30, eval_data={"points": pts, "labels": lbl},
                       eval_step=make_eval_step(apply_fn), eval_every=29,
@@ -217,16 +218,40 @@ def test_fst_recipe_learns_synthetic_sets():
 
 
 def test_build_trainer_routes_by_device():
-    model, _, _ = build_trainer(_tiny_fst(), "cpu")
-    assert not any(getattr(m, "fused_attn", False) for m in model.modules())
-    model, _, _ = build_trainer(_tiny_fst(), "cpu", fused_attn=True)
-    assert all(m.fused_attn for m in model.modules() if hasattr(m, "fused_attn"))
+    state, _ = build_trainer(_tiny_fst(), "cpu")
+    assert not any(getattr(m, "fused_attn", False) for m in state.model.modules())
+    assert state.generator is None
+    state, _ = build_trainer(_tiny_fst(), "cpu", fused_attn=True)
+    assert all(m.fused_attn for m in state.model.modules()
+               if hasattr(m, "fused_attn"))
 
 
 @pytest.mark.parametrize("recipe", ["FB", "CNNTemp"])
 def test_unported_recipes_raise(recipe):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RECIPES[recipe]()
+    """The FB and CNNTemp recipes raised until their models were ported;
+    now ``build_trainer`` gives the recipe's baseline at full width, its
+    Adam, and a state whose dropout generator, the one its adapter draws
+    from, is seeded from the config's ``torch_seed``: two trainers draw the
+    same masks."""
+    cfg = RECIPES[recipe]()
+    outs = []
+    for _ in range(2):
+        state, apply_fn = build_trainer(cfg, "cpu")
+        model, opt = state.model, state.optimizer
+        assert isinstance(model, BaselineFF if recipe == "FB" else CNNClassifier)
+        assert opt.defaults["lr"] == cfg.learning_rate
+        assert opt.defaults["weight_decay"] == cfg.weight_decay
+        assert state.generator.initial_seed() == cfg.torch_seed
+        shape = (4, 1025) if recipe == "FB" else (4, 10, 512)
+        seed_state = state.generator.get_state()
+        with torch.no_grad():
+            outs.append(apply_fn({"x": torch.ones(shape)}, train=True))
+        assert not torch.equal(state.generator.get_state(), seed_state)
+        assert model.training
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*(build_trainer(cfg, "cpu")[0].model.state_dict().values()
+                      for _ in range(2))):
+        assert torch.equal(a, b)
 
 
 def test_cli_train_needs_cuda_unless_told_cpu(tmp_path):

@@ -6,18 +6,28 @@ Each phase's start is logged in seconds of script time (``[phase]``).
 
 0. prints the card (name, power limit), torch and CUDA versions, and turns
    TF32 off for the plain references;
-1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a);
+1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a;
+   each source's compile time is logged), while processes of their own
+   write phase 6's corpus and phase 9's WAV files;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving path's shapes (featurize B=64 x 5 s clips; select on that grid, on
    a tie-heavy grid, at K 512 and 5120, on a grid with -0.0 entries, at K 1
    and K = Nt·F on a tie-heavy grid and on one chunk; the ST on the 64*43
    clouds, at K 1, 17, 128, 256 and 1025 with din 2 and 3, f32 and bf16
    points, no, ragged and all-masked masks, also against the f32 ST, and
-   with the trained FST checkpoint on 1025-point ragged-masked 2-D clouds);
+   with the trained FST checkpoint on 1025-point ragged-masked 2-D clouds;
+   K1's scratch form at K 1281, 2048 and 5120, with and without a ragged
+   mask);
 3. serves three requests (64, 17 and 100 ragged clips) through
    AudioClassifier with a full-width 3ST made from a seed and the bench's
    pipeline config, checks that each kernel was launched, that the logits
    are finite and that the labels agree with the plain path on the card;
+   then the same requests through the "xla" featurize path (the JAX
+   package's default) at top-K 128 and through full-grid serving (top_k
+   None, 5,120-point clouds, K1's scratch form) on both featurize paths,
+   each path's kernel counts read from 0, held against the fused path
+   tie-aware, and in the f32 "highest" form (chunks with the same winning
+   set on both paths: chunk logits within 1e-4);
 4. times each kernel and its plain version, and the end-to-end path, at the
    bench shape (B=1024 clips of 5 s, 44,032 chunk clouds); times K3 a second
    way, on ragged traffic (synthetic clips of random lengths with trimmed
@@ -25,9 +35,12 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    device time of each of K3's two launches on both batches, K2 at K 256
    and 5120 and on the f32 noise, ragged and tie-heavy grids (each held
    against its plain version there first), K1's time split
-   by its three passes (launches cut after each) and K1 at 256 points a
-   cloud, and the serving path's device time by kernel and the device's
-   idle share (``torch.profiler``);
+   by its three passes (launches cut after each), K1 at 256 points a
+   cloud, K1's scratch form on one 64-clip batch of full grids (2,752
+   clouds of 5,120 points) beside its plain version, the serving path's
+   device time by kernel and the device's idle share
+   (``torch.profiler``), and the e2e time of the xla featurize path beside
+   the fused one and of full-grid serving;
 5. holds K4 (the trainable attention, forward and backward) against its
    plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
    1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points, the
@@ -70,7 +83,7 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    SASS (every instantiation must hold one; cuobjdump reads it in a
    process of its own from the end of phase 1 on);
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
-   batch 512) through ``AudioClassifier.classify_paths``: the native ring
+   written by a process of its own during phase 1; batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
    int16 staging gives the f32 staging's logits bit for bit, that both equal
    ``logits`` on the clips decoded in memory, also for 12 batches of 64
@@ -92,7 +105,11 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    counts K4's launches and profiles one expt-2 microbatch for K4's share
    of the device time; then runs a seeded full-width 3ST's expt 1 and expt 2
    (8 clips, K 1, 2561 and 5120, 2 runs) on both engines, whose logits
-   must agree tie-aware;
+   must agree tie-aware; then ``cli eval --experiments rebut`` (the
+   importance-sampling sweep) on a cut of the corpus with a seeded 3ST at
+   the recipe's width through K4, its files checked by schema and range,
+   and its maxK and randK cells at six K within 0.01 of the card's plain
+   engine on the same draws;
 11. runs the paper's two baselines, FB and CNN_temp, which no kernel serves
    (each kernel's launches over this path are printed): on phase 6's corpus
    ``cli train FB`` and ``cli train CNNTemp`` for one epoch at full width
@@ -135,22 +152,24 @@ import torch
 import torch.nn.functional as F
 
 from pcaudio_torch import cli, native
-from pcaudio_torch.checkpoint import load_reference_pth
-from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves
+from pcaudio_torch.checkpoint import export_reference_pth, load_reference_pth
+from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves, pad_batch
 from pcaudio_torch.core.config import ExperimentConfig
 from pcaudio_torch.eval import (
     TemporalPipelineConfig, extract_chunk_clouds, framewise_expt1,
     framewise_expt2, make_3st_chunk_classifier, make_cloud_classifier,
-    make_cnn_chunk_classifier, make_fb_frame_classifier,
-    make_temporal_classifier, temporal_expt1, temporal_expt2)
+    make_chunk_logits, make_cnn_chunk_classifier, make_fb_frame_classifier,
+    make_temporal_classifier, rebut_importance_expt, temporal_expt1,
+    temporal_expt2)
 from pcaudio_torch.eval.experiments import (
-    _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
+    _MB_CHUNKS, _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
-    _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed)
+    _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed,
+    launch_scratch, max_points)
 from pcaudio_torch.ops.kernels.mha import (
     BWD_KERNELS, BWD_PAIR_KERNELS, FWD_KERNELS, _sm_count, bwd_plan, fused_mha_bwd,
     fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
@@ -181,12 +200,20 @@ KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
                           "pcaudio/ops/kernels/select.py:435"),
     "fused_st_forward": (fused_st_forward, "pcaudio_torch/csrc/fused_st.cu",
                          "pcaudio/ops/kernels/fused_st.py:554"),
+    # K1's scratch form: clouds past the shared-memory form's 1,280 points
+    # (the full 5,120-point grids), which the JAX fused ST takes at any size
+    "fused_st_scratch": (launch_scratch, "pcaudio_torch/csrc/fused_st_scratch.cu",
+                         "pcaudio/ops/kernels/fused_st.py:554"),
     "fused_mha_fwd": (fused_mha_fwd, "pcaudio_torch/csrc/mha.cu",
                       "pcaudio/ops/kernels/mha.py:377"),
     "fused_mha_bwd": (fused_mha_bwd, "pcaudio_torch/csrc/mha.cu",
                       "pcaudio/ops/kernels/mha.py:377"),
 }
 SERVE_KERNELS = ("fused_chunk_mag2", "exact_topk_chunks", "fused_st_forward")
+# full-grid serving (top_k=None) on each featurize path: K3 on the fused
+# path only, no K2, K1 in its scratch form
+FULL_GRID_KERNELS = {"fused": ("fused_chunk_mag2", "fused_st_scratch"),
+                     "xla": ("fused_st_scratch",)}
 TRAIN_KERNELS = ("fused_mha_fwd", "fused_mha_bwd")
 # K4 at the recipes' attends, (queries, keys), dv 64 in 8 heads of 8; one
 # FST step runs MAB0 and MAB1 twice (two ISABs) and PMA once
@@ -195,6 +222,11 @@ ST3_ATTENDS = {"MAB0": (64, 5120), "MAB1": (5120, 64), "PMA": (1, 5120)}
 FST_STEP_ATTENDS = {"MAB0": 2, "MAB1": 2, "PMA": 1}
 HEADS, DV = 8, 64
 K1_POINTS = (1, 17, 128, 256, 1025)   # phase 2's clouds for K1
+K1_SCRATCH_POINTS = (1281, 2048, 5120)  # and for its scratch form
+FULL_POINTS = 5120   # a full temporal grid: 10 frames x 512 bins
+SERVE_F32_TOL = 1e-4  # f32 "highest" logits of the two featurize paths
+# phase 10's rebuttal cut: its cells at these K, K4 against the plain engine
+REBUT_K = default_list_K(5120)[::20]
 # the JAX tests' bars for the bf16 fused ST (tests/test_fused_st.py), atol
 # = rtol: against the JAX kernel's own reference, and against the f32 model
 JAX_K1_TOL = 3e-2
@@ -299,11 +331,11 @@ def phase(title):
     log(f"[phase] {title}: starts at {time.perf_counter() - T_START:.1f} s")
 
 
-def seeded_st(din, seed):
-    """Full-width ST (64 hidden, 64 inducing points, 8 heads) with weights
-    drawn from a numpy seed, U(±1/sqrt(fan_in))."""
-    model = ST(dim_input=din, dim_output=10, num_inds=64, dim_hidden=64,
-               num_heads=8)
+def seeded_st(din, seed, dim=64, inds=64, heads=8):
+    """An ST (full width unless told: 64 hidden, 64 inducing points, 8
+    heads) with weights drawn from a numpy seed, U(±1/sqrt(fan_in))."""
+    model = ST(dim_input=din, dim_output=10, num_inds=inds, dim_hidden=dim,
+               num_heads=heads)
     rng = np.random.default_rng(seed)
     sd = {k: torch.from_numpy(rng.uniform(-1, 1, v.shape).astype(np.float32)
                               / np.sqrt(v.shape[-1]))
@@ -576,15 +608,14 @@ def recipe_batch(tag, csv, audio, dev):
                  "labels": torch.from_numpy(data["labels"][:n]).long().to(dev)}
 
 
-def train_phase(work, dev):
-    """Phase 6.  Returns the K4 launches of the FST training run, and per
-    recipe the trained weights and one batch (phase 7 times their steps)."""
-    t0 = time.perf_counter()
-    csv, audio = generate_esc_corpus(os.path.join(work, "corpus"),
-                                     clips_per_class=CLIPS_PER_CLASS)
+def train_phase(work, dev, corpus_job):
+    """Phase 6 on the corpus ``corpus_job`` writes.  Returns the K4 launches
+    of the FST training run, and per recipe the trained weights and one
+    batch (phase 7 times their steps)."""
+    csv, audio, waited = wait_corpus(corpus_job)
     log(f"[train] synthetic ESC-10 corpus: {CLIPS_PER_CLASS} clips per class "
-        f"(cut from the corpus' 40 to keep the run short), written in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"(cut from the corpus' 40 to keep the run short), written during "
+        f"the build; waited {waited:.1f} s for it")
     fst_dir, st3_dir = os.path.join(work, "fst"), os.path.join(work, "3st")
     common = ["--esc-csv", csv, "--esc-audio", audio, "--epochs", "1",
               "--device", "cuda"]
@@ -671,6 +702,129 @@ def train_phase(work, dev):
         f"the plain path ({decided} decided), max logit dev {ldev:.3e}")
     return {"launches": launches, "weights": weights, "batches": batches,
             "corpus": (csv, audio)}
+
+
+def chunk_indices(points, F=512, Nt=10):
+    """Flat frequency-fastest indices of f32 serving clouds from their
+    affine (f, t) coordinates (the steps ``_affine_clouds`` uses)."""
+    cf = 0.5 / (F - 1)
+    ct = (0.5 * N_FFT / FS) * Nt / (Nt - 1)
+    f = torch.round(points[..., 0] / cf).long()
+    t = torch.round(points[..., 1] / ct).long()
+    return t * F + f
+
+
+def serve_paths_phase(model, requests, served, launches, name_limit):
+    """Phase 3's second half: the same three requests through the "xla"
+    featurize path (the JAX package's default) at top_k 128, and through
+    full-grid serving (top_k=None: K1's scratch form) on both featurize
+    paths, each path's kernel counts set to 0 just before it and read just
+    after; each held against the fused path tie-aware in the bf16 serving
+    form.  Then the f32 "highest" form on the first 6 clips of each
+    request: where a chunk's winning set is the same on both paths, its
+    logits (the f32 ST, plain attention) agree within SERVE_F32_TOL."""
+    t0 = time.perf_counter()
+    xla_128 = dataclasses.replace(CFG, featurize="xla")
+    zero_counts()
+    clf = AudioClassifier(model=model, pipeline=xla_128, batch_size=64,
+                          buffer_len=L, device="cuda")
+    got = [clf.logits(req) for req in requests]
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    check(counts["fused_st_forward"] > 0 and counts["fused_st_scratch"] == 0
+          and counts["fused_chunk_mag2"] == counts["exact_topk_chunks"] == 0,
+          f"xla serving at top_k {TOP_K}: launches {counts}")
+    for req, lg, ref in zip(requests, got, served):
+        agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lg),
+                                                torch.from_numpy(ref))
+        log(f"[serve] xla featurize, top_k {TOP_K}, {len(req)} clips: argmax "
+            f"agrees with the fused path on {agree}/{len(req)} ({decided} "
+            f"decided rows all agree), max logit dev {ldev:.3e}")
+    full = {}
+    launches["fused_st_scratch"] = 0
+    for fz in ("fused", "xla"):
+        cfg = dataclasses.replace(CFG, featurize=fz, top_k=None)
+        clf = AudioClassifier(model=model, pipeline=cfg, batch_size=64,
+                              buffer_len=L, device="cuda")
+        zero_counts()
+        full[fz] = [clf.logits(req) for req in requests]
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        log(f"[serve] full grids (top_k=None, {FULL_POINTS} points a cloud), "
+            f"{fz} featurize: launches {counts}")
+        for k, n in counts.items():
+            check((n > 0) == (k in FULL_GRID_KERNELS[fz]),
+                  f"full-grid serving, {fz} featurize: {k} launched {n} times")
+        launches["fused_st_scratch"] += counts["fused_st_scratch"]
+        for lg in full[fz]:
+            check(bool(np.isfinite(lg).all()), "full-grid logits not finite")
+    for req, lx, lf in zip(requests, full["xla"], full["fused"]):
+        agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lx),
+                                                torch.from_numpy(lf))
+        log(f"[serve] full grids, {len(req)} clips: the xla path agrees with "
+            f"the fused path on {agree}/{len(req)} ({decided} decided rows all "
+            f"agree), max logit dev {ldev:.3e}")
+    f32 = dataclasses.replace(CFG, stft_precision="highest",
+                              compute_dtype="float32")
+    for top_k in (TOP_K, None):
+        same = total = 0
+        dev = 0.0
+        for req in requests:
+            w, n = (torch.from_numpy(a).to("cuda") for a in pad_batch(req[:6], L))
+            out = {}
+            for fz in ("fused", "xla"):
+                cfg = dataclasses.replace(f32, featurize=fz, top_k=top_k)
+                cloud, cm = extract_chunk_clouds(w, n, cfg)
+                valid = cm.reshape(-1)
+                pts = cloud.points[valid]
+                with torch.no_grad():
+                    out[fz] = (model(pts, None), pts)
+            (lf, pf), (lx, px) = out["fused"], out["xla"]
+            if top_k is None:
+                eq = torch.ones(len(pf), dtype=torch.bool, device=pf.device)
+            else:
+                eq = (chunk_indices(pf).sort(-1).values
+                      == chunk_indices(px).sort(-1).values).all(-1)
+            same, total = same + int(eq.sum()), total + len(eq)
+            if bool(eq.any()):
+                dev = max(dev, (lf[eq] - lx[eq]).abs().max().item())
+        check(same * 12 >= total * 11, f"f32 top_k {top_k}: {same}/{total} "
+              f"chunks with the same winning set on both paths")
+        check(dev <= SERVE_F32_TOL, f"f32 top_k {top_k}: chunk logits "
+              f"{dev:.3e} apart where the sets agree")
+        log(f"[serve] f32 highest, top_k {top_k}: the same winning set on "
+            f"both featurize paths in {same}/{total} valid chunks, their "
+            f"chunk logits within {dev:.3e} (bar {SERVE_F32_TOL})")
+    log(f"[serve] xla and full-grid paths: {time.perf_counter() - t0:.1f} s "
+        f"({name_limit})")
+
+
+def k1_scratch_time(model, waves, lengths, times, bounds, lib_ms, name_limit):
+    """K1's scratch form on one serving batch of 64 clips of 5 s at
+    top_k=None (2,752 clouds of 5,120 points), kernel, plain, kernel: the
+    plain version in pieces of 344 clouds (8 clips), whose attention
+    tensors fit; its bound by exps or products."""
+    pts = extract_chunk_clouds(waves, lengths, dataclasses.replace(
+        CFG, top_k=None))[0].points
+    check(pts.shape[1] == FULL_POINTS, f"full grids of {pts.shape[1]} points")
+
+    def plain():
+        return torch.cat([fused_st_forward_plain(model, pts[i:i + 344], None)
+                          for i in range(0, len(pts), 344)])
+    before = launch_scratch.launches
+    k0 = cuda_ms(lambda: fused_st_forward(model, pts, None), 3)
+    p = cuda_ms(plain, 1)
+    k1 = cuda_ms(lambda: fused_st_forward(model, pts, None), 3)
+    n = launch_scratch.launches - before
+    times["fused_st_scratch"] = ((k0 + k1) / 2, p)
+    bounds["fused_st_scratch"] = k1_bound(pts, model)
+    lib_ms["fused_st_scratch"] = None
+    log(f"[time] K1 scratch form, {pts.shape[0]} clouds of {pts.shape[1]} points "
+        f"(64 clips, top_k None): kernel {k0:.3f} / {k1:.3f} ms ({n} launches), "
+        f"plain {p:.3f} ms, bound {bounds['fused_st_scratch'][0]:.3f} ms by "
+        f"{bounds['fused_st_scratch'][1]} ({name_limit})")
+    del pts
+    torch.cuda.empty_cache()
 
 
 def kernel_counts():
@@ -890,19 +1044,37 @@ def baseline_cut(tag, cfg, model, waves, lengths, labels, windows, Ks, device):
     return e1["data"][cfg.sampling_rate] + [mx["data"][K][0] for K in Ks]
 
 
-def ingest_phase(name_limit):
-    """Phase 9: the probe's corpus served from WAV files through the native
-    ring, K3-K2-K1 on the card; int16 staging == f32 staging, == the
-    in-memory path (also after slot reuse), then the probe's timings."""
+def start_ingest_corpus():
+    """Start writing phase 9's WAV files (INGEST_FILES of 5 s, 0.9 GB) in a
+    process of its own during the build, whose compilers leave cores idle
+    for most of it; phase 9 waits for it."""
     work = tempfile.mkdtemp(prefix="pcaudio_ingest_")
+    atexit.register(shutil.rmtree, work, True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys; from pcaudio_torch.probes.ingest import "
+         "write_corpus; write_corpus(sys.argv[1], int(sys.argv[2]))", work,
+         str(INGEST_FILES)], cwd=ROOT)
+    atexit.register(proc.kill)
+    return proc, work
+
+
+def ingest_phase(name_limit, corpus_job):
+    """Phase 9: the probe's corpus (``start_ingest_corpus``) served from WAV
+    files through the native ring, K3-K2-K1 on the card; int16 staging ==
+    f32 staging, == the in-memory path (also after slot reuse), then the
+    probe's timings."""
+    proc, work = corpus_job
     try:
         t0 = time.perf_counter()
-        paths = ingest.write_corpus(work, INGEST_FILES)
+        rc = proc.wait()
+        check(rc == 0, f"the ingest corpus' writer exited with {rc}")
+        paths = ingest.corpus_paths(work, INGEST_FILES)
         clips = ingest.decoded_clips(paths)
         log(f"[ingest] corpus: {len(paths)} PCM16 files of 5 s "
-            f"({ingest.DISTINCT} distinct synth_clips), written in "
-            f"{time.perf_counter() - t0:.1f} s; the probe's full shape "
-            f"(2,048 files at batch {INGEST_BATCH})")
+            f"({ingest.DISTINCT} distinct synth_clips), written during the "
+            f"build; waited {time.perf_counter() - t0:.1f} s for it and read "
+            f"the distinct ones; the probe's full shape (2,048 files at batch "
+            f"{INGEST_BATCH})")
         check(native.available(), "the native WAV loader does not build")
         model = ingest.seeded_model(0)
         clfs = {wd: AudioClassifier(model=model, pipeline=CFG,
@@ -1089,30 +1261,129 @@ def eval_3st_phase(csv, audio, name_limit):
         f"logit dev {dev:.3e}; largest accuracy difference {max(diffs):.3e}")
 
 
-def start_eval_corpus(work):
-    """Start writing phase 10's corpus (40 clips a class) in a process of
-    its own, beside phase 8's GPU-bound probes, so that its 15 s of numpy
-    do not add to the run; phase 10 waits for it."""
-    corpus_dir = os.path.join(work, "corpus")
+def rebut_phase(csv, audio, work, name_limit):
+    """``cli eval --experiments rebut`` on a cut of phase 10's corpus (its
+    first 2 clips a class) with a seeded 3ST at the recipe's width (64
+    hidden, 64 inducing points, 8 heads) whose output layer standardises
+    each class's logit over those clips' clouds (left as drawn it names
+    one class everywhere), on
+    the card through K4 behind the parity gate, at the CLI's one window
+    width (64) and every K.  Its files are checked by schema and range;
+    its maxK and randK cells at REBUT_K are held within SWEEP_TOL of the
+    same sweep on the card's plain engine (the function the CLI calls,
+    plain attention, the same seed: the same heat-maps and the same
+    multinomial draws).  Returns K4's forward launches."""
+    cfg = RECIPES["3ST"]()
+    root = os.path.join(work, "rebut")
+    os.makedirs(root, exist_ok=True)
+    cut_csv = os.path.join(root, "cut.csv")
+    with open(csv) as f:
+        lines = f.read().splitlines()
+    with open(cut_csv, "w") as f:
+        f.write("\n".join([lines[0]] + [r for r in lines[1:]
+                                         if int(r.split("-")[1]) % 1000 < 2]) + "\n")
+    w, n, lab = load_esc_split_waves(cut_csv, audio, cfg.numpy_seed, split="test")
+    model = seeded_st(3, seed=11)
+    cloud, cm = extract_chunk_clouds(
+        torch.from_numpy(w).cuda(), torch.from_numpy(n).cuda(),
+        TemporalPipelineConfig(top_k=None, featurize="xla"))
+    pts = cloud.points[cm.reshape(-1)]
+    del cloud
+    with torch.no_grad():
+        # each class's logit to mean 0 and variance 1 over these clouds, so
+        # that the argmax spreads over the classes
+        lg = batched(model, pts, bs=_MB_CHUNKS)
+        mu, sd = lg.mean(0), lg.std(0)
+        head = model.dec[1]
+        head.weight.div_(sd[:, None])
+        head.bias.sub_(mu).div_(sd)
+        named = ((lg - mu) / sd).argmax(-1).unique().numel()
+    del pts, lg
+    check(named > 1, f"rebut: the standardised 3ST names {named} class on the cut")
+    pth, config = os.path.join(root, "3ST_net.pth"), os.path.join(root, "3ST_config.json")
+    export_reference_pth(model, pth, cfg)
+    with open(config, "w") as f:
+        json.dump(cfg.to_reference_json(), f)
+    out = os.path.join(root, "out")
+    fused_mha_fwd.launches = 0
+    t0 = time.perf_counter()
+    _, prov = cli.main(["eval", "--config", config, "--pth", pth, "--esc-csv",
+                        cut_csv, "--esc-audio", audio, "--experiments", "rebut",
+                        "--out-dir", out, "--device", "cuda"])
+    torch.cuda.synchronize()
+    card_s, k4 = time.perf_counter() - t0, fused_mha_fwd.launches
+    check(prov["engine"] == "fused" and k4 > 0, f"cli eval rebut: engine "
+          f"{prov['engine']}, {k4} K4 launches")
+    res = {}
+    for part in ("randK", "maxK"):
+        with open(os.path.join(out, f"3ST_rebut_expt_{part}.json")) as f:
+            res[part] = got = json.load(f)
+        check(list(got) == ["data", "list_K"] and list(got["data"]) == ["64"]
+              and got["list_K"] == default_list_K(FULL_POINTS)
+              and list(got["data"]["64"]) == [str(k) for k in got["list_K"]],
+              f"3ST_rebut_expt_{part}.json: keys or lists differ")
+        for mean, var in got["data"]["64"].values():
+            check(0.0 <= mean <= 1.0 and var >= 0.0 and (part == "randK" or var == 0),
+                  f"3ST_rebut_expt_{part}.json: cell [{mean}, {var}]")
+    t0 = time.perf_counter()
+    plain = dict(zip(("randK", "maxK"), rebut_importance_expt(
+        make_cloud_classifier(model), w, n, lab, fsog=cfg.sampling_rate,
+        Nfft=cfg.window_size, Ntemp=cfg.Ntemp, hf=cfg.hop_factor, tDb=cfg.trim_dB,
+        list_K=REBUT_K, device="cuda")))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    cells = {part: [(abs(res[part]["data"]["64"][str(k)][0] - plain[part]["data"][64][k][0]),
+                     k, res[part]["data"]["64"][str(k)][0]) for k in REBUT_K]
+             for part in plain}
+    for part, devs in cells.items():
+        for d, k, acc in devs:
+            check(d <= SWEEP_TOL, f"rebut {part} K {k}: K4 {acc} vs plain engine "
+                  f"{plain[part]['data'][64][k][0]}")
+    accs = {part: [v[0] for v in res[part]["data"]["64"].values()] for part in res}
+    log(f"[eval] cli eval rebut, 3ST at the recipe's width, seeded, logits standardised "
+        f"({named} classes named), {len(lab)} test clips of the 2-a-class cut: "
+        f"{card_s:.1f} s on the card ({k4} K4 forward launches, engine "
+        f"{prov['engine']}), accuracies over {len(accs['maxK'])} K: maxK "
+        f"{min(accs['maxK']):.4f}-{max(accs['maxK']):.4f}, randK "
+        f"{min(accs['randK']):.4f}-{max(accs['randK']):.4f}; K4 vs the plain "
+        f"engine at K {REBUT_K} (plain {plain_s:.1f} s): " + "; ".join(
+            f"{part} " + ", ".join(f"{acc:.4f} ({d:.4f} apart)" for d, _, acc in devs)
+            for part, devs in cells.items()) + f" ({name_limit})")
+    return k4
+
+
+def start_corpus(corpus_dir, clips_per_class):
+    """Start writing a synthetic ESC-10 corpus in a process of its own, so
+    that its numpy runs beside the build (phase 6's) or phase 8's GPU-bound
+    probes (phase 10's); the phase that reads it waits (``wait_corpus``)."""
     proc = subprocess.Popen(
         [sys.executable, "-c", "import sys; from pcaudio_torch.data import "
-         "generate_esc_corpus; generate_esc_corpus(sys.argv[1], clips_per_class=40)",
-         corpus_dir], cwd=ROOT)
+         "generate_esc_corpus; generate_esc_corpus(sys.argv[1], "
+         "clips_per_class=int(sys.argv[2]))", corpus_dir, str(clips_per_class)],
+        cwd=ROOT)
     atexit.register(proc.kill)
-    return proc, corpus_dir
+    return proc, corpus_dir, clips_per_class
 
 
-def eval_phase(name_limit, base_dirs, work, corpus_job, corpus_dir):
+def wait_corpus(job):
+    """Wait for ``start_corpus``' writer; returns ``(csv, audio dir, s
+    waited)``."""
+    proc, corpus_dir, clips_per_class = job
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    check(rc == 0, f"the writer of {corpus_dir} exited with {rc}")
+    # the writer left every clip in place: this writes the csv only
+    csv, audio = generate_esc_corpus(corpus_dir, clips_per_class=clips_per_class)
+    return csv, audio, time.perf_counter() - t0
+
+
+def eval_phase(name_limit, base_dirs, work, corpus_job):
     """Phase 10, then phase 11's evaluation half on its corpus; returns K4's
     forward launches in ``cli eval``."""
     try:
-        t0 = time.perf_counter()
-        rc = corpus_job.wait()
-        check(rc == 0, f"the eval corpus' writer exited with {rc}")
-        # the writer left every clip in place: this writes the csv only
-        csv, audio = generate_esc_corpus(corpus_dir, clips_per_class=40)
+        csv, audio, waited = wait_corpus(corpus_job)
         log(f"[eval] synthetic ESC-10 corpus, 40 clips per class, written "
-            f"during phase 8; waited {time.perf_counter() - t0:.1f} s for it")
+            f"during phase 8; waited {waited:.1f} s for it")
         pts, y = anchor_phase(csv, audio, name_limit)
 
         config = os.path.join(work, "FST_config.json")
@@ -1180,6 +1451,7 @@ def eval_phase(name_limit, base_dirs, work, corpus_job, corpus_dir):
         del pts, y, model
         torch.cuda.empty_cache()
         eval_3st_phase(csv, audio, name_limit)
+        launches += rebut_phase(csv, audio, work, name_limit)
         # ---- 11, second half: the baselines' sweeps on this corpus ---------
         phase("11, second half: the baselines' sweeps on this corpus")
         baselines_eval_phase(csv, audio, base_dirs, name_limit)
@@ -1210,6 +1482,11 @@ def main():
     # the earlier design of the redesigned probe kernels (phase 8),
     # its compilers started beside the main build's
     old_jobs = probe_stages.start_old_builds()
+    # phase 6's and phase 9's corpora, written beside the compilers
+    train_corpus = tempfile.mkdtemp(prefix="pcaudio_train_corpus_")
+    atexit.register(shutil.rmtree, train_corpus, True)
+    train_job = start_corpus(train_corpus, CLIPS_PER_CLASS)
+    ingest_job = start_ingest_corpus()
     try:
         lib_path = _build.build()
         _build.library()
@@ -1222,6 +1499,8 @@ def main():
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
+        elif line.startswith("[nvcc]"):
+            log(line)
 
     # ---- 2. each kernel vs its plain version at main-path shapes ------------
     phase("2. each kernel vs its plain version at main-path shapes")
@@ -1333,6 +1612,32 @@ def main():
         f"all-masked (32 clouds each): max |err| {worst['plain']:.3e} against "
         f"the plain version, {worst['f32']:.3e} against the f32 ST "
         f"({time.perf_counter() - t0:.1f} s)")
+    # K1's scratch form, past the shared-memory form's limit: the full
+    # 5,120-point grids of top_k=None serving, with and without a ragged
+    # mask (one cloud full, one empty), f32 and bf16 points
+    t0 = time.perf_counter()
+    worst_s = 0.0
+    for K in K1_SCRATCH_POINTS:
+        check(K > max_points(64), f"K1 scratch: {K} points fit the shared form")
+        pts = torch.from_numpy(rng.standard_normal((16, K, 3)).astype(
+            np.float32)).to(dev)
+        counts = torch.from_numpy(rng.integers(0, K + 1, 16)).to(dev)
+        counts[:2] = torch.tensor([K, 0], device=dev)
+        for mname, mask in (("full", None), ("ragged", torch.arange(
+                K, device=dev)[None, :] < counts[:, None])):
+            for dt in (torch.float32, torch.bfloat16):
+                before = launch_scratch.launches
+                got = fused_st_forward(model, pts.to(dt), mask)
+                torch.cuda.synchronize()
+                check(launch_scratch.launches == before + 1,
+                      f"K1 K {K}: the scratch form was not launched")
+                worst_s = max(worst_s, k1_check(
+                    got, fused_st_forward_plain(model, pts.to(dt), mask),
+                    f"scratch form K {K} {str(dt)[6:]} {mname}"))
+    errs["fused_st_scratch"] = worst_s
+    log(f"[K1] scratch form, K in {K1_SCRATCH_POINTS} x f32, bf16 points x "
+        f"full, ragged (16 clouds each): max |err| {worst_s:.3e} against the "
+        f"plain version (bar {K1_TOL} abs + rel) ({time.perf_counter() - t0:.1f} s)")
     fst = ST(dim_input=2, dim_output=10, num_inds=64, dim_hidden=64,
              num_heads=8)
     fst.load_state_dict(load_reference_pth(FST_PTH))
@@ -1399,6 +1704,8 @@ def main():
         log(f"[serve] {len(req)} clips: argmax agrees with the plain path on "
             f"{agree}/{len(req)} ({decided} decided rows all agree), "
             f"max logit dev {ldev:.3e}")
+
+    serve_paths_phase(model, requests, served, launches, name_limit)
 
     # ---- 4. timings at the bench shape --------------------------------------
     phase("4. timings at the bench shape")
@@ -1521,6 +1828,7 @@ def main():
         f"({name_limit})")
     del sp
     torch.cuda.empty_cache()
+    k1_scratch_time(model, bw[:64], bl[:64], times, bounds, lib_ms, name_limit)
     e2e = make_temporal_classifier(model, CFG, use_fused_st=True)
     e2e_plain = make_temporal_classifier(model, CFG, use_fused_st=True,
                                          plain=True)
@@ -1542,6 +1850,21 @@ def main():
         f"{BENCH_B / e2e_ms * 1e3:.1f} clips/s, plain B={plain_b} "
         f"{e2e_plain_ms:.3f} ms = {plain_b / e2e_plain_ms * 1e3:.1f} clips/s "
         f"({name_limit})")
+    # the xla featurize path (rfft STFT, one flat stable top-K, then K1)
+    # beside the fused one, in turns; and full-grid serving on 64 clips
+    e2e_xla = make_temporal_classifier(
+        model, dataclasses.replace(CFG, featurize="xla"), use_fused_st=True)
+    xla_ms, fused_ms = paired_ms(lambda: e2e_xla(bw, bl), lambda: e2e(bw, bl), 3, 3)
+    log(f"[time] e2e B={BENCH_B}, top_k {TOP_K}: xla featurize {xla_ms:.3f} ms = "
+        f"{BENCH_B / xla_ms * 1e3:.1f} clips/s, fused {fused_ms:.3f} ms = "
+        f"{BENCH_B / fused_ms * 1e3:.1f} clips/s ({name_limit})")
+    full_ms = {fz: cuda_ms(lambda fz=fz: make_temporal_classifier(
+        model, dataclasses.replace(CFG, featurize=fz, top_k=None),
+        use_fused_st=True)(bw[:64], bl[:64]), 3) for fz in ("fused", "xla")}
+    log(f"[time] e2e B=64, top_k None ({FULL_POINTS} points a cloud, K1's "
+        f"scratch form): fused featurize {full_ms['fused']:.3f} ms, xla "
+        f"{full_ms['xla']:.3f} ms = {64 / full_ms['fused'] * 1e3:.1f} / "
+        f"{64 / full_ms['xla'] * 1e3:.1f} clips/s ({name_limit})")
     del bw, bl, e2e, e2e_plain, clf, plain_clf
     torch.cuda.empty_cache()
 
@@ -1570,7 +1893,7 @@ def main():
     base_dir = tempfile.mkdtemp(prefix="pcaudio_baselines_")
     atexit.register(shutil.rmtree, base_dir, True)
     try:
-        train_out = train_phase(work, dev)
+        train_out = train_phase(work, dev, train_job)
         # ---- 11, first half: the baselines trained on phase 6's corpus -----
         phase("11, first half: the baselines trained on phase 6's corpus")
         base_dirs = baselines_train_phase(train_out["corpus"], base_dir, dev,
@@ -1643,7 +1966,7 @@ def main():
     phase("8. the probes at their TPU scripts' shapes")
     eval_work = tempfile.mkdtemp(prefix="pcaudio_eval_")
     atexit.register(shutil.rmtree, eval_work, True)
-    corpus_job, corpus_dir = start_eval_corpus(eval_work)
+    corpus_job = start_corpus(os.path.join(eval_work, "corpus"), 40)
     # each probe is its own path: a probe kernel's count starts at 0 before
     # its timed launches and is read after them (timing.measure)
     probe_rows = []
@@ -1675,11 +1998,11 @@ def main():
     log(f"[probe] old against new: {time.perf_counter() - t0:.1f} s")
     # ---- 9. the serving ingest: WAV files through classify_paths -----------
     phase("9. the serving ingest: WAV files through classify_paths")
-    ingest_phase(name_limit)
+    ingest_phase(name_limit, ingest_job)
     # ---- 10. the paper's evaluation: cli eval through K4 --------------------
     phase("10. the paper's evaluation: cli eval through K4")
     launches["fused_mha_fwd"] += eval_phase(name_limit, base_dirs, eval_work,
-                                            corpus_job, corpus_dir)
+                                            corpus_job)
     log(f"[done] {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -6,7 +6,7 @@
         [--device cuda|cpu]
     python -m pcaudio_torch.cli eval --config FST_config.json \\
         (--pth FST_net.pth | --checkpoint runs/fst) --esc-csv esc50.csv \\
-        --esc-audio audio/ [--experiments expt1 expt2] [--out-dir DIR] \\
+        --esc-audio audio/ [--experiments expt1 expt2 rebut] [--out-dir DIR] \\
         [--device cuda|cpu]
     python -m pcaudio_torch.cli plots --results-dir DIR --out-dir figures/
 
@@ -22,7 +22,9 @@ serve.AudioClassifier.from_reference_checkpoint`` loads for a 3ST.
 experiments``) for the config's model (FST, FB, 3ST or CNN_Temp) on its
 seeded test split and writes ``<tag>_expt1.json``,
 ``<tag>_randK_expt2.json`` and ``<tag>_maxK_expt2.json`` in the
-reference's schema, each with a ``.provenance.json`` side-file.
+reference's schema, each with a ``.provenance.json`` side-file; ``rebut``
+(3ST only; another model prints so and writes nothing) writes
+``3ST_rebut_expt_randK.json`` and ``3ST_rebut_expt_maxK.json``.
 
 ``plots`` draws the paper's five figures from a directory of those files
 (``pcaudio_torch.eval.plots``; needs matplotlib).
@@ -201,8 +203,8 @@ def cmd_eval(args):
     from pcaudio_torch.eval import (
         framewise_expt1, framewise_expt2, make_3st_chunk_classifier,
         make_cloud_classifier, make_cnn_chunk_classifier,
-        make_fb_frame_classifier, make_fst_frame_classifier, temporal_expt1,
-        temporal_expt2)
+        make_fb_frame_classifier, make_fst_frame_classifier,
+        rebut_importance_expt, temporal_expt1, temporal_expt2)
     from pcaudio_torch.utils.metrics import dump_with_provenance
 
     cfg = ExperimentConfig.from_reference_json(args.config)
@@ -210,10 +212,6 @@ def cmd_eval(args):
     tags = {ARCH_FST: "FST", ARCH_FB: "FB", ARCH_3ST: "3ST", ARCH_CNN: "CNNTemp"}
     if arch not in tags:
         raise ValueError(f"unknown architecture {arch!r}")
-    if "rebut" in args.experiments:
-        raise NotImplementedError("the rebuttal sweep needs ops/subsample.py, "
-                                  "which is not ported yet (ROADMAP Queue 1 "
-                                  "item 5)")
     device = resolve_device(args.device)
     # the baselines have no attention: no K4, no gate
     fused = _fused_attn_choice(device) and cfg.is_set_model
@@ -292,6 +290,17 @@ def cmd_eval(args):
                                      Ntemp=cfg.Ntemp, **common)
         dump(rnd, f"{tag}_randK_expt2.json", t0)
         dump(mx, f"{tag}_maxK_expt2.json", t0)
+    if "rebut" in args.experiments:
+        if arch != ARCH_3ST:
+            print(f"eval: the rebuttal sweep is 3ST-only; nothing written for "
+                  f"{tag}", flush=True)
+        else:
+            t0 = time.perf_counter()
+            rnd, mx = rebut_importance_expt(make_cloud_classifier(model), waves,
+                                            lengths, labels, Ntemp=cfg.Ntemp,
+                                            **common)
+            dump(rnd, "3ST_rebut_expt_randK.json", t0)
+            dump(mx, "3ST_rebut_expt_maxK.json", t0)
     return results, prov
 
 

@@ -3,12 +3,14 @@
 
 The reference's eval scripts (``Code/pceval.py`` for FST,
 ``Code/baseline_eval.py`` for FB, ``Code/pc_temp3d_eval.py`` for 3ST,
-``Code/baseline_temp_eval.py`` for CNN_temp) re-run the classifier under
+``Code/baseline_temp_eval.py`` for CNN_temp, ``Code/rebut_expts.py`` for
+3ST's importance sampling) re-run the classifier under
 shifted conditions.  The emitted dicts serialize to exactly the reference's
 ``Code/paper_plots/*.json`` schemas:
 
   expt1:  ``{"data": {Fs: [acc per N]}, "list_Fs": [...], "list_N": [...]}``
   expt2:  ``{"data": {K: [mean, var]}, "list_K": [...]}``
+  rebut:  ``{"data": {winF: {K: [mean, var]}}, "list_K": [...]}``
 
 Featurization per sweep point (``pceval.py:76``): ``n_fft =
 2^ceil(log2 N)``, window N, hop ``N·hf``, magnitude / N, the clip trimmed at
@@ -58,6 +60,7 @@ from pcaudio_torch.dsp.featurize import (
     trim_and_resample)
 from pcaudio_torch.ops.cloud import (
     frame_cloud, freq_coords, grid_cloud, time_coords)
+from pcaudio_torch.ops.subsample import importance_heatmap, topk_stable
 
 # classifier rows a call (the JAX package's defaults): frames of up to
 # 2049 points, temporal chunks of up to 10240
@@ -155,6 +158,20 @@ def _temporal_rows(logmag, mask, labels, Ntemp: int):
             labels.repeat_interleave(C))
 
 
+def _temporal_test_rows(waves, lengths, labels, *, fsog, Nfft, Ntemp, hf,
+                        tDb, device):
+    """The valid test chunks ``[Nc, Ntemp, bins]`` at the full rate and
+    ``Nfft``, their labels and the grid's coordinates: the set-up of the
+    temporal expt 2 and of the rebuttal sweep (the JAX
+    ``_temporal_test_chunks``)."""
+    cfg = FeaturizeConfig(fs=fsog, n_fft=Nfft, top_db=tDb, trim=True)
+    flat, valid, clabels = _temporal_rows(
+        *_featurize(_kept(waves, lengths, cfg), cfg), labels, Ntemp)
+    return (flat[valid], clabels[valid],
+            freq_coords(flat.shape[-1], fsog, device=device),
+            time_coords(Ntemp, Nfft, fsog, hf, device=device))
+
+
 def _hits(logits: torch.Tensor, labels: torch.Tensor,
           valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Correct predictions among the valid rows (every row where ``valid``
@@ -186,21 +203,24 @@ def _inputs(device, waves, lengths, labels):
 # ---------------------------------------------------------------------------
 
 def _ranks_desc(x: torch.Tensor) -> torch.Tensor:
-    """``rank[..., i]`` = place of element ``i`` in the stable descending
-    order of the last axis, so ``rank < K`` selects exactly
-    ``jax.lax.top_k(x, K)``'s elements (ties to the lower index, -0.0
-    tying with 0.0, as in the JAX function's stable sort of ``-x``)."""
-    order = torch.argsort(-x, dim=-1, stable=True)
+    """``rank[..., i]`` = place of element ``i`` in the order of
+    :func:`~pcaudio_torch.ops.subsample.topk_stable` over the last axis,
+    so ``rank < K`` selects exactly ``jax.lax.top_k(x, K)``'s elements
+    (ties to the lower index, -0.0 tying with 0.0)."""
+    _, order = topk_stable(x, x.shape[-1])
     iota = torch.arange(x.shape[-1], device=x.device).expand_as(order)
     return torch.empty_like(order).scatter_(-1, order, iota)
 
 
 def _mask_counts(apply_masked: Callable, x: torch.Tensor, rmax: torch.Tensor,
                  rrand: torch.Tensor, labels: torch.Tensor,
-                 valid: Optional[torch.Tensor], list_K: Sequence[int]
+                 valid: Optional[torch.Tensor], list_K: Sequence[int],
+                 x_rand: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Correct predictions for each K of ``list_K``, keeping ``rmax < K``
-    (maxK) and each of the ``R`` rank sets ``rrand [R, ...] < K`` (randK).
+    (maxK) and each of the ``R`` rank sets ``rrand [R, ...] < K`` (randK),
+    the randK masks over ``x_rand [R, ...]`` where given (run r's own
+    inputs), else over ``x``.
 
     ``apply_masked(x, keep [..., n] bool) -> logits``.  Returns
     ``(counts_max [nK], counts_rand [nK, R])``, int64 on ``x``'s device."""
@@ -210,7 +230,8 @@ def _mask_counts(apply_masked: Callable, x: torch.Tensor, rmax: torch.Tensor,
     for j, K in enumerate(list_K):
         cmax[j] = _hits(apply_masked(x, rmax < K), labels, valid)
         for r in range(R):
-            crand[j, r] = _hits(apply_masked(x, rrand[r] < K), labels, valid)
+            xr = x if x_rand is None else x_rand[r]
+            crand[j, r] = _hits(apply_masked(xr, rrand[r] < K), labels, valid)
     return cmax, crand
 
 
@@ -227,19 +248,24 @@ def _prefix_mask_counts(apply_masked: Callable, x: torch.Tensor,
                         _ranks_desc(noise), labels, valid, list_K)
 
 
-def _microbatch_generator(seed: int, mb_index: int,
+def _microbatch_generator(seed, mb_index: int,
                           device: torch.device) -> torch.Generator:
-    state = np.random.SeedSequence([seed, mb_index]).generate_state(1, np.uint64)
+    """The generator of one microbatch: ``seed`` (an int, or a tuple of
+    ints such as ``(seed, winF)``) and the microbatch index, mixed by
+    ``np.random.SeedSequence``."""
+    words = list(seed) if isinstance(seed, tuple) else [seed]
+    state = np.random.SeedSequence(words + [mb_index]).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
 
 def _run_masked_sweep(mb_counts: Callable, arrays: Sequence[torch.Tensor],
-                      labels: torch.Tensor, seed: int,
+                      labels: torch.Tensor, seed,
                       list_K: Sequence[int], mb: int, R: int):
     """The microbatch loop of a K sweep over rows that are all valid: calls
     ``mb_counts(*slices, labels_mb, gen, list_K)`` on axis-0 slices of
-    ``arrays`` of ``mb`` rows, with a generator per microbatch, sums the
-    counts on the device, and returns the reference-schema dicts
+    ``arrays`` of ``mb`` rows, with a generator per microbatch
+    (:func:`_microbatch_generator` of ``seed``), sums the counts on the
+    device, and returns the reference-schema dicts
     ``(randK {"data": {K: [mean, var]}}, maxK {"data": {K: [acc, 0]}})``."""
     n = labels.shape[0]
     cmax = torch.zeros(len(list_K), dtype=torch.int64, device=labels.device)
@@ -412,11 +438,9 @@ def temporal_expt2(cloud_classifier: Callable,
     n_total = Nfft * Ntemp // 2
     list_K = (default_list_K(n_total) if list_K is None
               else [int(k) for k in list_K])
-    cfg = FeaturizeConfig(fs=fsog, n_fft=Nfft, top_db=tDb, trim=True)
-    flat, valid, clabels = _temporal_rows(
-        *_featurize(_kept(waves, lengths, cfg), cfg), labels, Ntemp)
-    farr = freq_coords(flat.shape[-1], fsog, device=device)
-    tarr = time_coords(Ntemp, Nfft, fsog, hf, device=device)
+    rows, row_labels, farr, tarr = _temporal_test_rows(
+        waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
+        tDb=tDb, device=device)
     R = int(nruns)
 
     def mb_counts(flat_mb, labels_mb, gen, Ks):
@@ -430,8 +454,62 @@ def temporal_expt2(cloud_classifier: Callable,
                 torch.where(keep.reshape(fl.shape), fl, 0.0)),
             flat_mb, vals, labels_mb, None, gen, Ks, R)
 
-    return _run_masked_sweep(mb_counts, [flat[valid]], clabels[valid], seed,
+    return _run_masked_sweep(mb_counts, [rows], row_labels, seed,
                              list_K, _MB_CHUNKS, R)
+
+
+@torch.no_grad()
+def rebut_importance_expt(cloud_classifier: Callable, waves, lengths, labels,
+                          *, fsog: int = 44100, Nfft: int = 1024,
+                          Ntemp: int = 10, hf: float = 0.5, tDb: float = 60.0,
+                          list_winF: Sequence[int] = (64,),
+                          list_K: Optional[Sequence[int]] = None,
+                          nruns: int = 1, seed: int = 0, device="cuda"):
+    """The importance-sampling rebuttal experiment on 3ST
+    (``Code/rebut_expts.py:55-148``), on the engine of
+    :func:`temporal_expt2`.  Returns ``(randK_dict, maxK_dict)`` of schema
+    ``{"data": {winF: {K: [mean, var]}}, "list_K": [...]}``.
+
+    Per window width and microbatch, the chunks' heat-maps
+    (:func:`~pcaudio_torch.ops.subsample.importance_heatmap`) are
+    flattened frequency-major.  maxK (the heat's top K) is a rank mask over
+    that flat heat applied to the frequency-fastest cloud rows as they are,
+    the reference's index-space mismatch kept.  randK (multinomial with
+    replacement) is not a subset: each of the ``nruns`` runs draws
+    ``Nfft·Ntemp/2`` indices with probability heat / Σ heat, the clouds
+    are gathered in draw order, duplicates and all, and each K keeps the
+    first K draws (a prefix of i.i.d. draws is distributed as K draws).
+    Each (winF, microbatch) has its own generator, from ``(seed, winF)``
+    and the microbatch index."""
+    device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
+    n_total = Nfft * Ntemp // 2
+    list_K = (default_list_K(n_total) if list_K is None
+              else [int(k) for k in list_K])
+    rows, row_labels, farr, tarr = _temporal_test_rows(
+        waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
+        tDb=tDb, device=device)
+    R = int(nruns)
+    rand_out = {"data": {}, "list_K": list_K}
+    max_out = {"data": {}, "list_K": list_K}
+    for winF in list_winF:
+        def mb_counts(flat_mb, labels_mb, gen, Ks, _w=int(winF)):
+            heat = importance_heatmap(flat_mb, win_f=_w)
+            heat_flat = heat.transpose(-1, -2).reshape(heat.shape[0], -1)
+            clouds = grid_cloud(flat_mb, farr, tarr)
+            B, n = heat_flat.shape
+            draws = torch.multinomial(heat_flat.repeat(R, 1), n, replacement=True,
+                                      generator=gen).reshape(R, B, n)
+            drawn = torch.stack([clouds.gather(1, d[..., None].expand(B, n, 3))
+                                 for d in draws])
+            pos = torch.arange(n, device=flat_mb.device).expand(R, B, n)
+            return _mask_counts(cloud_classifier, clouds, _ranks_desc(heat_flat),
+                                pos, labels_mb, None, Ks, x_rand=drawn)
+
+        rnd_w, max_w = _run_masked_sweep(mb_counts, [rows], row_labels,
+                                         (seed, int(winF)), list_K, _MB_CHUNKS, R)
+        rand_out["data"][int(winF)] = rnd_w["data"]
+        max_out["data"][int(winF)] = max_w["data"]
+    return rand_out, max_out
 
 
 # ---------------------------------------------------------------------------

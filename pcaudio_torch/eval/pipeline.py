@@ -1,12 +1,24 @@
 """The temporal 3ST serving pipeline: waveform → point clouds → clip logits
-(counterpart of ``pcaudio/eval/pipeline.py``, fused path only).
+(counterpart of ``pcaudio/eval/pipeline.py``).
 
-trim → STFT |X|² chunks (kernel K3) → exact top-K per chunk (kernel K2) →
-log-magnitude of the K winners + affine (f, t) coordinates → ST forward
-(kernel K1) → mean of the chunk logits over valid chunks.  Reference
-semantics: ``Code/settransformertemp.py:35-59`` (n_fft 1024, Nyquist bin
-dropped, 10-frame chunks, remainder dropped) and the ``ESC_pc_temp_maxKSS``
-top-K clouds (``Code/dataset.py:169-202``).
+Two featurize paths, as in the JAX package:
+
+* ``featurize="fused"``: trim → STFT |X|² chunks (kernel K3) → exact top-K
+  per chunk (kernel K2) → log-magnitude of the K winners + affine (f, t)
+  coordinates; with ``top_k=None`` the log-magnitude of every bin of the
+  chunk and its linspace coordinates (no K2);
+* ``featurize="xla"``: ``dsp/featurize.py::featurize_batch`` (trim,
+  resampling when ``target_fs`` is set, the log-magnitude STFT at any hop
+  and window) → ``batched_temporal_chunks`` → one flat top-K
+  (``ops/subsample.py::topk_stable``) with affine coordinates, or with
+  ``top_k=None`` the full-grid clouds of ``ops/cloud.py::grid_cloud``.
+  These are plain PyTorch ops in place of XLA ops, not of a Pallas kernel.
+
+Then the ST forward (kernel K1 when ``use_fused_st``, which takes the full
+5,120-point clouds too) and the mean of the chunk logits over valid chunks.
+Reference semantics: ``Code/settransformertemp.py:35-59`` (n_fft 1024,
+Nyquist bin dropped, 10-frame chunks, remainder dropped) and the
+``ESC_pc_temp_maxKSS`` top-K clouds (``Code/dataset.py:169-202``).
 """
 from __future__ import annotations
 
@@ -17,23 +29,32 @@ from typing import Optional, Tuple
 import torch
 
 from pcaudio_torch.core.types import PointCloud
+from pcaudio_torch.dsp.featurize import (
+    FeaturizeConfig, batched_temporal_chunks, featurize_batch)
+from pcaudio_torch.ops.cloud import freq_coords, grid_cloud, time_coords
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
     fused_st_forward, fused_st_forward_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.ops.subsample import topk_stable
 
 
 @dataclasses.dataclass(frozen=True)
 class TemporalPipelineConfig:
-    """3ST pipeline config: the JAX package's fields and defaults, except
-    that ``featurize``'s only ported value is ``"fused"`` and that the JAX
+    """3ST pipeline config: the JAX package's fields, except that the JAX
     package's ``approx_recall``, ``exact_kernel`` and ``st_block_b`` are
     absent.  Those three tune the TPU kernels (``lax.approx_max_k``'s
     recall, the Pallas select against ``lax.top_k``, the fused ST's clouds
     per grid step) and have no counterpart here; a config that passes them
-    raises ``TypeError``."""
+    raises ``TypeError``.
+
+    ``featurize`` defaults to ``"fused"``, where the JAX package's default
+    is ``"xla"``: the fused path is the one the kernels serve and
+    ``bench.py`` measures, and it takes the same top-K sets (the tests hold
+    the two paths to each other).  ``"xla"`` is the path for resampling
+    (``target_fs``), another hop or another window."""
 
     fs: int = 44100
     target_fs: Optional[int] = None
@@ -41,7 +62,7 @@ class TemporalPipelineConfig:
     hop_factor: float = 0.5
     win_length: Optional[int] = None
     num_frames: int = 10
-    top_k: Optional[int] = None
+    top_k: Optional[int] = None    # None: full Nt·(n_fft/2)-point clouds
     trim: bool = True
     top_db: float = 60.0
     stft_precision: str = "highest"  # "default": serving log form
@@ -50,77 +71,142 @@ class TemporalPipelineConfig:
     featurize: str = "fused"
 
     def check_ported(self) -> None:
-        """Raise for the JAX options the port does not have yet."""
-        todo = "is not ported yet (ROADMAP Queue 1)"
-        if self.featurize != "fused":
-            raise NotImplementedError(f"featurize={self.featurize!r} {todo}")
+        """Raise for what the port does not have (``extraction="approx"``,
+        ROADMAP's "Not ported") and for a fused featurize outside the
+        serving config (resampling, another hop or window), as the JAX
+        package asserts.
+
+        Two fused configs serve here that the JAX ``_extract_fused``
+        refuses, both port-only: ``top_k=None`` (full grids; the JAX
+        package asserts a top-K budget), kept so that the port's default
+        config (``featurize="fused"``, ``top_k=None``) serves, and
+        ``target_fs == fs`` (no resampling).  Their tests hold them to the
+        JAX package's ``"xla"`` path."""
         if self.extraction != "exact":
-            raise NotImplementedError(f"extraction={self.extraction!r} {todo}")
-        if self.target_fs is not None and self.target_fs != self.fs:
-            raise NotImplementedError(f"resampling {todo}")
-        if self.top_k is None:
-            raise NotImplementedError(f"full-grid clouds (top_k=None) {todo}")
-        if self.hop_factor != 0.5 or self.win_length not in (None, self.n_fft):
-            raise ValueError("the fused featurize covers hop n_fft/2 and "
-                             "win_length n_fft only")
+            raise NotImplementedError(f"extraction={self.extraction!r} is not "
+                                      f"ported (ROADMAP, Not ported)")
+        if self.featurize not in ("fused", "xla"):
+            raise ValueError(f"featurize must be 'fused' or 'xla', got "
+                             f"{self.featurize!r}")
+        if self.featurize == "fused" and (
+                self.target_fs not in (None, self.fs) or self.hop_factor != 0.5
+                or self.win_length not in (None, self.n_fft)):
+            raise ValueError("the fused featurize covers hop n_fft/2, "
+                             "win_length n_fft and no resampling; use "
+                             "featurize='xla'")
+
+    def featurize_config(self) -> FeaturizeConfig:
+        return FeaturizeConfig(
+            fs=self.fs, target_fs=self.target_fs, n_fft=self.n_fft,
+            hop_factor=self.hop_factor, win_length=self.win_length,
+            top_db=self.top_db, trim=self.trim,
+            precision=self.stft_precision, out_dtype=self.compute_dtype)
 
 
 def extract_chunk_clouds(waves: torch.Tensor, lengths: torch.Tensor,
                          cfg: TemporalPipelineConfig, plain: bool = False
                          ) -> Tuple[PointCloud, torch.Tensor]:
-    """waveforms → per-chunk temporal top-K point clouds.
+    """waveforms → per-chunk temporal point clouds.
 
     Returns ``(cloud, chunk_mask [B, C])`` with ``cloud.points
-    [B·C, K, 3]`` ``(f, t, log|X|)`` and ``cloud.mask [B·C, K]``.  ``waves``
-    may be raw PCM int16 (divided by 32768 here).  ``plain=True`` runs the
+    [B·C, K, 3]`` ``(f, t, log|X|)``, ``K = top_k`` or ``Nt·(n_fft/2)``, and
+    ``cloud.mask [B·C, K]`` (the chunk mask broadcast).  ``waves`` may be
+    raw PCM int16 (divided by 32768 here).  ``plain=True`` runs the
     kernels' plain PyTorch versions whatever the device.
     """
     cfg.check_ported()
     if waves.dtype == torch.int16:
         waves = waves.float() * (1.0 / 32768.0)
+    if cfg.featurize == "fused":
+        clouds, chunk_mask = _clouds_fused(waves, lengths, cfg, plain)
+    else:
+        clouds, chunk_mask = _clouds_xla(waves, lengths, cfg)
+    B, C, K = clouds.shape[:3]
+    pmask = chunk_mask[:, :, None].expand(B, C, K)
+    return (PointCloud(points=clouds.reshape(B * C, K, 3),
+                       mask=pmask.reshape(B * C, K)), chunk_mask)
+
+
+def _affine_clouds(idx: torch.Tensor, vals: torch.Tensor, F: int, Nt: int,
+                   cfg: TemporalPipelineConfig, fs: int) -> torch.Tensor:
+    """``(f, t, vals)`` of flat frequency-fastest indices ``idx``: the
+    (f, t) coordinates are linspace grids, affine in the flat index; the
+    steps are rounded to the cloud dtype first, as the JAX package does, on
+    the host (a device constant would make the host wait for the kernels
+    before it)."""
+    dt = vals.dtype
+    cf = float(torch.tensor(0.5 / (F - 1), dtype=dt))
+    ct = float(torch.tensor((cfg.hop_factor * cfg.n_fft / fs) * Nt / (Nt - 1),
+                            dtype=dt))
+    return torch.stack([(idx % F).to(dt) * cf, (idx // F).to(dt) * ct, vals],
+                       dim=-1)
+
+
+def _clouds_fused(waves, lengths, cfg, plain):
+    """K3's |X|² chunks, then K2's top K (log-magnitude of the winners
+    only) or, at ``top_k=None``, every bin: ``(clouds [B, C, K, 3],
+    chunk_mask)``."""
     serving_bf16 = cfg.compute_dtype == "bfloat16"
     cdt = torch.bfloat16 if serving_bf16 else torch.float32
     grid_dt = (torch.bfloat16 if serving_bf16 and cfg.stft_precision != "highest"
                else torch.float32)
     featurize = fused_chunk_mag2_plain if plain else fused_chunk_mag2
-    select = exact_topk_chunks_plain if plain else exact_topk_chunks
     m2, chunk_mask = featurize(waves, lengths, n_fft=cfg.n_fft,
                                num_frames=cfg.num_frames, trim=cfg.trim,
                                top_db=cfg.top_db, out_dtype=grid_dt)
     B, C, Nt, F = m2.shape
     k = cfg.top_k
-    vals2, idx = select(m2.reshape(B * C, Nt, F), k)
-    vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
-    # log-magnitude of the winners only
+    if k is not None:
+        select = exact_topk_chunks_plain if plain else exact_topk_chunks
+        vals2, idx = select(m2.reshape(B * C, Nt, F), k)
+        vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
+    else:
+        vals2 = m2
     if cfg.stft_precision == "highest":
-        vals = torch.log(1.0e-8 + torch.sqrt(vals2) / cfg.n_fft).to(cdt)
+        vals = torch.log(1.0e-8 + torch.sqrt(vals2.float()) / cfg.n_fft).to(cdt)
     else:
         # 0.5·log(v) − log(n) equals log(1e-8 + sqrt(v)/n) up to
         # O(1e-8·n/sqrt(v)); the floor pins silent points near log(1e-8)
         floor = (1.0e-8 * cfg.n_fft) ** 2
-        vals = (0.5 * torch.log(vals2.clamp_min(floor))
+        vals = (0.5 * torch.log(vals2.float().clamp_min(floor))
                 - math.log(cfg.n_fft)).to(cdt)
-    # the (f, t) coordinates are linspace grids, affine in the flat index;
-    # the steps are rounded to the cloud dtype first, as the JAX package
-    # does, on the host (a device constant would make the host wait for the
-    # kernels before it)
-    cf = float(torch.tensor(0.5 / (F - 1), dtype=cdt))
-    ct = float(torch.tensor(
-        (cfg.hop_factor * cfg.n_fft / cfg.fs) * Nt / (Nt - 1), dtype=cdt))
-    clouds = torch.stack([(idx % F).to(cdt) * cf, (idx // F).to(cdt) * ct,
-                          vals], dim=-1)
-    pmask = chunk_mask[:, :, None].expand(B, C, k)
-    return (PointCloud(points=clouds.reshape(B * C, k, 3),
-                       mask=pmask.reshape(B * C, k)), chunk_mask)
+    if k is not None:
+        return _affine_clouds(idx, vals, F, Nt, cfg, cfg.fs), chunk_mask
+    return _full_clouds(vals, Nt, F, cfg, cfg.fs), chunk_mask
+
+
+def _full_clouds(grid, Nt, F, cfg, fs):
+    """Every bin of ``[B, C, Nt, F]`` log-magnitude chunks, frequency
+    fastest, as f32 (the JAX ``grid_cloud`` stacks onto f32 coordinates)."""
+    dev = grid.device
+    return grid_cloud(grid.float(), freq_coords(F, fs, device=dev),
+                      time_coords(Nt, cfg.n_fft, fs, cfg.hop_factor, device=dev))
+
+
+def _clouds_xla(waves, lengths, cfg):
+    """``featurize_batch`` → chunks → one flat stable top K (the JAX
+    two-stage per-frame form selects the same set in the same order) or
+    the full grid: ``(clouds [B, C, K, 3], chunk_mask)``."""
+    logmag, frame_mask = featurize_batch(waves, lengths, cfg.featurize_config())
+    chunks, chunk_mask = batched_temporal_chunks(logmag, frame_mask,
+                                                 cfg.num_frames)
+    B, C, Nt, F = chunks.shape
+    eff_fs = cfg.target_fs or cfg.fs
+    k = cfg.top_k
+    if k is not None and k < Nt * F:
+        vals, idx = topk_stable(chunks.reshape(B, C, Nt * F), k)
+        return _affine_clouds(idx, vals, F, Nt, cfg, eff_fs), chunk_mask
+    return _full_clouds(chunks, Nt, F, cfg, eff_fs), chunk_mask
 
 
 def _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain):
     cloud, chunk_mask = extract_chunk_clouds(waves, lengths, cfg, plain=plain)
     B, C = chunk_mask.shape
     if use_fused_st:
-        # mask=None: a top-K cloud is all valid or (invalid chunk) all
-        # invalid; invalid chunks give finite logits that the chunk-mask
-        # weighting drops
+        # mask=None: every cloud here (top K or the full grid) is all
+        # valid or (invalid chunk) all invalid; invalid chunks give finite
+        # logits that the chunk-mask weighting drops.  K1 takes the full
+        # 5,120-point grids in its scratch form
         st = fused_st_forward_plain if plain else fused_st_forward
         logits = st(model, cloud.points, None)
     else:

@@ -132,9 +132,9 @@ def generate_all(plots_dir: str, out_dir: str,
     """Draw the five paper figures from a directory of result files with
     the reference names (``FST_expt1.json`` …) into ``out_dir``; returns
     the paths written.  A figure whose files are not all there is skipped
-    and named through ``log`` (the rebuttal overlay needs the rebuttal
-    sweep's files, which the port cannot make yet); no figure at all is an
-    error."""
+    and named through ``log`` (the rebuttal overlay needs the files of
+    ``cli eval --experiments rebut`` beside 3ST's expt-2 files); no figure
+    at all is an error."""
     import os
 
     import matplotlib.pyplot as plt

@@ -18,14 +18,22 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
-SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "mha.cu", "probe_mma.cu",
-           "probe_attend.cu", "probe_stream.cu", "probe_featurize.cu")
+SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "fused_st_scratch.cu",
+           "mha.cu", "probe_mma.cu", "probe_attend.cu", "probe_stream.cu",
+           "probe_featurize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a source's options beside NVCC_FLAGS: K1's two forms, four instantiations
+# of the whole ST each, are the build's longest compiles, so their kernels
+# are compiled on as many threads as the host has (the same SASS)
+SOURCE_FLAGS = {"fused_st.cu": ("--split-compile=0",),
+                "fused_st_scratch.cu": ("--split-compile=0",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +46,10 @@ _SIGNATURES = {
     "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P, _L, _P,
                          _I, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st_max_points": [_I],
+    "pcaudio_fused_st_scratch": [_P, _I, _P, _P, _L, _P, _L, _P,
+                                 _I, _I, _I, _I, _I, _I, _P, _L, _P],
+    "pcaudio_fused_st_scratch_max_points": [_I],
+    "pcaudio_fused_st_scratch_blocks": [_I, _I, _I, ctypes.POINTER(_I)],
     "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P] * 5,
@@ -68,6 +80,7 @@ def build() -> Path:
     """Compile the kernels unless this exact build exists; return its path."""
     srcs = [CSRC / name for name in SOURCES]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for p in sorted(CSRC.glob("*.cu*")):  # sources and headers
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -78,11 +91,20 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
+                               "-c", str(src), "-o", str(obj)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for src, obj in zip(srcs, objs)]
-    logs = [p.communicate()[0] for p in procs]
+
+    def finish(p):  # its output, and the seconds to its end
+        return p.communicate()[0], time.perf_counter() - t0
+    with ThreadPoolExecutor(len(procs)) as pool:
+        done = list(pool.map(finish, procs))
+    logs = [out for out, _ in done]
+    logs.append("".join(f"[nvcc] {src.name}: {s:.1f} s\n"
+                        for src, (_, s) in zip(srcs, done)))
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     failed = [(src.name, p.returncode) for src, p in zip(srcs, procs)
               if p.returncode != 0]

@@ -11,9 +11,17 @@ and V, the probabilities before A·V (unnormalised, in an online softmax
 over 64-key chunks; the PMA's stay f32), the input of every product and
 each ISAB's output.  The f32 ``ST`` module stays the model (``use_fused_st=False``
 and training); it sits about 5e-2 from this function (docs/ACCURACY.md).
+
+Two forms of the kernel: clouds of at most :func:`max_points` points (1,280
+at 64 inducing points) keep ISAB 1's output in shared memory, one block a
+cloud (``launch_packed``); larger clouds, up to :data:`MAX_SCRATCH_POINTS`
+(the full 5,120-point temporal grids), keep it in a scratch buffer in
+device memory, one slab a resident block of a persistent grid
+(``launch_scratch``).  Both compute the same function in the same order.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional, Tuple
@@ -30,16 +38,23 @@ MAX_INDS = 128
 MAX_CLASSES = 256
 _SMEM_LIMIT = 232448   # bytes of shared memory a block may take on the H100
 _LD = 72               # bf16 row stride of the kernel's [rows, 64] buffers
+MAX_SCRATCH_POINTS = 65536   # the scratch form's limit (fused_st_scratch.cu)
+SCRATCH_BYTES = 256 << 20    # cap of the scratch form's buffer: its grid
+                             # is at most this over one cloud's slab
+
+
+def _warps(num_inds: int) -> int:
+    return 4 if num_inds <= 64 else 8
 
 
 def max_points(num_inds: int) -> int:
     """The most points a cloud may have on the card: the kernel keeps ISAB
     1's output ([K, 64] bf16) and five [16·warps, 64] buffers in one block's
     shared memory, with 4 warps for ``num_inds ≤ 64``, else 8.  Mirrors
-    ``fused_st.cu::smem_bytes``; 1,280 points at 64 inducing points."""
+    ``fused_st.cuh::smem_bytes``; 1,280 points at 64 inducing points."""
     if not 1 <= num_inds <= MAX_INDS:
         return 0
-    warps = 4 if num_inds <= 64 else 8
+    warps = _warps(num_inds)
     kt = 16 * warps
 
     def smem(k):
@@ -50,6 +65,20 @@ def max_points(num_inds: int) -> int:
     while smem(k + kt) <= _SMEM_LIMIT:
         k += kt
     return k
+
+
+def max_scratch_points(num_inds: int) -> int:
+    """The most points a cloud may have in the scratch form (the kernel
+    keeps one flag a point in shared memory); 0 outside 1 .. 128 inducing
+    points.  Mirrors ``fused_st_scratch.cu::pcaudio_fused_st_scratch_max_points``."""
+    return MAX_SCRATCH_POINTS if 1 <= num_inds <= MAX_INDS else 0
+
+
+def slab_bytes(K: int, num_inds: int) -> int:
+    """One cloud's X1 in the scratch form: K rounded up to the tile, × 64
+    bf16."""
+    kt = 16 * _warps(num_inds)
+    return -(-K // kt) * kt * 64 * 2
 
 
 def _check(model: ST, points: torch.Tensor, mask: Optional[torch.Tensor]):
@@ -63,8 +92,9 @@ def _check(model: ST, points: torch.Tensor, mask: Optional[torch.Tensor]):
                          f"{tuple(points.shape)}")
 
 
-def _check_kernel(model: ST, points: torch.Tensor) -> None:
-    """What the kernel takes, checked before any launch."""
+def _check_kernel(model: ST, points: torch.Tensor) -> str:
+    """What the kernel takes, checked before any launch; returns the form
+    that takes it, ``"shared"`` or ``"scratch"``."""
     N, K, din = points.shape
     isab = model.enc[0]
     M, dv = isab.I.shape[1], isab.I.shape[2]
@@ -76,12 +106,15 @@ def _check_kernel(model: ST, points: torch.Tensor) -> None:
     if not (1 <= M <= MAX_INDS and 1 <= ncls <= MAX_CLASSES):
         raise ValueError(f"num_inds={M}, classes={ncls} outside the kernel's "
                          f"limits {MAX_INDS}/{MAX_CLASSES}")
-    if not 1 <= K <= max_points(M):
+    if not 1 <= K <= max_scratch_points(M):
         raise ValueError(f"K={K} points outside the kernel's limit of "
-                         f"{max_points(M)} at num_inds={M} (its shared memory)")
+                         f"{max_scratch_points(M)} at num_inds={M} (its "
+                         f"scratch form; the shared-memory form takes "
+                         f"{max_points(M)})")
     if points.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"points must be float32 or bfloat16, got "
                         f"{points.dtype}")
+    return "shared" if K <= max_points(M) else "scratch"
 
 
 def _r(x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +218,7 @@ def _fragments(w_t: torch.Tensor) -> torch.Tensor:
 
 def _packed_weights(model: ST, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(bf16 buffer, f32 buffer)`` of every weight, in the order
-    ``fused_st.cu`` reads them: per ISAB the projected inducing queries
+    K1 reads them (``fused_st.cuh``): per ISAB the projected inducing queries
     (bf16, then f32 in the second buffer), MAB0's K, V, O and MAB1's Q, K,
     V, O weights in B-fragment order (:func:`_fragments`) and their biases;
     then the PMA's seed query, its K and V weights as fragments, its O
@@ -227,13 +260,15 @@ def fused_st_forward(model: ST, points: torch.Tensor,
 
     CPU tensors take :func:`fused_st_forward_plain`; CUDA tensors the
     kernel, which needs ``dim_hidden`` 64, 8 heads, ``din`` 2 or 3,
-    ``num_inds ≤ 128``, at most 256 classes and ``K ≤ max_points(num_inds)``
-    (1,280 at 64 inducing points); anything else raises before a launch.
+    ``num_inds ≤ 128``, at most 256 classes and ``K ≤
+    max_scratch_points(num_inds)``; anything else raises before a launch.
+    Up to ``max_points(num_inds)`` points (1,280 at 64 inducing points) the
+    shared-memory form runs, above it the scratch form.
     """
     if points.device.type == "cpu":
         return fused_st_forward_plain(model, points, mask)
     _check(model, points, mask)
-    _check_kernel(model, points)
+    form = _check_kernel(model, points)
     if not (points.is_cuda and points.is_contiguous()):
         raise ValueError("points must be a contiguous CUDA tensor")
     if mask is not None:
@@ -241,7 +276,8 @@ def fused_st_forward(model: ST, points: torch.Tensor,
     w = _packed_weights(model, points.device)
     out = torch.empty((points.shape[0], model.dec[1].out_features),
                       dtype=torch.float32, device=points.device)
-    launch_packed(points, mask, w, out, model.enc[0].I.shape[1])
+    launch = launch_packed if form == "shared" else launch_scratch
+    launch(points, mask, w, out, model.enc[0].I.shape[1])
     return out
 
 
@@ -268,3 +304,50 @@ def launch_packed(points: torch.Tensor, mask: Optional[torch.Tensor],
 
 
 fused_st_forward.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(device_index: int, din: int, num_inds: int, K: int) -> int:
+    """Blocks of the scratch form resident at once on the card (the
+    occupancy query), per device and shape."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        _build.launch("pcaudio_fused_st_scratch_blocks", din, num_inds, K,
+                      ctypes.byref(n))
+    if n.value < 1:
+        raise RuntimeError(f"the scratch form of K1 cannot be resident at "
+                           f"din={din}, num_inds={num_inds}, K={K}")
+    return n.value
+
+
+def scratch_grid(N: int, K: int, din: int, num_inds: int,
+                 device_index: int) -> int:
+    """The scratch form's grid: one block a cloud, at most as many as are
+    resident and as :data:`SCRATCH_BYTES` holds slabs of."""
+    cap = max(1, SCRATCH_BYTES // slab_bytes(K, num_inds))
+    return min(N, resident_blocks(device_index, din, num_inds, K), cap)
+
+
+def launch_scratch(points: torch.Tensor, mask: Optional[torch.Tensor],
+                   w: Tuple[torch.Tensor, torch.Tensor], out: torch.Tensor,
+                   num_inds: int) -> None:
+    """One launch of K1's scratch form on checked operands (as
+    :func:`launch_packed`): a persistent grid of :func:`scratch_grid`
+    blocks, each with a slab of a scratch buffer allocated here for ISAB
+    1's output.  Counts as a launch of the scratch form
+    (``launch_scratch.launches``)."""
+    N, K, din = points.shape
+    grid = scratch_grid(N, K, din, num_inds, points.get_device())
+    slab = slab_bytes(K, num_inds) // 2
+    scratch = torch.empty(grid * slab, dtype=torch.bfloat16, device=points.device)
+    wb, wf = w
+    _build.launch("pcaudio_fused_st_scratch", points.data_ptr(),
+                  int(points.dtype == torch.bfloat16),
+                  None if mask is None else mask.data_ptr(),
+                  wb.data_ptr(), wb.numel(), wf.data_ptr(), wf.numel(),
+                  out.data_ptr(), N, K, din, num_inds, out.shape[1], grid,
+                  scratch.data_ptr(), scratch.numel(), _build.stream_of(points))
+    launch_scratch.launches += 1
+
+
+launch_scratch.launches = 0

@@ -53,11 +53,16 @@ STAGING = ("float32", "int16")
 THREAD_SWEEP = (1, 4, 8, 16)   # decode threads tried beside the default
 
 
+def corpus_paths(directory: str, nclips: int) -> List[str]:
+    """The files :func:`write_corpus` writes, in order."""
+    return [os.path.join(directory, f"clip_{i:05d}.wav") for i in range(nclips)]
+
+
 def write_corpus(directory: str, nclips: int, distinct: int = DISTINCT) -> List[str]:
     """``nclips`` 5 s PCM16 WAV files: ``distinct`` ``synth_clip``s, file i
     a copy of clip i mod ``distinct``."""
     os.makedirs(directory, exist_ok=True)
-    paths = [os.path.join(directory, f"clip_{i:05d}.wav") for i in range(nclips)]
+    paths = corpus_paths(directory, nclips)
     for i, p in enumerate(paths):
         if i < distinct:
             write_wav_pcm16(p, synth_clip(i % 10, i // 10, n=CLIP), FS)

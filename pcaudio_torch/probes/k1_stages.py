@@ -6,16 +6,25 @@ from the same source for comparison: one that lets two blocks share an SM
 softmax exps are taken out (wrong logits; what the exps cost).  Given the
 source of the f32 SIMT design it replaced (``--simt-source``, e.g. from
 ``git show d9a9fb9:pcaudio_torch/csrc/fused_st.cu``), it also splits that
-kernel's time by ISAB 1, ISAB 2 and PMA + Linear.  Each variant is its own shared
-library, built with ``nvcc`` into ``build/k1_stages/``.
+kernel's time by ISAB 1, ISAB 2 and PMA + Linear.  Given an earlier
+``fused_st.cu`` of the same C interface (``--earlier-source``, e.g. from
+``git show REV:pcaudio_torch/csrc/fused_st.cu``), it times that build and
+the package's library whole, in turns (earlier, now, now, earlier), and
+compares their SASS of ``fused_st_kernel<3, 4>`` (the serving
+instantiation) instruction by instruction.  Each variant is its own shared
+library, built with ``nvcc`` and ``NVCC_FLAGS`` into ``build/k1_stages/``,
+all at once.
 
-    python -m pcaudio_torch.probes.k1_stages [--simt-source PATH]
+    python -m pcaudio_torch.probes.k1_stages [--simt-source PATH] [--earlier-source PATH]
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
+import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -26,7 +35,7 @@ from pcaudio_torch.probes.timing import card, cuda_ms, tf32_off
 
 N, K, DIN, M, NCLS = 44032, 128, 3, 64, 10
 OUT = _build.BUILD_DIR.parent / "k1_stages"
-VARIANTS = {  # name: (text in fused_st.cu, its replacement)
+VARIANTS = {  # name: (text in fused_st.cu or fused_st.cuh, its replacement)
     "two blocks an SM": ("NW == 4 ? 3 : 1", "NW == 4 ? 2 : 1"),
     "exps taken out": ("s[jj][e] = ex2(fmaf(s[jj][e], kC, -ms[e >> 1]));",
                        "s[jj][e] = fmaf(s[jj][e], kC, -ms[e >> 1]);"),
@@ -55,12 +64,36 @@ def _simt_with_stages(text: str) -> str:
     return text
 
 
-def _build_lib(name: str, source: str) -> ctypes.CDLL:
-    d = OUT / name.replace(" ", "_")
+K1_FILES = ("fused_st.cu", "fused_st.cuh", "mma.cuh")  # the shared-memory form
+
+
+def k1_sources() -> dict:
+    """The shared-memory form of K1 as it is built: ``{file name: text}``."""
+    return {n: (_build.CSRC / n).read_text() for n in K1_FILES}
+
+
+def variant_sources(sources: dict, old: str, new: str) -> dict:
+    """``sources`` with ``old`` replaced by ``new`` in the one file that
+    holds it (once); raises where no file or several hold it."""
+    hits = [n for n, text in sources.items() if old in text]
+    if len(hits) != 1 or sources[hits[0]].count(old) != 1:
+        raise ValueError(f"{old!r} is not in exactly one place of {list(sources)}")
+    return {n: text.replace(old, new) if n == hits[0] else text
+            for n, text in sources.items()}
+
+
+def _lib_path(name: str):
+    return OUT / name.replace(" ", "_") / "lib.so"
+
+
+def _build_lib(name: str, sources: dict) -> ctypes.CDLL:
+    """Build ``sources["fused_st.cu"]`` beside the other files given (its
+    headers, written next to it)."""
+    d = _lib_path(name).parent
     d.mkdir(parents=True, exist_ok=True)
-    (d / "mma.cuh").write_text((_build.CSRC / "mma.cuh").read_text())
-    (d / "fused_st.cu").write_text(source)
-    lib = d / "lib.so"
+    for fname, text in sources.items():
+        (d / fname).write_text(text)
+    lib = _lib_path(name)
     res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib),
                           str(d / "fused_st.cu")], capture_output=True, text=True)
     if res.returncode:
@@ -72,6 +105,23 @@ def _build_lib(name: str, source: str) -> ctypes.CDLL:
         elif ("registers" in line or "spill" in line) and "fused_st_kernelILi3E" in entry:
             print(f"[ptxas] {name}: {line.strip()}")
     return ctypes.CDLL(str(lib))
+
+
+def _kernel_sass(lib, kernel: str = "fused_st_kernelILi3ELi4E") -> list:
+    """The SASS instructions of the kernel of ``lib`` whose mangled name
+    holds ``kernel``, without their addresses and encodings."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    ins, inside = [], False
+    for line in text.splitlines():
+        if "Function : " in line:
+            inside = kernel in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+            if m:
+                ins.append(m.group(1))
+    return ins
 
 
 def _simt_pack(model) -> torch.Tensor:
@@ -94,40 +144,63 @@ def _simt_pack(model) -> torch.Tensor:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--simt-source", help="the f32 SIMT design's fused_st.cu")
+    ap.add_argument("--earlier-source", help="an earlier fused_st.cu of the "
+                    "same C interface, compared with today's")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     name_limit = card()
-    src = (_build.CSRC / "fused_st.cu").read_text()
+    src = k1_sources()
+    builds = {name: variant_sources(src, old, new)
+              for name, (old, new) in VARIANTS.items()}
+    if args.earlier_source:
+        with open(args.earlier_source) as f:
+            builds["earlier"] = {"fused_st.cu": f.read(), "mma.cuh": src["mma.cuh"]}
+    if args.simt_source:
+        with open(args.simt_source) as f:
+            builds["f32 SIMT design"] = {"fused_st.cu": _simt_with_stages(f.read()),
+                                         "mma.cuh": src["mma.cuh"]}
     libs = {"K1": _build.library()}
-    for name, (old, new) in VARIANTS.items():
-        if old not in src:
-            raise ValueError(f"variant {name!r}: {old!r} not in fused_st.cu")
-        libs[name] = _build_lib(name, src.replace(old, new))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        built = dict(zip(builds, pool.map(lambda kv: _build_lib(*kv), builds.items())))
+    libs.update((n, built[n]) for n in VARIANTS)
     model = seeded_3st(dev, torch.Generator(dev).manual_seed(0))
     pts = torch.randn(N, K, DIN, generator=torch.Generator(dev).manual_seed(1),
                       device=dev).bfloat16()
     out = torch.empty(N, NCLS, device=dev)
     wb, wf = _packed_weights(model, dev)
     stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(lib, name):
+        fn = lib.pcaudio_fused_st
+        fn.argtypes = _build._SIGNATURES["pcaudio_fused_st"]
+
+        def launch(passes):
+            code = fn(pts.data_ptr(), 1, None, wb.data_ptr(), wb.numel(), wf.data_ptr(),
+                      wf.numel(), out.data_ptr(), N, K, DIN, M, NCLS, passes, stream)
+            if code:
+                raise RuntimeError(f"{name}: launch failed ({code})")
+        return launch
+
     with tf32_off():
         for name, lib in libs.items():
-            fn = lib.pcaudio_fused_st
-            fn.argtypes = _build._SIGNATURES["pcaudio_fused_st"]
-
-            def launch(passes, fn=fn, name=name):
-                code = fn(pts.data_ptr(), 1, None, wb.data_ptr(), wb.numel(), wf.data_ptr(),
-                          wf.numel(), out.data_ptr(), N, K, DIN, M, NCLS, passes, stream)
-                if code:
-                    raise RuntimeError(f"{name}: launch failed ({code})")
+            launch = launcher(lib, name)
             t = [cuda_ms(lambda p=p: launch(p), 5) for p in (1, 2, 3)]
             print(f"[K1 stages] {name}, {N} clouds of {K} points: pass A (ISAB 1 MAB0) "
                   f"{t[0]:.3f} ms, pass B (ISAB 1 MAB1 + ISAB 2 MAB0) {t[1] - t[0]:.3f} ms, "
                   f"pass C (ISAB 2 MAB1 + PMA + Linear) {t[2] - t[1]:.3f} ms, whole "
                   f"{t[2]:.3f} ms ({name_limit})", flush=True)
+        if args.earlier_source:
+            runs = {"earlier": launcher(built["earlier"], "earlier"),
+                    "now": launcher(libs["K1"], "K1")}
+            turns = ("earlier", "now", "now", "earlier")
+            t = [cuda_ms(lambda n=n: runs[n](3), 5) for n in turns]
+            a, b = _kernel_sass(_lib_path("earlier")), _kernel_sass(_build.build())
+            print(f"[K1 before/after] {N} clouds of {K} points, whole kernel in turns "
+                  + ", ".join(f"{n} {ms:.3f} ms" for n, ms in zip(turns, t))
+                  + f"; SASS of fused_st_kernel<3, 4>: {len(a)} / {len(b)} "
+                  f"instructions, identical: {a == b} ({name_limit})", flush=True)
         if args.simt_source:
-            with open(args.simt_source) as f:
-                lib = _build_lib("f32 SIMT design", _simt_with_stages(f.read()))
-            fn = lib.pcaudio_fused_st
+            fn = built["f32 SIMT design"].pcaudio_fused_st
             fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
             w1 = _simt_pack(model)

@@ -1,8 +1,8 @@
 """``python -m pcaudio_torch.cli eval`` on the CPU: the files it writes have
 the keys and lists of the committed JAX sweep results
 (``artifacts/roundtrip/FST_*.json``) at the config's own lengths, and for
-FB and CNNTemp those of ``artifacts/cli_cycle/paper_plots/``; the rebuttal
-sweep, which is not ported, raises; ``PCAUDIO_FUSED_ATTN`` keeps its
+FB and CNNTemp and the rebuttal sweep those of
+``artifacts/cli_cycle/paper_plots/``; ``PCAUDIO_FUSED_ATTN`` keeps its
 meaning; and a fused-attention gate that fails exits non-zero instead of
 falling back."""
 import json
@@ -111,21 +111,15 @@ def test_writes_the_reference_files(tmp_path, corpus, arch, monkeypatch):
 
 @pytest.mark.parametrize("what", ["FB", "CNNTemp", "rebut"])
 def test_unported_parts_raise(tmp_path, corpus, what, monkeypatch):
-    """The rebuttal sweep is not ported yet and raises.  The baselines,
-    which raised until their models were ported, now run: their recipe's
-    config and seeded weights give the three files with the keys and lists
-    of the JAX package's ``artifacts/cli_cycle/paper_plots/`` files (n_fft
-    pinned: windows up to the training window; expt 2 in the "replace"
-    mode), on the plain engine whatever ``PCAUDIO_FUSED_ATTN`` says, since
-    they have no attention."""
+    """Each of these raised until it was ported and now runs.  The
+    baselines: their recipe's config and seeded weights give the three
+    files with the keys and lists of the JAX package's
+    ``artifacts/cli_cycle/paper_plots/`` files (n_fft pinned: windows up to
+    the training window; expt 2 in the "replace" mode), on the plain
+    engine whatever ``PCAUDIO_FUSED_ATTN`` says, since they have no
+    attention.  The rebuttal sweep (:func:`_check_rebut`)."""
     if what == "rebut":
-        path = os.path.join(tmp_path, "config.json")
-        with open(path, "w") as f:
-            json.dump({"architecture": ARCH_3ST, "window_size": 256, "Ntemp": 10,
-                       "dhidden": 8, "nheads": 2, "ninds": 4}, f)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            _eval(corpus, path, "--pth", "unused.pth", "--experiments", "expt1",
-                  "rebut")
+        _check_rebut(tmp_path, corpus, monkeypatch)
         return
     monkeypatch.setenv("PCAUDIO_FUSED_ATTN", "0")
     cfg = RECIPES[what]()
@@ -157,6 +151,46 @@ def test_unported_parts_raise(tmp_path, corpus, what, monkeypatch):
     assert _read(os.path.join(out, names[0]))["list_N"] == default_list_N(
         cfg.window_size, include_larger=False)
     assert prov["engine"] == "plain"
+
+
+def _check_rebut(tmp_path, corpus, monkeypatch):
+    """``--experiments rebut`` on a 3ST writes ``3ST_rebut_expt_{randK,
+    maxK}.json`` with the keys of the committed JAX files, one window width
+    (64) and the config's ``default_list_K(Nfft·Ntemp/2)``, each with its
+    provenance; ``cli plots`` draws ``rebut_importance.pdf`` from them and
+    the expt-2 files of the same run.  On an FST it says the sweep is
+    3ST-only and writes nothing."""
+    monkeypatch.delenv("PCAUDIO_FUSED_ATTN", raising=False)
+    cfg, config = _config(tmp_path, ARCH_3ST)
+    out = os.path.join(tmp_path, "out")
+    results, prov = _eval(corpus, config, "--pth", _weights(tmp_path, cfg),
+                          "--experiments", "expt2", "rebut", "--out-dir", out)
+    names = ["3ST_rebut_expt_randK.json", "3ST_rebut_expt_maxK.json"]
+    assert set(names) <= set(results)
+    list_K = default_list_K(NFFT[ARCH_3ST] * 10 // 2)
+    for name in names:
+        got, ref = _read(os.path.join(out, name)), _read(os.path.join(PAPER_PLOTS, name))
+        assert list(got) == list(ref) == ["data", "list_K"]
+        assert list(got["data"]) == list(ref["data"]) == ["64"]
+        assert got["list_K"] == list_K
+        assert ref["list_K"] == default_list_K(5120)
+        assert list(got["data"]["64"]) == [str(k) for k in list_K]
+        for mean, var in got["data"]["64"].values():
+            assert 0.0 <= mean <= 1.0 and var >= 0.0
+            assert var == 0 or "randK" in name
+        side = _read(os.path.join(out, name.replace(".json", ".provenance.json")))
+        assert side["engine"] == "plain" and side["wall_s"] > 0
+    paths = cli.main(["plots", "--results-dir", out, "--out-dir",
+                      os.path.join(tmp_path, "figs")])
+    assert [os.path.basename(p) for p in paths] == ["rebut_importance.pdf"]
+    with open(paths[0], "rb") as f:
+        assert f.read(5) == b"%PDF-"
+
+    fcfg, fconfig = _config(tmp_path, ARCH_FST)
+    fout = os.path.join(tmp_path, "fst")
+    results, _ = _eval(corpus, fconfig, "--pth", _weights(tmp_path, fcfg),
+                       "--experiments", "rebut", "--out-dir", fout)
+    assert results == {} and os.listdir(fout) == []
 
 
 @pytest.mark.parametrize("env,device,expect", [

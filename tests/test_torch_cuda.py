@@ -22,8 +22,9 @@ from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.fused_st import (
-    _packed_weights, fused_st_forward, fused_st_forward_plain, launch_packed,
-    max_points)
+    MAX_SCRATCH_POINTS, _packed_weights, fused_st_forward, fused_st_forward_plain,
+    launch_packed, launch_scratch, max_points, resident_blocks, slab_bytes)
+from pcaudio_torch.ops.subsample import topk_stable
 from pcaudio_torch.ops.kernels.mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
     fused_mha_plain)
@@ -95,6 +96,122 @@ def test_fused_st_limits_match_the_kernel(cuda):
     out = torch.empty(1, 10, device=cuda)
     with pytest.raises(RuntimeError, match="pcaudio_fused_st"):
         launch_packed(pts, None, w, out, 64)
+
+
+def _ragged(K, B, device, seed=5):
+    counts = torch.from_numpy(np.random.default_rng(seed).integers(0, K + 1, B))
+    counts[:3] = torch.tensor([K, 0, 1])
+    return (torch.arange(K)[None, :] < counts[:, None]).to(device)
+
+
+@pytest.mark.parametrize("K", [1281, 2048, 5120])
+@pytest.mark.parametrize("pattern", ["full", "ragged"])
+@pytest.mark.parametrize("din", [2, 3])
+def test_fused_st_scratch_form_matches_plain(cuda, K, pattern, din):
+    """K1's scratch form (ISAB 1's output in device memory) past the
+    shared-memory form's 1,280 points: against its plain version at K1's
+    bar (1e-2 + 1e-2·|ref|), f32 and bf16 points, no mask and a ragged one
+    (a full, an empty and a one-point cloud among them); one launch of the
+    scratch form and none of the shared one."""
+    model = _full_st(din, cuda)
+    B = 9
+    pts = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (B, K, din)).astype(np.float32)).to(cuda)
+    mask = None if pattern == "full" else _ragged(K, B, cuda)
+    for x in (pts, pts.bfloat16()):
+        before = (fused_st_forward.launches, launch_scratch.launches)
+        got = fused_st_forward(model, x, mask)
+        torch.cuda.synchronize()
+        assert (fused_st_forward.launches, launch_scratch.launches) == (
+            before[0], before[1] + 1)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, fused_st_forward_plain(model, x, mask),
+                                   atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("K", [64, 1025, 1280])
+@pytest.mark.parametrize("M", [64, 128])
+def test_fused_st_scratch_form_equals_shared_form(cuda, K, M):
+    """Where both forms take a cloud they compute the same function in the
+    same order: bit-identical logits, with and without a mask, on more
+    clouds than the scratch form's grid has blocks (each walks several)."""
+    if K > max_points(M):
+        K = max_points(M)
+    torch.manual_seed(1)
+    model = ST(dim_input=3, dim_output=10, num_inds=M, dim_hidden=64,
+               num_heads=8).to(cuda).eval()
+    B = 2 * resident_blocks(torch.cuda.current_device(), 3, M, K) + 3
+    pts = torch.randn(B, K, 3, device=cuda)
+    w = _packed_weights(model, cuda)
+    for mask in (None, _ragged(K, B, cuda)):
+        shared = torch.empty(B, 10, device=cuda)
+        launch_packed(pts, mask, w, shared, M)
+        scratch = torch.full((B, 10), float("nan"), device=cuda)
+        launch_scratch(pts, mask, w, scratch, M)
+        torch.cuda.synchronize()
+        assert torch.equal(scratch, shared), mask is None
+
+
+def test_fused_st_scratch_form_refuses(cuda):
+    """What the scratch form cannot take raises before a launch: more points
+    than MAX_SCRATCH_POINTS (the wrapper), a scratch buffer smaller than
+    its grid's slabs (the kernel's entry point), a grid of 0 blocks."""
+    model = _full_st(3, cuda)
+    with pytest.raises(ValueError, match="limit"):
+        fused_st_forward(model, torch.zeros(1, MAX_SCRATCH_POINTS + 1, 3, device=cuda))
+    lib = _build.library()
+    assert lib.pcaudio_fused_st_scratch_max_points(64) == MAX_SCRATCH_POINTS
+    assert lib.pcaudio_fused_st_scratch_max_points(129) == 0
+    pts = torch.zeros(2, 2048, 3, device=cuda)
+    wb, wf = _packed_weights(model, cuda)
+    out = torch.empty(2, 10, device=cuda)
+    small = torch.empty(slab_bytes(2048, 64) // 2 - 1, dtype=torch.bfloat16, device=cuda)
+    for grid, scratch in ((1, small), (0, small)):
+        with pytest.raises(RuntimeError, match="pcaudio_fused_st_scratch"):
+            _build.launch("pcaudio_fused_st_scratch", pts.data_ptr(), 0, None,
+                          wb.data_ptr(), wb.numel(), wf.data_ptr(), wf.numel(),
+                          out.data_ptr(), 2, 2048, 3, 64, 10, grid,
+                          scratch.data_ptr(), scratch.numel(),
+                          _build.stream_of(pts))
+
+
+def test_full_grid_serving_through_the_scratch_form(cuda):
+    """``top_k=None`` serving on both featurize paths: K1 runs its scratch
+    form on the 5,120-point clouds and agrees with the plain path."""
+    model = _full_st(3, cuda)
+    rng = np.random.default_rng(6)
+    waves = torch.from_numpy((0.1 * rng.standard_normal((3, 65536))).astype(
+        np.float32)).to(cuda)
+    lengths = torch.tensor([65536, 40000, 30000], device=cuda)
+    for fz in ("fused", "xla"):
+        cfg = TemporalPipelineConfig(top_k=None, featurize=fz)
+        before = launch_scratch.launches
+        got = make_temporal_classifier(model, cfg, use_fused_st=True)(waves, lengths)
+        torch.cuda.synchronize()
+        assert launch_scratch.launches == before + 1
+        ref = make_temporal_classifier(model, cfg, use_fused_st=True, plain=True)(
+            waves, lengths)
+        torch.testing.assert_close(got, ref, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("kind", ["ties", "negzero", "bf16"])
+@pytest.mark.parametrize("n", [300, 5120])
+def test_topk_stable_on_the_card_matches_the_cpu(cuda, kind, n):
+    """The one ranking on the card (where torch.sort may take a radix sort)
+    gives the CPU's indices and values: ties to the lower index, -0.0
+    tying with 0.0, on many rows."""
+    x = torch.from_numpy(np.floor(np.random.default_rng(n).uniform(
+        -2, 2, (2000, n)) * 2).astype(np.float32) / 2)
+    if kind == "negzero":
+        x = torch.where(x.abs() < 1.0, torch.where(x < 0, -0.0, 0.0), x)
+    if kind == "bf16":
+        x = x.bfloat16()
+    for k in (1, 128, n):
+        v, i = topk_stable(x.to(cuda), k)
+        rv, ri = topk_stable(x, k)
+        assert torch.equal(i.cpu(), ri)
+        assert torch.equal(v.cpu(), rv)
+        assert torch.equal(torch.signbit(v.cpu()), torch.signbit(rv))
 
 
 def test_serve_default_top_k_through_kernel(cuda, tmp_path):

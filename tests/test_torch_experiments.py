@@ -87,7 +87,15 @@ def one_thread():
 @pytest.fixture(scope="module", params=[2, 3], ids=["FST", "3ST"])
 def setup(request):
     """(din, waves, lengths, labels, JAX model, JAX params, port model)."""
-    din = request.param
+    return _setup(request.param)
+
+
+@pytest.fixture(scope="module")
+def setup_3st():
+    return _setup(3)
+
+
+def _setup(din):
     w, n = _corpus()
     model = ST(dim_input=din, **WIDTH)
     rng = np.random.default_rng(din)
@@ -238,3 +246,33 @@ def test_sweep_featurize_config_matches_jax(F, N):
     ref = jax_ex.sweep_featurize_config(F, N, fsog=FS, hf=0.5, tDb=60.0)
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert (got.hop_length, got.num_bins) == (ref.hop_length, ref.num_bins)
+
+
+@pytest.mark.parametrize("nfft", [64, 256])
+def test_rebut_matches_jax(setup_3st, nfft):
+    """``rebut_importance_expt`` at Ntemp 4, one window width: the maxK
+    dict (the heat's top K as a rank mask over the cloud rows) equals the
+    JAX function's; randK (multinomial draws, which cannot match
+    ``jax.random``) has its schema, lists and value ranges."""
+    din, w, n, labels, jm, params, model = setup_3st
+    n_total = nfft * 4 // 2
+    kw = dict(fsog=FS, Nfft=nfft, Ntemp=4, list_winF=[8], nruns=2,
+              list_K=[1, n_total // 4, n_total // 2, n_total])
+    jrnd, jmx = jax_ex.rebut_importance_expt(
+        jax_ex.make_cloud_classifier(jm, params), jnp.asarray(w), jnp.asarray(n),
+        jnp.asarray(labels), **kw)
+    rnd, mx = ex.rebut_importance_expt(ex.make_cloud_classifier(model), w, n,
+                                       labels, device="cpu", **kw)
+    assert mx == jmx
+    assert list(mx["data"]) == [8] and mx["list_K"] == kw["list_K"]
+    accs = [v[0] for v in mx["data"][8].values()]
+    assert len(set(accs)) > 1
+    assert list(rnd) == list(jrnd) == ["data", "list_K"]
+    assert rnd["list_K"] == jrnd["list_K"] and list(rnd["data"]) == list(jrnd["data"])
+    assert list(rnd["data"][8]) == list(jrnd["data"][8]) == kw["list_K"]
+    for mean, var in rnd["data"][8].values():
+        assert 0.0 <= mean <= 1.0 and var >= 0.0
+    # another seed draws other clouds; maxK does not move
+    rnd2, mx2 = ex.rebut_importance_expt(ex.make_cloud_classifier(model), w, n,
+                                         labels, device="cpu", seed=1, **kw)
+    assert mx2 == mx

@@ -82,10 +82,12 @@ def test_plain_matches_jax_v6_mask_free(width):
 
 
 @pytest.mark.parametrize("din,K,pattern", [(3, 17, "ragged"), (3, 128, "full"),
-                                           (2, 256, "all_masked"), (2, 1025, "ragged")])
+                                           (2, 256, "all_masked"), (2, 1025, "ragged"),
+                                           (3, 5120, "ragged")])
 def test_plain_matches_f32_st(din, K, pattern):
-    """Full width, up to FST's 1025-point frames: the bf16 roundings keep the
-    logits within the JAX tests' bar of the f32 model."""
+    """Full width, up to FST's 1025-point frames and the scratch form's
+    5,120-point temporal grids: the bf16 roundings keep the logits within
+    the JAX tests' bar of the f32 model."""
     _, tm = _pair(din, 64, 64, 8, seed=din)
     rng = np.random.default_rng(4)
     B = 3
@@ -175,21 +177,37 @@ def test_packed_weights_unpack_to_parameters(din, inds):
                                        (64, 1281, False), (128, 1024, True),
                                        (128, 1025, False), (64, 5120, False)])
 def test_k1_point_limit(inds, K, ok):
-    """K1 takes any K up to max_points(num_inds) (1,280 at 64 inducing
-    points, so FST's 1025-point frames and the serving default 256) and
-    refuses more before any launch; meta tensors stand in for the card."""
+    """K1's shared-memory form takes any K up to max_points(num_inds)
+    (1,280 at 64 inducing points, so FST's 1025-point frames and the
+    serving default 256; ``ok``); above it the scratch form takes the
+    cloud (the full 5,120-point temporal grids), up to
+    MAX_SCRATCH_POINTS, and one point more is refused before any launch;
+    meta tensors stand in for the card."""
     model = ST(dim_input=2, dim_output=10, num_inds=inds, dim_hidden=64, num_heads=8)
     assert k1.max_points(64) == 1280 and k1.max_points(128) == 1024
     assert k1.max_points(0) == k1.max_points(129) == 0
+    assert k1.max_scratch_points(inds) == k1.MAX_SCRATCH_POINTS
+    assert k1.max_scratch_points(0) == k1.max_scratch_points(129) == 0
     pts = torch.empty(4, K, 2, device="meta")
-    if ok:
-        k1._check_kernel(model, pts)
-        assert K <= k1.max_points(inds)
-    else:
-        with pytest.raises(ValueError, match="limit"):
-            k1._check_kernel(model, pts)
-        with pytest.raises(ValueError, match="limit"):
-            k1.fused_st_forward(model, pts)
+    form = k1._check_kernel(model, pts)
+    assert form == ("shared" if ok else "scratch")
+    assert (K <= k1.max_points(inds)) == ok
+    over = torch.empty(4, k1.MAX_SCRATCH_POINTS + 1, 2, device="meta")
+    with pytest.raises(ValueError, match="limit"):
+        k1._check_kernel(model, over)
+    with pytest.raises(ValueError, match="limit"):
+        k1.fused_st_forward(model, over)
+
+
+@pytest.mark.parametrize("inds,K,slab", [(64, 5120, 5120 * 128), (64, 5121, 5184 * 128),
+                                         (128, 1025, 1152 * 128)])
+def test_k1_scratch_slab(inds, K, slab):
+    """A slab holds one cloud's ISAB 1 output, K rounded up to the
+    kernel's tile (64 rows with 4 warps, 128 with 8), 64 bf16 a row; the
+    scratch's grid is capped by SCRATCH_BYTES (about 400 slabs at 5,120
+    points, beside 3 blocks on each of the H100's 132 SMs)."""
+    assert k1.slab_bytes(K, inds) == slab
+    assert k1.SCRATCH_BYTES // k1.slab_bytes(5120, 64) == 409
 
 
 @pytest.mark.parametrize("K,F,ok", [(256, 512, True), (512, 512, True),
@@ -208,3 +226,44 @@ def test_k2_k_limit(K, F, ok):
             k2._check(mags, K)
         with pytest.raises(ValueError):
             k2.exact_topk_chunks(mags, K)
+
+
+def test_k1_stage_variants_apply():
+    """K1's stage probe builds its variants by editing the shared-memory
+    form's sources (``fused_st.cu`` and its header ``fused_st.cuh``): each
+    edit finds its text in exactly one place, and text found nowhere
+    raises."""
+    from pcaudio_torch.probes import k1_stages
+
+    src = k1_stages.k1_sources()
+    assert set(src) == {"fused_st.cu", "fused_st.cuh", "mma.cuh"}
+    assert '#include "fused_st.cuh"' in src["fused_st.cu"]
+    for old, new in k1_stages.VARIANTS.values():
+        got = k1_stages.variant_sources(src, old, new)
+        changed = [n for n in src if got[n] != src[n]]
+        assert len(changed) == 1 and new in got[changed[0]]
+    with pytest.raises(ValueError):
+        k1_stages.variant_sources(src, "no such text", "x")
+
+
+def test_k1_stage_probe_reads_one_kernels_sass(monkeypatch):
+    """The before/after comparison reads the instructions of the one kernel
+    it names from ``cuobjdump -sass``, without addresses or encodings, and
+    none of another kernel's."""
+    import subprocess
+
+    from pcaudio_torch.probes import k1_stages
+
+    text = "\n".join([
+        "\t\tFunction : _ZN12_GLOBAL__N_115fused_st_kernelILi3ELi8EEEvPKv",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */",
+        "\t\tFunction : _ZN12_GLOBAL__N_115fused_st_kernelILi3ELi4EEEvPKv",
+        "        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */",
+        "                                                            /* 0x000fe40000000800 */",
+        "        /*0010*/                   BRA 0x10 ;               /* 0xfffffffc00fc7947 */",
+        "\t\tFunction : _ZN12_GLOBAL__N_16mha_fwd_kernelILi8ELi1EEEvPKf",
+        "        /*0000*/                   EXIT ;                   /* 0x000000000000794d */",
+    ])
+    monkeypatch.setattr(subprocess, "run", lambda *a, **k: subprocess.CompletedProcess(
+        a, 0, stdout=text, stderr=""))
+    assert k1_stages._kernel_sass("lib.so") == ["LDC R1, c[0x0][0x28]", "BRA 0x10"]

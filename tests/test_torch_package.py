@@ -43,6 +43,8 @@ def test_port_never_imports_jax():
                                                       "pcaudio_torch.")]
         assert "pcaudio_torch.probes.st_launch" in mods, mods
         assert "pcaudio_torch.native" in mods, mods
+        assert {"pcaudio_torch.ops.subsample",
+                "pcaudio_torch.probes.rebut_sweep"} <= set(mods), mods
         for name in mods:
             importlib.import_module(name)
         from pcaudio_torch.eval import TemporalPipelineConfig
@@ -199,6 +201,23 @@ def test_wrappers_send_cpu_tensors_to_plain_versions():
                                          ("extraction", "approx"),
                                          ("target_fs", 16000)])
 def test_unported_pipeline_options_raise(field, value):
-    cfg = TemporalPipelineConfig(top_k=64, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cfg.check_ported()
+    """Of the JAX options, only ``extraction="approx"`` is not ported and
+    raises.  ``featurize="xla"`` and resampling, which raised until they
+    were ported, now pass (``top_k`` set or None); resampling, another hop
+    or another window with the fused featurize raise ``ValueError``, as the
+    JAX package asserts."""
+    for top_k in (64, None):
+        cfg = TemporalPipelineConfig(top_k=top_k, **{field: value})
+        if field == "extraction":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                cfg.check_ported()
+            continue
+        TemporalPipelineConfig(top_k=top_k, **{"featurize": "xla",
+                                               field: value}).check_ported()
+        if field == "target_fs":
+            with pytest.raises(ValueError, match="featurize='xla'"):
+                cfg.check_ported()
+    for bad in (dict(hop_factor=0.25), dict(win_length=512)):
+        with pytest.raises(ValueError, match="featurize='xla'"):
+            TemporalPipelineConfig(**bad).check_ported()
+        TemporalPipelineConfig(featurize="xla", **bad).check_ported()

@@ -1,6 +1,8 @@
 """The slice as a whole: the port's temporal 3ST pipeline == the JAX one on
-the same waves and weights.  The kernel path is held against the plain path
-on the card in test_torch_cuda.py."""
+the same waves and weights, on both featurize paths ("fused" and "xla"),
+with top-K and full-grid clouds and with resampling; the port's two paths
+against each other.  The kernel path is held against the plain path on the
+card in test_torch_cuda.py."""
 import json
 
 import numpy as np
@@ -23,6 +25,16 @@ from pcaudio_torch.ops.kernels.featurize import fused_chunk_mag2_plain
 from pcaudio_torch.serve import AudioClassifier
 
 TOP_K = 128
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: pytest-xdist runs several workers side by
+    side, and their default thread pools would oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _waves(B=2, L=65536, seed=0):
@@ -131,6 +143,121 @@ def test_slice_matches_jax_bf16_serving():
     decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
     np.testing.assert_array_equal(got.argmax(-1)[decided],
                                   ref.argmax(-1)[decided])
+
+
+F32 = dict(fs=44100, n_fft=1024, num_frames=10, stft_precision="highest",
+           compute_dtype="float32")
+
+
+def _same_sets(ref_pts, got_pts, valid, excusable, what):
+    """Per valid chunk, the same points up to order (within 1e-5 after a
+    lexsort), but for at most one chunk in 12 of near-ties."""
+    mismatched = 0
+    for c in np.nonzero(valid)[0]:
+        a, b = ref_pts[c], got_pts[c]
+        a, b = a[np.lexsort(a.T)], b[np.lexsort(b.T)]
+        if not np.allclose(b, a, atol=1e-5, rtol=0):
+            assert excusable[c], f"{what}: chunk {c}: point sets differ"
+            mismatched += 1
+    assert mismatched * 12 <= valid.sum()
+
+
+def _same_grid(ref_pts, got_pts, valid, what):
+    """Full-grid clouds of the valid chunks: the same (f, t) rows, and
+    magnitudes within 1e-5 of the chunk's largest (the log-magnitudes of
+    near-silent bins differ more: the JAX STFT is a DFT product, the
+    port's an rfft)."""
+    a, b = ref_pts[valid], got_pts[valid]
+    np.testing.assert_allclose(b[..., :2], a[..., :2], atol=1e-6, rtol=0,
+                               err_msg=what)
+    ma, mb = np.exp(a[..., 2]), np.exp(b[..., 2])
+    err = np.abs(ma - mb) / ma.max(-1, keepdims=True)
+    assert err.max() <= 1e-5, f"{what}: max rel magnitude err {err.max():.2e}"
+
+
+@pytest.mark.parametrize("target_fs", [None, 22050], ids=["44k", "22k"])
+@pytest.mark.parametrize("top_k", [TOP_K, None], ids=["top128", "full"])
+def test_xla_featurize_matches_jax(top_k, target_fs):
+    """``featurize="xla"`` against the JAX package's (its default) at f32
+    "highest", with top-K and full-grid clouds, at the original rate and
+    resampled to 22.05 kHz: the same chunk masks, the same point sets per
+    valid chunk, clip logits within 1e-4."""
+    waves, lengths = _waves(seed=2)
+    jm, params, tm = _models(seed=2)
+    kw = dict(F32, featurize="xla", top_k=top_k, target_fs=target_fs)
+    jcfg, cfg = JaxConfig(**kw), TemporalPipelineConfig(**kw)
+    jw, jl = jnp.asarray(waves), jnp.asarray(lengths)
+    tw, tl = torch.from_numpy(waves), torch.from_numpy(lengths)
+    jcloud, jcm = jax_extract(jw, jl, jcfg)
+    cloud, cm = extract_chunk_clouds(tw, tl, cfg)
+    jcm = np.array(jcm)
+    np.testing.assert_array_equal(cm.numpy(), jcm)
+    valid = jcm.reshape(-1)
+    assert valid.sum() >= (12 if target_fs is None else 6)
+    ref_pts, got_pts = np.asarray(jcloud.points), cloud.points.numpy()
+    assert got_pts.shape == ref_pts.shape == (len(valid), top_k or 5120, 3)
+    np.testing.assert_array_equal(cloud.mask.numpy(), np.asarray(jcloud.mask))
+    if top_k is None:
+        _same_grid(ref_pts, got_pts, valid, "xla full grid")
+    else:
+        _same_sets(ref_pts, got_pts, valid, np.zeros_like(valid), "xla top-K")
+    ref = np.asarray(jax_classifier(jm, jcfg, use_fused_st=False)(params, jw, jl))
+    got = make_temporal_classifier(tm, cfg)(tw, tl).numpy()
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("top_k", [TOP_K, None], ids=["top128", "full"])
+def test_xla_featurize_matches_fused(top_k):
+    """The port's two featurize paths on the same waves: the same chunk
+    masks and point sets (K3's grid and the rfft grid differ by rounding,
+    so near-tie winners may swap, as against the JAX kernel), clip logits
+    within 1e-4."""
+    waves, lengths = _waves(seed=3)
+    _, _, tm = _models(seed=3)
+    tw, tl = torch.from_numpy(waves), torch.from_numpy(lengths)
+    clouds = {}
+    for fz in ("fused", "xla"):
+        cfg = TemporalPipelineConfig(**F32, featurize=fz, top_k=top_k)
+        clouds[fz] = extract_chunk_clouds(tw, tl, cfg)
+        clouds[fz + "_logits"] = make_temporal_classifier(tm, cfg)(tw, tl).numpy()
+    (fcloud, fcm), (xcloud, xcm) = clouds["fused"], clouds["xla"]
+    np.testing.assert_array_equal(xcm.numpy(), fcm.numpy())
+    valid = fcm.numpy().reshape(-1)
+    if top_k is None:
+        _same_grid(fcloud.points.numpy(), xcloud.points.numpy(), valid,
+                   "fused vs xla full grid")
+    else:
+        _same_sets(fcloud.points.numpy(), xcloud.points.numpy(), valid,
+                   _near_tie_chunks(waves, lengths, fcm.numpy()), "fused vs xla")
+    np.testing.assert_allclose(clouds["xla_logits"], clouds["fused_logits"],
+                               atol=1e-4, rtol=0)
+
+
+def test_full_grid_fused_st_matches_jax():
+    """``use_fused_st=True`` at ``top_k=None``: 5,120-point clouds through
+    K1's plain version (the card runs its scratch form) against the JAX
+    fused ST kernel (interpret mode) on the JAX package's default "xla"
+    path, within the JAX tests' bf16 bar (3e-2, as in
+    tests/test_torch_fused_st.py); and the port's fused featurize path
+    gives the same within the same bar."""
+    rng = np.random.default_rng(3)
+    L = 24576
+    t = np.arange(L) / 44100.0
+    waves = (0.3 * np.sin(2 * np.pi * 660 * t)
+             + 0.05 * rng.standard_normal(L)).astype(np.float32)[None]
+    lengths = np.array([L], np.int32)
+    jm, params, tm = _models()
+    kw = dict(F32, featurize="xla", top_k=None)
+    ref = np.asarray(jax_classifier(jm, JaxConfig(**kw), use_fused_st=True)(
+        params, jnp.asarray(waves), jnp.asarray(lengths)))
+    tw, tl = torch.from_numpy(waves), torch.from_numpy(lengths)
+    for fz in ("xla", "fused"):
+        cfg = TemporalPipelineConfig(**dict(kw, featurize=fz))
+        got = make_temporal_classifier(tm, cfg, use_fused_st=True)(tw, tl).numpy()
+        assert got.shape == (1, 10) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, ref, atol=3e-2, rtol=3e-2, err_msg=fz)
+    chunk_logits, chunk_mask = make_chunk_logits(tm, cfg, use_fused_st=True)(tw, tl)
+    assert chunk_mask.shape == (1, 4) and int(chunk_mask.sum()) == 4
 
 
 def test_audio_classifier_full_width_ragged_request():

@@ -73,9 +73,10 @@ def test_curves_match_jax(which):
 
 
 def test_missing_files_skip_their_figure(tmp_path):
-    """Without the rebuttal sweep's files (which the port cannot make yet)
-    the other four figures are drawn and the fifth is named as skipped;
-    a directory with no result file is an error."""
+    """Without the rebuttal sweep's files (``cli eval --experiments rebut``
+    writes them; tests/test_torch_cli_eval.py draws the overlay from the
+    port's own) the other four figures are drawn and the fifth is named as
+    skipped; a directory with no result file is an error."""
     results = tmp_path / "results"
     shutil.copytree(RESULTS, results,
                     ignore=shutil.ignore_patterns("3ST_rebut_*"))

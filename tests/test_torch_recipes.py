@@ -78,15 +78,18 @@ def test_featurize_batch_matches_jax(n_fft):
 
 @pytest.mark.parametrize("what", ["resample", "FB", "CNNTemp"])
 def test_unported_parts_raise(what):
-    """Resampling in the serving pipeline raises, never runs something
-    else.  (``featurize_batch`` resamples since the eval sweeps were
-    ported: tests/test_torch_featurize_sweep.py holds it against the JAX
-    package.)  The FB and CNNTemp recipes, which raised until their models
-    were ported, now give the JAX package's configs field for field."""
+    """Resampling in the serving pipeline runs on the ``"xla"`` featurize
+    path (tests/test_torch_pipeline.py holds it against the JAX package)
+    and raises on the fused path, which has no resampler, never running
+    something else.  The FB and CNNTemp recipes, which raised until their
+    models were ported, now give the JAX package's configs field for
+    field."""
     if what == "resample":
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="resampling"):
             TemporalPipelineConfig(fs=FS, target_fs=16000,
                                    top_k=128).check_ported()
+        TemporalPipelineConfig(fs=FS, target_fs=16000, top_k=128,
+                               featurize="xla").check_ported()
         return
     got, ref = recipes.RECIPES[what](), jax_recipes.RECIPES[what]()
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)

@@ -8,7 +8,9 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    TF32 off for the plain references;
 1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a;
    each source's compile time is logged), while processes of their own
-   write phase 6's corpus and phase 9's WAV files;
+   write phase 6's corpus and phase 9's WAV files, run phase 12's training
+   runs on the card (no kernel is on their path; phase 4 waits for them)
+   and compute phase 12's CPU gradients;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving path's shapes (featurize B=64 x 5 s clips; select on that grid, on
    a tie-heavy grid, at K 512 and 5120, on a grid with -0.0 entries, at K 1
@@ -62,7 +64,17 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    K 501), and the FST and 3ST recipe steps (forward + backward + Adam) on
    the kernel and the plain path, then profiles each kernel-path step
    (device ms by kernel, the idle share; K4's backward by BWD_KERNELS, and
-   none of the SIMT pair's kernels at these shapes);
+   none of the SIMT pair's kernels at these shapes); then ``remat``: the
+   3ST step from the trained weights with the whole forward checkpointed
+   (the JAX step's form) and with each ISAB and the PMA checkpointed, held
+   against the plain step (loss to 1e-6, gradients within 1e-4 of their
+   largest entry, K4's forward launched twice as often, its backward as
+   often), each step's peak device memory and the memory held when its
+   forward returns (the blocks' peak must be lower than the plain step's,
+   and both remat forms must hold less after the forward), and the three
+   steps' times; and the FB step, whose dropout draws from the state's
+   generator, with and without remat: equal loss, gradients and
+   generator state;
 8. runs the probes (``pcaudio_torch.probes``) at their TPU scripts' shapes:
    the K1 family (the batched dot, int8 vs bf16 tensor-core products, the
    int8 attend, 64- vs 128-wide chains, K1 relaunched bare / with weights
@@ -126,7 +138,22 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    agrees, card against CPU, within 0.01, with the trained and with the
    seeded weights; each sweep's wall time is printed, and each trained
    recipe's step is profiled by kernel at the end of the run.  No kernel
-   may launch over this path.
+   may launch over this path;
+12. the Set Transformer's own tasks at the JAX defaults' full widths, no
+   kernel on their path: ModelNet40 (dim 256, 4 heads, 16 inducing points,
+   1,000 points, batch 64, 40 classes) for one epoch (9 steps) and one
+   eval on 640 / 128 synthetic clouds of 10,000 points through
+   ``ModelNet40Fetcher.from_arrays``, every loss finite; MoG clustering
+   (ST, dim 128, ln, K 4, B 10, N 100-500) for 300 steps, the last 50
+   losses' mean below the first 50's, and its benchmark finite;
+   ``cli max-regression --steps 500 --device cuda``, every MAE finite and
+   the ST's and the max-pool DeepSet's under 1.0 (these runs are made
+   beside the build); each task model's loss and gradients on one batch
+   with its seeded weights, dropout off, on the card against the CPU
+   (within 1e-4 of the gradient vector's largest entry); each task's step
+   time (CUDA events) and ModelNet40's step profile (device ms, idle share,
+   against its f32 product bound).  K1-K4 launches over these paths fail
+   the run.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -249,6 +276,11 @@ BASELINES = ("FB", "CNNTemp")
 BASE_CPU_WINDOWS = {"FB": [2048, 1024], "CNNTemp": [1024, 512]}
 BASE_GRAD_TOL = 1e-4  # card vs CPU: of the gradient vector's largest entry
 BASE_CUT_STRIDE = 5  # that cut on every 5th test clip: 16 of 80, every class
+# phase 12: ModelNet40's synthetic set (clouds of the h5 dump's 10,000
+# points, down-sampled x10 to the default 1,000), the clustering run's steps
+MN40_TRAIN, MN40_TEST, MN40_POINTS, MN40_CLASSES = 640, 128, 10000, 40
+CLUSTER_STEPS = 300
+TASK_GRAD_TOL = 1e-4  # card vs CPU: of the gradient vector's largest entry
 
 
 WGMMA_KERNELS = ("window_gemm_kernel", "attend_kernel", "dft_mag2_kernel", "chain_kernel")
@@ -1460,6 +1492,394 @@ def eval_phase(name_limit, base_dirs, work, corpus_job):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---- phase 7's remat check and phase 12, the Set Transformer's tasks --------
+
+def held_after_forward(apply_fn, store):
+    """``apply_fn`` that notes the device memory allocated when the
+    step's forward returns (its first call in a step; a remat recompute
+    calls it again in the backward)."""
+
+    def fn(batch, train=False):
+        out = apply_fn(batch, train=train)
+        if not store:
+            store.append(torch.cuda.memory_allocated())
+        return out
+
+    return fn
+
+
+def remat_modes(model):
+    """The remat forms phase 7 holds against the plain step: the whole
+    forward (the JAX step's form) and each of the ST's ISABs and its PMA."""
+    return {"plain": False, "whole": True,
+            "blocks": [model.enc[0], model.enc[1], model.dec[0]]}
+
+
+def remat_phase(train_out, dev, name_limit):
+    """Phase 7's remat check on the 3ST recipe step (B 16, 5,120 points,
+    K4) from the trained weights and one batch, and on the FB step, whose
+    dropout draws from the state's generator, from its seeded weights: one
+    step each way from the same weights and generator state, the loss and
+    gradients against the plain step's, K4's launches, the peak device
+    memory (``max_memory_allocated`` after a reset) and the memory held
+    when the forward returns, then each step's time (CUDA events, 20
+    steps, in turns)."""
+    cfg, batch = train_out["batches"]["3ST"]
+    res, steps = {}, {}
+    for mode in ("plain", "whole", "blocks"):
+        state, apply_fn = build_trainer(cfg, dev, fused_attn=True)
+        state.model.load_state_dict(train_out["weights"]["3ST"])
+        held = []
+        step = make_train_step(held_after_forward(apply_fn, held), state.optimizer,
+                               remat=remat_modes(state.model)[mode],
+                               generator=state.generator)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        m = step(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = {k: v for k, v in kernel_counts().items() if v}
+        grads = torch.cat([p.grad.flatten() for p in state.model.parameters()])
+        res[mode] = (m["loss"].item(), grads, peak, held[0] - base, counts)
+        timed = make_train_step(apply_fn, state.optimizer,
+                                remat=remat_modes(state.model)[mode],
+                                generator=state.generator)
+        steps[mode] = (lambda s: lambda: s(batch))(timed)
+    loss0, g0, peak0, held0, counts0 = res["plain"]
+    check(set(counts0) == set(TRAIN_KERNELS), f"3ST plain step launches {counts0}")
+    for mode, (loss, g, peak, held, counts) in res.items():
+        rel = abs(loss - loss0) / abs(loss0)
+        gerr = (g - g0).abs().max().item()
+        gscale = g0.abs().max().item()
+        log(f"[remat] 3ST recipe step, {mode}: loss {loss:.7f} (rel {rel:.2e} of the "
+            f"plain step's), gradient max |err| {gerr:.3e} of its largest entry "
+            f"{gscale:.3e}; K4 launches {counts}; peak {peak / 2**20:.1f} MiB over "
+            f"the step, {held / 2**20:.1f} MiB held when the forward returns "
+            f"({name_limit})")
+        check(rel <= 1e-6, f"3ST remat {mode}: loss {loss} vs plain {loss0}")
+        check(gerr <= 1e-4 * gscale, f"3ST remat {mode}: gradients {gerr:.3e} from "
+              f"the plain step's (scale {gscale:.3e})")
+        if mode != "plain":
+            check(counts.get("fused_mha_fwd") == 2 * counts0["fused_mha_fwd"]
+                  and counts.get("fused_mha_bwd") == counts0["fused_mha_bwd"],
+                  f"3ST remat {mode}: K4 launches {counts} against the plain "
+                  f"step's {counts0}")
+            check(held < held0, f"3ST remat {mode}: {held} bytes held after the "
+                  f"forward, the plain step {held0}")
+    check(res["blocks"][2] < peak0, f"3ST remat by blocks: peak {res['blocks'][2]} "
+          f"bytes, the plain step's {peak0}")
+    order = ("plain", "whole", "blocks", "blocks", "whole", "plain")
+    ms = {m: [] for m in steps}
+    for mode in order:
+        ms[mode].append(cuda_ms(steps[mode], 20))
+    log("[remat] 3ST recipe step time (CUDA events, 20 steps; turns plain, whole, "
+        "blocks, blocks, whole, plain): " + "; ".join(
+            f"{m} {np.mean(v):.3f} ms ({v[0]:.3f} / {v[1]:.3f})" for m, v in ms.items())
+        + f" ({name_limit})")
+
+    # FB: the input dropout draws from the state's generator; the remat
+    # step's recompute must draw the same masks
+    cfg = RECIPES["FB"]()
+    rng = np.random.default_rng(11)
+    batch = {"x": torch.from_numpy(rng.standard_normal(
+                 (cfg.batch_size, cfg.layers[0])).astype(np.float32)).to(dev),
+             "labels": torch.from_numpy(rng.integers(0, 10, cfg.batch_size)).to(dev)}
+    out = {}
+    for remat in (False, True):
+        state, apply_fn = build_trainer(cfg, dev)
+        step = make_train_step(apply_fn, state.optimizer, remat=remat,
+                               generator=state.generator)
+        m = step(batch)
+        out[remat] = (m["loss"].item(),
+                      torch.cat([p.grad.flatten() for p in state.model.parameters()]),
+                      state.generator.get_state())
+    (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
+    log(f"[remat] FB recipe step, seeded weights, dropout on: loss {l1:.7f} with remat "
+        f"(the whole forward) vs {l0:.7f}, gradients equal: {torch.equal(g0, g1)}, "
+        f"the generator ends in the same state: {torch.equal(s0, s1)}")
+    check(l0 == l1 and torch.equal(g0, g1) and torch.equal(s0, s1),
+          f"FB remat: loss {l1} vs {l0}, gradients max |err| "
+          f"{(g1 - g0).abs().max().item():.3e}")
+
+
+def mn40_clouds(n, seed, points=MN40_POINTS, classes=MN40_CLASSES):
+    """``n`` ModelNet40-shaped synthetic clouds ``[n, points, 3]`` and their
+    labels, from a numpy seed: the classes differ by per-axis scale ratios,
+    as in tests/test_tasks.py's dump (standardization keeps them)."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n)
+    c = labels / (classes - 1)
+    scale = np.stack([np.ones(n), 1.0 + 3.0 * c, 1.0 / (1.0 + 2.0 * c)], axis=-1)
+    x = rng.standard_normal((n, points, 3), dtype=np.float32)
+    return x * scale[:, None, :].astype(np.float32), labels.astype(np.int32)
+
+
+def mog_batch(seed, B=10, N=500, K=4):
+    """A batch of MoG problems ``[B, N, 2]`` from a numpy seed, by the
+    clustering task's generative process."""
+    rng = np.random.default_rng(seed)
+    pi = rng.dirichlet(np.ones(K), B)
+    labels = np.stack([rng.choice(K, N, p=p) for p in pi])
+    mu = rng.uniform(-4, 4, (B, K, 2))
+    X = np.take_along_axis(mu, labels[..., None], 1) + 0.3 * rng.standard_normal((B, N, 2))
+    return X.astype(np.float32)
+
+
+def task_cases(device):
+    """Each task model at full width with its build's seeded weights, in
+    eval mode (dropout off), and a loss of one batch from numpy seeds:
+    ``{name: (model, loss_fn)}``."""
+    from pcaudio_torch.data.modelnet40 import standardize
+    from pcaudio_torch.tasks import clustering, max_regression, modelnet40
+
+    clouds, labels = mn40_clouds(64, seed=7)
+    x = torch.from_numpy(standardize(clouds[:, ::10])).to(device)
+    y = torch.from_numpy(labels).long().to(device)
+    X = torch.from_numpy(mog_batch(8)).to(device)
+    xm = torch.from_numpy(2.0 * np.random.default_rng(9).standard_normal(
+        (64, 10, 1)).astype(np.float32)).to(device)
+    ym = xm[..., 0].amax(-1)
+    cases = {"modelnet40": (modelnet40.build(modelnet40.ModelNet40Config(), "cpu")[0],
+                            lambda m: F.cross_entropy(m(x), y))}
+    for name in ("set_transformer", "deepset"):
+        ccfg = clustering.ClusteringConfig(model=name)
+        cases[f"clustering {name}"] = (clustering.build(ccfg, "cpu")[0],
+                                       lambda m: clustering._loss(m, X, 2))
+    for name, make in (("max regression ST", max_regression.SmallSetTransformer),
+                       ("max regression DeepSet max",
+                        lambda: max_regression.SmallDeepSet("max"))):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = make()
+        cases[name] = (model, lambda m: (m(xm) - ym).abs().mean())
+    return {k: (m.to(device).eval(), fn) for k, (m, fn) in cases.items()}
+
+
+def task_grads(device):
+    """``{name: (loss, the gradient vector on the CPU)}`` of each
+    :func:`task_cases` entry on ``device``."""
+    out = {}
+    for name, (model, loss_fn) in task_cases(device).items():
+        loss = loss_fn(model)
+        loss.backward()
+        out[name] = (loss.item(), torch.cat(
+            [p.grad.flatten() for p in model.parameters()]).cpu())
+    return out
+
+
+def start_task_grads_cpu():
+    """Start phase 12's CPU side of the card-against-CPU gradients in a
+    process of its own during the build (two threads; it never touches the
+    card); its result is a ``torch.save`` file."""
+    work = tempfile.mkdtemp(prefix="pcaudio_task_grads_")
+    atexit.register(shutil.rmtree, work, True)
+    path = os.path.join(work, "grads.pt")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, torch; torch.set_num_threads(2); "
+         "import chip_smoke; torch.save(chip_smoke.task_grads('cpu'), sys.argv[1])",
+         path], cwd=ROOT, env=env)
+    atexit.register(proc.kill)
+    return proc, path
+
+
+def tasks_on_card(path, device="cuda"):
+    """Phase 12's training runs, in a process of its own on the card (see
+    :func:`start_tasks_on_card`); writes a JSON record to ``path``."""
+    from pcaudio_torch.data.modelnet40 import ModelNet40Fetcher
+    from pcaudio_torch.tasks import clustering, modelnet40
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = {"device": (torch.cuda.get_device_name(0) if device == "cuda"
+                      else device)}
+    t0 = time.perf_counter()
+    tr, ytr = mn40_clouds(MN40_TRAIN, seed=1)
+    te, yte = mn40_clouds(MN40_TEST, seed=2)
+    fetcher = ModelNet40Fetcher.from_arrays(tr, ytr, te, yte, 64, down_sample=10,
+                                            seed=0)
+    rec["mn40_data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, hist = modelnet40.train(modelnet40.ModelNet40Config(), fetcher, epochs=1,
+                                   eval_every=1, log=log, device=device)
+    rec["modelnet40"] = {"steps": state.step, "history": hist,
+                         "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ccfg = clustering.ClusteringConfig()
+    model, cstate, losses = clustering.train(ccfg, num_steps=CLUSTER_STEPS,
+                                             log_every=100, log=log, device=device)
+    rec["clustering"] = {"steps": cstate.step, "losses": losses.cpu().tolist(),
+                         "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    rec["clustering"]["benchmark"] = clustering.benchmark(model, ccfg, num_batches=10)
+    rec["clustering"]["benchmark_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rec["max_regression"] = cli.main(["max-regression", "--steps", "500",
+                                      "--device", device])
+    rec["max_regression_s"] = time.perf_counter() - t0
+    rec["launches"] = kernel_counts()
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def start_tasks_on_card():
+    """Start phase 12's training runs (ModelNet40's epoch and eval,
+    CLUSTER_STEPS clustering steps and the benchmark, ``cli
+    max-regression``) in a process of its own during the build: no kernel
+    is on their path, and the card idles while nvcc runs.  Its output goes
+    to a log file; phase 12 reads its record."""
+    work = tempfile.mkdtemp(prefix="pcaudio_tasks_")
+    atexit.register(shutil.rmtree, work, True)
+    path, log_path = os.path.join(work, "tasks.json"), os.path.join(work, "tasks.log")
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.tasks_on_card(sys.argv[1])", path],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)
+    return proc, path, log_path
+
+
+def wait_job(proc, what, log_path=None):
+    """Wait for a process of :func:`start_tasks_on_card` or
+    :func:`start_task_grads_cpu`; returns the seconds waited."""
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    if rc != 0 and log_path:
+        with open(log_path) as f:
+            log(f.read()[-4000:])
+    check(rc == 0, f"{what} exited with {rc}")
+    return time.perf_counter() - t0
+
+
+def mn40_step_flops(B=64, N=1000, d=256, m=16, din=3, nout=40):
+    """f32 multiply-adds × 2 of one ModelNet40 forward (Linear layers and
+    the attention products; LayerNorm-free, elementwise work left out)."""
+    def mab(nq, nk, dq, dk):
+        return nq * dq * d + 2 * nk * dk * d + 2 * nq * nk * d + nq * d * d
+    per = 0
+    for dx in (din, d):  # two ISABs
+        per += mab(m, N, d, dx) + mab(N, m, dx, d)
+    per += mab(1, N, d, d) + d * nout  # PMA, then the Linear
+    return 2.0 * B * per
+
+
+def tasks_phase(tasks_job, grads_job, name_limit):
+    """Phase 12: the Set Transformer's tasks at the JAX defaults' full
+    widths.  Reads the training runs made beside the build (every loss
+    finite, the clustering loss falling, the benchmark finite, the
+    max-regression MAEs, no K1-K4 launch), holds each task model's loss and
+    gradients on the card against the CPU's, then times each task's step
+    and profiles ModelNet40's; no K1-K4 launch here either."""
+    from pcaudio_torch.data.modelnet40 import standardize
+    from pcaudio_torch.tasks import clustering, max_regression, modelnet40
+
+    path = tasks_job[1]
+    with open(path) as f:
+        rec = json.load(f)
+    launched = {k: n for k, n in rec["launches"].items() if n}
+    check(not launched, f"the tasks' training runs launched kernels {launched}")
+    mn = rec["modelnet40"]
+    h = mn["history"][0]
+    check(mn["steps"] == MN40_TRAIN // 64 - 1, f"ModelNet40: {mn['steps']} steps")
+    check(bool(np.isfinite([h["train_loss"], h["train_accuracy"], h["test_accuracy"]]).all()),
+          f"ModelNet40 epoch record {h}")
+    log(f"[tasks] ModelNet40 (dim 256, 4 heads, 16 inducing points, 1,000 of "
+        f"{MN40_POINTS:,} points, batch 64, 40 classes; {MN40_TRAIN} train / "
+        f"{MN40_TEST} test synthetic clouds through ModelNet40Fetcher.from_arrays, "
+        f"made in {rec['mn40_data_s']:.1f} s): 1 epoch = {mn['steps']} steps and one "
+        f"eval in {mn['s']:.1f} s on {rec['device']}: mean train loss "
+        f"{h['train_loss']:.4f} (every step finite), train accuracy "
+        f"{h['train_accuracy']:.4f}, test accuracy {h['test_accuracy']:.4f} "
+        f"({name_limit})")
+    cl = rec["clustering"]
+    losses = np.asarray(cl["losses"])
+    first, last = losses[:50].mean(), losses[-50:].mean()
+    mll, oll = cl["benchmark"]
+    log(f"[tasks] MoG clustering (ST, dim 128, 32 inducing points, 4 heads, ln; K 4, "
+        f"B 10, N 100-500): {cl['steps']} steps in {cl['s']:.1f} s, mean loss of the "
+        f"first 50 {first:.4f}, of the last 50 {last:.4f}; benchmark (10 batches of "
+        f"500 points, {cl['benchmark_s']:.1f} s): model {mll:.4f}, oracle {oll:.4f} "
+        f"({name_limit})")
+    check(cl["steps"] == CLUSTER_STEPS and bool(np.isfinite(losses).all()),
+          f"clustering: {cl['steps']} steps, a loss not finite")
+    check(last < first, f"clustering: the last 50 losses' mean {last} is not below "
+          f"the first 50's {first}")
+    check(bool(np.isfinite([mll, oll]).all()), f"clustering benchmark {mll}, {oll}")
+    mr = rec["max_regression"]
+    log(f"[tasks] cli max-regression --steps 500 --device cuda ("
+        f"{rec['max_regression_s']:.1f} s): {json.dumps(mr)} ({name_limit})")
+    check(bool(np.isfinite(list(mr.values())).all())
+          and mr["set_transformer"] < 1.0 and mr["deepset_max"] < 1.0,
+          f"max-regression MAEs {mr}")
+    log("[tasks] the training runs ran beside the build and phases 2-3; K1-K4 "
+        "launches over them: none")
+
+    zero_counts()
+    waited = wait_job(grads_job[0], "the CPU side of the task gradients")
+    cpu = torch.load(grads_job[1])
+    card = task_grads("cuda")
+    for name, (lg, gg) in card.items():
+        lc, gc = cpu[name]
+        gscale = gc.abs().max().item()
+        gerr = (gg - gc).abs().max().item()
+        rel = abs(lg - lc) / abs(lc)
+        log(f"[tasks] {name}, full width, seeded weights, dropout off, one batch, "
+            f"card vs CPU: loss {lg:.7f} vs {lc:.7f} (rel {rel:.2e}), gradient max "
+            f"|err| {gerr:.3e} of its largest entry {gscale:.3e} "
+            f"({gerr / max(gscale, 1e-30):.2e}; bar {TASK_GRAD_TOL})")
+        check(rel <= TASK_GRAD_TOL, f"{name}: card loss {lg} vs CPU {lc}")
+        check(gerr <= TASK_GRAD_TOL * gscale, f"{name}: card gradients {gerr:.3e} "
+              f"from the CPU's (scale {gscale:.3e})")
+    log(f"[tasks] the CPU side ran beside the build; waited {waited:.1f} s for it")
+
+    # each task's step, timed (CUDA events, 20 steps), on one batch
+    cases = task_cases("cuda")
+    mcfg = modelnet40.ModelNet40Config()
+    model, optimizer = modelnet40.build(mcfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    train_step, _ = modelnet40.make_steps(model, optimizer, gen)
+    clouds, labels = mn40_clouds(64, seed=7)
+    batch = {"points": torch.from_numpy(standardize(clouds[:, ::10])).cuda(),
+             "labels": torch.from_numpy(labels).cuda()}
+    ms = cuda_ms(lambda: train_step(batch), 20)
+    flops = 3 * mn40_step_flops()
+    b_ms = bound_ms({"f32": flops}, 0)[0]
+    per, idle = profile_device(lambda: train_step(batch), 5)
+    dev_ms = sum(per.values())
+    log(f"[time] ModelNet40 step (fwd + bwd + Adam, dropout on), batch 64 x 1000 "
+        f"points, dim 256: {ms:.3f} ms = {64 / ms * 1e3:.1f} clouds/s (CUDA events, 20 "
+        f"steps); device {dev_ms:.3f} ms a step in {len(per)} kernels, idle share "
+        f"{idle:.4f}; {flops / 1e9:.1f} GFLOP a step (3 x the forward's products), "
+        f"bound {b_ms:.3f} ms at the f32 peak = {b_ms / ms:.3f} of the step; by "
+        f"kernel: " + "; ".join(f"{_short(k)} {v:.3f}" for k, v in list(per.items())[:6])
+        + f" ({name_limit})")
+    cmodel, copt, csched = clustering.build(clustering.ClusteringConfig(), "cuda")
+    cstep = clustering.make_train_step(cmodel, copt, csched, clustering.ClusteringConfig())
+    X = torch.from_numpy(mog_batch(12, N=300)).cuda()
+    c_ms = cuda_ms(lambda: cstep(X), 20)
+    parts = [f"ModelNet40 {ms:.3f} ms", f"clustering ST (B 10, N 300) {c_ms:.3f} ms"]
+    for name in ("max regression ST", "max regression DeepSet max"):
+        m = cases[name][0].train()
+        opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def mstep(m=m, opt=opt, g=g):
+            xb, yb = max_regression.sample_batch(g)
+            loss = (m(xb) - yb).abs().mean()
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+        parts.append(f"{name} (B 64, N 10) {cuda_ms(mstep, 20):.3f} ms")
+    log("[time] task steps (CUDA events, 20 steps each): " + "; ".join(parts)
+        + f" ({name_limit})")
+    launched = {k: n for k, n in kernel_counts().items() if n}
+    check(not launched, f"phase 12 launched kernels {launched}")
+    log("[tasks] K1-K4 launches over phase 12's card work: none")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -1487,6 +1907,9 @@ def main():
     atexit.register(shutil.rmtree, train_corpus, True)
     train_job = start_corpus(train_corpus, CLIPS_PER_CLASS)
     ingest_job = start_ingest_corpus()
+    # phase 12's training runs on the card and its CPU gradients
+    tasks_job = start_tasks_on_card()
+    grads_job = start_task_grads_cpu()
     try:
         lib_path = _build.build()
         _build.library()
@@ -1708,6 +2131,10 @@ def main():
     serve_paths_phase(model, requests, served, launches, name_limit)
 
     # ---- 4. timings at the bench shape --------------------------------------
+    # phase 12's training runs share the card and the host: they end
+    # before anything is timed
+    waited = wait_job(tasks_job[0], "the tasks' training runs", tasks_job[2])
+    log(f"[tasks] phase 12's training runs ended {waited:.1f} s after phase 3")
     phase("4. timings at the bench shape")
     gen = torch.Generator(dev).manual_seed(0)
     bw = 0.1 * torch.randn(BENCH_B, L, device=dev, generator=gen)
@@ -1961,6 +2388,7 @@ def main():
             f"{n / k_ms * 1e3:.1f} clouds/s, plain path {p_ms:.3f} ms = "
             f"{n / p_ms * 1e3:.1f} clouds/s ({name_limit})")
         step_profile(tag, lambda: steps[True](batch), name_limit)
+    remat_phase(train_out, dev, name_limit)
 
     # ---- 8. the probes at their TPU scripts' shapes ---------------------------
     phase("8. the probes at their TPU scripts' shapes")
@@ -2003,6 +2431,9 @@ def main():
     phase("10. the paper's evaluation: cli eval through K4")
     launches["fused_mha_fwd"] += eval_phase(name_limit, base_dirs, eval_work,
                                             corpus_job)
+    # ---- 12. the Set Transformer's tasks ----------------------------------
+    phase("12. the Set Transformer's tasks")
+    tasks_phase(tasks_job, grads_job, name_limit)
     log(f"[done] {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -16,13 +16,19 @@ Subpackages and modules:
   ops         point-cloud builders; the CUDA kernels' wrappers and their
               plain versions
   eval        the temporal serving pipeline
-  train       FST/3ST recipes, train and eval steps, the epoch loop
+  train       the recipes, train and eval steps (with remat), the epoch
+              loop
+  tasks       the Set Transformer's own tasks: ModelNet40, MoG clustering,
+              max-of-set regression
+  utils       metrics streams and result files, parameter counts, NaN
+              debugging, timing and traces
   checkpoint  weights across the stacks, training checkpoints, .pth export
-  data        its own copies of the JAX package's numpy-only ESC loaders
-              and synthetic corpus
+  data        its own copies of the JAX package's numpy-only ESC and
+              ModelNet40 loaders and synthetic corpus
   probes      timing probes of K1's design questions on the card
               (``python -m pcaudio_torch.probes <name>``)
-  cli         ``python -m pcaudio_torch.cli train {FST,3ST} ...``
+  cli         ``python -m pcaudio_torch.cli {train,eval,plots,modelnet40,
+              clustering,max-regression} ...``
 """
 
 __version__ = "0.1.0"

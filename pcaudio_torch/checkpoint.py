@@ -128,6 +128,29 @@ def set_transformer_state_dict_from_jax(params: Any) -> StateDict:
     return out
 
 
+def small_set_transformer_state_dict_from_jax(params: Any) -> StateDict:
+    """Flax ``tasks.max_regression.SmallSetTransformer`` params (``sab0``,
+    ``sab1``, ``pma``, ``out``) → the port's state dict (the same names)."""
+    p = _params(params)
+    out: StateDict = {}
+    for name in ("sab0", "sab1"):
+        _mab(p[name]["mab"], f"{name}.mab", out)
+    _pma(p["pma"], "pma", out)
+    _dense(p["out"], "out", out)
+    return out
+
+
+def small_deepset_state_dict_from_jax(params: Any) -> StateDict:
+    """Flax ``tasks.max_regression.SmallDeepSet`` params (flax's automatic
+    names ``Dense_0``-``Dense_3``) → the port's ``enc.{0,2}``,
+    ``dec.{0,2}``."""
+    p = _params(params)
+    out: StateDict = {}
+    for i, name in enumerate(("enc.0", "enc.2", "dec.0", "dec.2")):
+        _dense(p[f"Dense_{i}"], name, out)
+    return out
+
+
 def load_reference_pth(path: str) -> StateDict:
     """Load a reference ``.pth`` state dict, ``module.`` prefix stripped."""
     sd = torch.load(path, map_location="cpu")

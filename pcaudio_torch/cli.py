@@ -9,6 +9,12 @@
         --esc-audio audio/ [--experiments expt1 expt2 rebut] [--out-dir DIR] \\
         [--device cuda|cpu]
     python -m pcaudio_torch.cli plots --results-dir DIR --out-dir figures/
+    python -m pcaudio_torch.cli modelnet40 --data ModelNet40_cloud.h5 \\
+        [--num_pts 1000] [--train_epochs 2000] [--log-dir result] \\
+        [--device cuda|cpu]
+    python -m pcaudio_torch.cli clustering [--model set_transformer|deepset] \\
+        [--mode train|bench] [--num_steps 50000] [--device cuda|cpu]
+    python -m pcaudio_torch.cli max-regression [--steps 500] [--device cuda|cpu]
 
 ``train`` featurizes the seeded ESC-10 train/test split on the device, trains
 the recipe (``pcaudio_torch.train.recipes``) and writes, under ``--out-dir``,
@@ -29,8 +35,18 @@ reference's schema, each with a ``.provenance.json`` side-file; ``rebut``
 ``plots`` draws the paper's five figures from a directory of those files
 (``pcaudio_torch.eval.plots``; needs matplotlib).
 
-``train`` and ``eval`` run on ``cuda`` unless ``--device cpu`` is given;
-without a CUDA device that is an error.
+``modelnet40``, ``clustering`` and ``max-regression`` are the Set
+Transformer's own tasks (``pcaudio_torch.tasks``), with the JAX commands'
+flags and defaults: ``modelnet40`` trains on the ModelNet40 h5 dump and
+writes each epoch's record to ``<log-dir>/<exp_name>.jsonl``
+(``utils.MetricsWriter``; ``--log-dir ''`` writes none); ``clustering``
+trains the amortized MoG clusterer and then, in either mode, prints its
+benchmark as one JSON line (``model_ll``, ``oracle_ll``);
+``max-regression`` trains the small ST and the max- and mean-pool
+DeepSets and prints their final MAEs as one JSON line.
+
+Every command but ``plots`` runs on ``cuda`` unless ``--device cpu`` is
+given; without a CUDA device that is an error.
 """
 from __future__ import annotations
 
@@ -49,19 +65,25 @@ def _add_esc_args(p):
                    help="path to the ESC-50 audio directory")
 
 
-def cmd_train(args):
-    """Train a recipe; returns ``(state, history)``."""
+def _device(args):
+    """``--device`` as a ``torch.device``; exits naming ``--device cpu``
+    where it asks for a card that is not there."""
     import torch
 
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: pass --device cpu to run on the CPU")
+    return torch.device(args.device)
+
+
+def cmd_train(args):
+    """Train a recipe; returns ``(state, history)``."""
     from pcaudio_torch.checkpoint import export_reference_pth, save_checkpoint
     from pcaudio_torch.data import load_esc_split_waves
     from pcaudio_torch.train import (
         RECIPES, build_trainer, fit, make_eval_step, make_train_step,
         prepare_data)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: pass --device cpu to train on the CPU")
-    device = torch.device(args.device)
+    device = _device(args)
     cfg = RECIPES[args.recipe]()
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
@@ -314,6 +336,62 @@ def cmd_plots(args):
     return outs
 
 
+def cmd_modelnet40(args):
+    """Train on ModelNet40; returns ``(state, history)``."""
+    from pcaudio_torch.tasks.modelnet40 import ModelNet40Config, train
+    from pcaudio_torch.utils.metrics import MetricsWriter
+
+    device = _device(args)
+    cfg = ModelNet40Config(num_pts=args.num_pts,
+                           learning_rate=args.learning_rate,
+                           batch_size=args.batch_size, dim=args.dim,
+                           n_heads=args.n_heads, n_anc=args.n_anc,
+                           train_epochs=args.train_epochs)
+    metrics = (MetricsWriter(os.path.join(args.log_dir, cfg.exp_name + ".jsonl"))
+               if args.log_dir else None)
+    try:
+        return train(cfg, args.data, metrics=metrics, device=device)
+    finally:
+        if metrics is not None:
+            metrics.close()
+
+
+def cmd_clustering(args):
+    """Train the MoG clusterer, then print and return its benchmark
+    ``{"model_ll", "oracle_ll"}``."""
+    from pcaudio_torch.tasks.clustering import ClusteringConfig, benchmark, train
+
+    device = _device(args)
+    cfg = ClusteringConfig(model=args.model, K=args.K,
+                           num_steps=args.num_steps, B=args.B)
+    model, _, _ = train(cfg, device=device)
+    mll, oll = benchmark(model, cfg)
+    out = {"model_ll": mll, "oracle_ll": oll}
+    print(json.dumps(out))
+    return out
+
+
+def cmd_max_regression(args):
+    """Train the three max-regression models (weights from torch seed 0),
+    then print and return their final MAEs."""
+    import torch
+
+    from pcaudio_torch.tasks.max_regression import (
+        SmallDeepSet, SmallSetTransformer, train)
+
+    device = _device(args)
+    out = {}
+    for name, make in (("set_transformer", SmallSetTransformer),
+                       ("deepset_max", lambda: SmallDeepSet(pool="max")),
+                       ("deepset_mean", lambda: SmallDeepSet(pool="mean"))):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = make()
+        _, out[name] = train(model, steps=args.steps, log=print, device=device)
+    print(json.dumps(out))
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="pcaudio_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -348,6 +426,34 @@ def build_parser() -> argparse.ArgumentParser:
                     help="directory of the eval result files")
     pl.add_argument("--out-dir", required=True)
     pl.set_defaults(fn=cmd_plots)
+
+    m = sub.add_parser("modelnet40", help="ModelNet40 classification")
+    m.add_argument("--data", required=True, help="the ModelNet40 h5 dump")
+    m.add_argument("--num_pts", type=int, default=1000)
+    m.add_argument("--learning_rate", type=float, default=1e-3)
+    m.add_argument("--batch_size", type=int, default=64)
+    m.add_argument("--dim", type=int, default=256)
+    m.add_argument("--n_heads", type=int, default=4)
+    m.add_argument("--n_anc", type=int, default=16)
+    m.add_argument("--train_epochs", type=int, default=2000)
+    m.add_argument("--log-dir", default="result")
+    m.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    m.set_defaults(fn=cmd_modelnet40)
+
+    c = sub.add_parser("clustering", help="amortized MoG clustering demo")
+    c.add_argument("--model", default="set_transformer",
+                   choices=["set_transformer", "deepset"])
+    c.add_argument("--mode", default="train", choices=["train", "bench"])
+    c.add_argument("--K", type=int, default=4)
+    c.add_argument("--B", type=int, default=10)
+    c.add_argument("--num_steps", type=int, default=50000)
+    c.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    c.set_defaults(fn=cmd_clustering)
+
+    x = sub.add_parser("max-regression", help="max-of-set regression demo")
+    x.add_argument("--steps", type=int, default=500)
+    x.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    x.set_defaults(fn=cmd_max_regression)
     return ap
 
 

@@ -5,9 +5,10 @@ Re-implements ``Code/paper_plots/plots.py`` (expt 1 and expt 2 figures) and
 ``Code/paper_plots/plots_rebut.py`` (the importance-sampling overlay) over
 the reference schemas that ``cli eval`` writes: the framewise and temporal
 (Fs, N) robustness pairs, the framewise and temporal subsampling curves,
-and the rebuttal overlay.  matplotlib is imported inside the functions
-only: the module imports where matplotlib is missing, and only drawing
-needs it.  The MoG clustering figures come with ``tasks/`` (ROADMAP).
+and the rebuttal overlay; and the MoG clustering figures of
+``set_transformer-master/plots.py`` for ``tasks.clustering``.  matplotlib
+is imported inside the functions only: the module imports where
+matplotlib is missing, and only drawing needs it.
 """
 from __future__ import annotations
 
@@ -174,3 +175,66 @@ def generate_all(plots_dir: str, out_dir: str,
     if not outs:
         raise FileNotFoundError(f"no figure's result files in {plots_dir}")
     return outs
+
+
+# ---------------------------------------------------------------------------
+# MoG clustering visualization (``set_transformer-master/plots.py:7-41``)
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a numpy array."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def draw_ellipse(pos, cov, ax, **kwargs):
+    """2-sigma covariance ellipse for one Gaussian component."""
+    import matplotlib.patches as mpatches
+    import numpy.linalg as la
+
+    vals, vecs = la.eigh(cov)
+    order = vals.argsort()[::-1]
+    vals, vecs = vals[order], vecs[:, order]
+    theta = np.degrees(np.arctan2(*vecs[:, 0][::-1]))
+    w, h = 4 * np.sqrt(np.maximum(vals, 0))
+    ax.add_patch(mpatches.Ellipse(pos, w, h, angle=theta, alpha=0.25,
+                                  **kwargs))
+
+
+def scatter_mog(X, labels, mu, cov, ax=None):
+    """Scatter a clustered point set with per-component covariance ellipses."""
+    import matplotlib.pyplot as plt
+
+    if ax is None:
+        _, ax = plt.subplots()
+    K = mu.shape[0]
+    cmap = plt.get_cmap("tab10")
+    for k in range(K):
+        pts = X[labels == k]
+        ax.scatter(pts[:, 0], pts[:, 1], s=4, color=cmap(k % 10))
+        draw_ellipse(mu[k], cov[k], ax, color=cmap(k % 10))
+    return ax
+
+
+def plot_clustering_batch(X, labels, mu, sigma, out_path=None, ncols=2):
+    """Grid of clustered sets (``mixture_of_mvns.py:48-58``): diagonal sigmas
+    become diag covariance ellipses.  ``X [B, N, 2]``, ``labels [B, N]``,
+    ``mu``/``sigma [B, K, 2]``, as tensors or arrays."""
+    import matplotlib.pyplot as plt
+
+    X, labels, mu, sigma = map(_host, (X, labels, mu, sigma))
+    B = X.shape[0]
+    nrows = -(-B // ncols)
+    fig, axes = plt.subplots(nrows, ncols, figsize=(3 * ncols, 3 * nrows))
+    for i, ax in enumerate(np.atleast_1d(axes).flatten()):
+        if i >= B:
+            ax.axis("off")
+            continue
+        cov = np.stack([np.diag(s ** 2) for s in sigma[i]])
+        scatter_mog(X[i], labels[i], mu[i], cov, ax=ax)
+        ax.set_xticks([])
+        ax.set_yticks([])
+    if out_path:
+        fig.savefig(out_path, bbox_inches="tight")
+    return fig

@@ -29,7 +29,9 @@ def test_port_never_imports_jax():
     the native loader included, builds the full-width 3ST classifier and
     serves one request of clips and one of WAV files,
     and takes two train steps through K4's route and two of each baseline
-    (FB, CNNTemp) at full width, on the CPU without loading jax or any
+    (FB, CNNTemp) at full width, and two steps of each Set Transformer
+    task (ModelNet40 from arrays, MoG clustering with its benchmark, max
+    regression) with a remat step, on the CPU without loading jax or any
     module of the JAX package ``pcaudio``."""
     code = textwrap.dedent("""
         import dataclasses
@@ -45,6 +47,11 @@ def test_port_never_imports_jax():
         assert "pcaudio_torch.native" in mods, mods
         assert {"pcaudio_torch.ops.subsample",
                 "pcaudio_torch.probes.rebut_sweep"} <= set(mods), mods
+        assert {"pcaudio_torch.tasks.modelnet40", "pcaudio_torch.tasks.clustering",
+                "pcaudio_torch.tasks.max_regression",
+                "pcaudio_torch.data.modelnet40", "pcaudio_torch.utils.metrics",
+                "pcaudio_torch.utils.params", "pcaudio_torch.utils.debugging",
+                "pcaudio_torch.utils.profiling"} <= set(mods), mods
         for name in mods:
             importlib.import_module(name)
         from pcaudio_torch.eval import TemporalPipelineConfig
@@ -90,6 +97,30 @@ def test_port_never_imports_jax():
             state, hist = fit(state, make_train_step(apply_fn, state.optimizer),
                               data, batch_size=4, epochs=1, log=lambda s: None)
             assert state.step == 2 and np.isfinite(hist[0]["train_loss"])
+            step = make_train_step(apply_fn, state.optimizer, remat=True,
+                                   generator=state.generator)
+            assert np.isfinite(step({k: torch.from_numpy(v[:4])
+                                     for k, v in data.items()})["loss"].item())
+        from pcaudio_torch.data import ModelNet40Fetcher
+        from pcaudio_torch.tasks import clustering, max_regression, modelnet40
+        from pcaudio_torch.utils import count_parameters
+        rng = np.random.default_rng(0)
+        clouds = rng.standard_normal((24, 40, 3)).astype(np.float32)
+        fetcher = ModelNet40Fetcher.from_arrays(clouds, np.arange(24) % 2, clouds,
+                                                np.arange(24) % 2, 8, down_sample=4)
+        mcfg = modelnet40.ModelNet40Config(num_pts=10, dim=8, n_heads=2, n_anc=4,
+                                           batch_size=8, dim_output=2)
+        state, hist = modelnet40.train(mcfg, fetcher, epochs=1,
+                                       log=lambda s: None, device="cpu")
+        assert state.step == 2 and "test_accuracy" in hist[0]
+        ccfg = clustering.ClusteringConfig(model="deepset", K=2, B=2, N_min=5,
+                                           N_max=9)
+        model, _, _ = clustering.train(ccfg, num_steps=2, log=lambda s: None,
+                                       device="cpu")
+        assert np.isfinite(clustering.benchmark(model, ccfg, num_batches=1)).all()
+        st = max_regression.SmallSetTransformer(8, 2)
+        assert np.isfinite(max_regression.train(st, steps=2, device="cpu")[1])
+        assert count_parameters(st, display=False) > 0
         import pcaudio_torch.eval.plots
         assert "jax" not in sys.modules, "pcaudio_torch imported jax"
         jaxpkg = [m for m in sys.modules
@@ -132,18 +163,21 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
-    """AudioClassifier, build_trainer and prepare_*_data run on "cuda"
-    unless the caller names the CPU; without a card they raise instead of
-    running on the CPU."""
+    """AudioClassifier, build_trainer, prepare_*_data and the tasks'
+    ``build`` and ``train`` run on "cuda" unless the caller names the CPU;
+    without a card they raise instead of running on the CPU."""
     import dataclasses
     import inspect
 
     from pcaudio_torch.serve import AudioClassifier
+    from pcaudio_torch.tasks import clustering, max_regression, modelnet40
     from pcaudio_torch.train import recipes
 
     fns = (recipes.build_trainer, recipes.prepare_framewise_data,
            recipes.prepare_temporal_data)
-    for fn in fns:
+    tasks = (modelnet40.build, modelnet40.train, clustering.build,
+             clustering.train, max_regression.train)
+    for fn in fns + tasks:
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     fields = {f.name: f.default for f in dataclasses.fields(AudioClassifier)}
     assert fields["device"] == "cuda"
@@ -160,6 +194,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     model = ST(dim_input=3, dim_output=10, num_inds=4, dim_hidden=8, num_heads=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AudioClassifier(model=model, pipeline=TemporalPipelineConfig(top_k=64))
+    for call in (lambda: modelnet40.build(modelnet40.ModelNet40Config()),
+                 lambda: clustering.train(clustering.ClusteringConfig(), num_steps=1),
+                 lambda: max_regression.train(max_regression.SmallDeepSet(), steps=1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

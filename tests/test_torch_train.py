@@ -25,6 +25,7 @@ from pcaudio_torch.core.config import ARCH_3ST, ExperimentConfig
 from pcaudio_torch.eval import TemporalPipelineConfig
 from pcaudio_torch.nn import ST, BaselineFF, CNNClassifier
 from pcaudio_torch.serve import AudioClassifier
+from pcaudio_torch.tasks.modelnet40 import ModelNet40Config, build as build_mn40
 from pcaudio_torch.train import (
     RECIPES, TrainState, build_trainer, fit, make_eval_step, make_train_step,
     pointcloud_apply)
@@ -260,3 +261,94 @@ def test_cli_train_needs_cuda_unless_told_cpu(tmp_path):
     with pytest.raises(SystemExit, match="--device cpu"):
         cli_main(["train", "FST", "--esc-csv", "x.csv", "--esc-audio", "a",
                   "--out-dir", str(tmp_path)])
+
+
+def _remat_case(kind):
+    """Two identical trainers ``(state, apply_fn)`` and a batch: a
+    3ST-shaped ST through K4's route (the plain pair on the CPU) on ragged
+    masks; the FB baseline, whose input dropout draws from the state's
+    generator; or the ModelNet40 Set Transformer, whose dropouts act on
+    activations inside the network."""
+    rng = np.random.default_rng(6)
+    if kind == "st_k4":
+        cfg = dataclasses.replace(RECIPES["3ST"](), dhidden=16, nheads=4,
+                                  ninds=8, batch_size=4)
+        pts, mask, labels = _ragged(rng)
+        batch = {"points": torch.from_numpy(pts), "mask": torch.from_numpy(mask),
+                 "labels": torch.from_numpy(labels)}
+        return [build_trainer(cfg, "cpu", fused_attn=True) for _ in range(2)], batch
+    if kind == "fb_dropout":
+        cfg = dataclasses.replace(RECIPES["FB"](), layers=[33, 16], batch_size=8)
+        batch = {"x": torch.from_numpy(rng.standard_normal((8, 33)).astype(np.float32)),
+                 "labels": torch.from_numpy(rng.integers(0, 10, 8))}
+        return [build_trainer(cfg, "cpu") for _ in range(2)], batch
+    cfg = ModelNet40Config(dim=16, n_heads=4, n_anc=4, dim_output=5)
+    trainers = []
+    for _ in range(2):
+        model, optimizer = build_mn40(cfg, "cpu")
+        generator = torch.Generator().manual_seed(3)
+
+        def apply_fn(batch, train=False, model=model, generator=generator):
+            model.train(train)
+            return model(batch["points"], generator=generator)
+
+        trainers.append((TrainState(model, optimizer, generator=generator),
+                         apply_fn))
+    batch = {"points": torch.from_numpy(rng.standard_normal((6, 20, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 5, 6))}
+    return trainers, batch
+
+
+def _blocks(model):
+    """The modules a remat step checkpoints one by one: the ST's two ISABs
+    and its PMA; every module of the ModelNet40 Set Transformer, its two
+    dropouts included."""
+    if isinstance(model, ST):
+        return [model.enc[0], model.enc[1], model.dec[0]]
+    return [*model.enc, *model.dec]
+
+
+@pytest.mark.parametrize("kind,form", [
+    ("st_k4", "whole"), ("st_k4", "blocks"), ("fb_dropout", "whole"),
+    ("mn40_dropout", "whole"), ("mn40_dropout", "blocks")])
+def test_remat_train_step_matches_plain(kind, form):
+    """``remat`` (the whole forward, or each block, under
+    torch.utils.checkpoint, recomputed in the backward) gives the plain
+    step's loss and updated weights, as tests/test_train.py checks the JAX
+    step: loss to 1e-6 and weights to 1e-6 over three steps; with dropout
+    the recompute draws the forward's masks from the restored generator,
+    which ends where the plain step's does."""
+    ((plain, plain_fn), (rem, rem_fn)), batch = _remat_case(kind)
+    remat = True if form == "whole" else _blocks(rem.model)
+    steps = (make_train_step(plain_fn, plain.optimizer),
+             make_train_step(rem_fn, rem.optimizer, remat=remat,
+                             generator=rem.generator))
+    assert (plain.generator is None) == (kind == "st_k4")
+    for _ in range(3):
+        mp, mr = (s(batch) for s in steps)
+        np.testing.assert_allclose(mr["loss"].item(), mp["loss"].item(), rtol=1e-6)
+    for (name, a), b in zip(plain.model.state_dict().items(),
+                            rem.model.state_dict().values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=1e-6, rtol=1e-6,
+                                   err_msg=name)
+    if plain.generator is not None:
+        assert torch.equal(plain.generator.get_state(), rem.generator.get_state())
+    assert not any("forward" in vars(m) for m in rem.model.modules())
+
+
+def test_remat_step_raises_on_a_generator_it_cannot_restore():
+    """A dropout model whose generator the remat step was not given: the
+    forward raises before any update, where the recompute would otherwise
+    draw other masks and take the gradient of another network."""
+    ((state, apply_fn), _), batch = _remat_case("mn40_dropout")
+    before = [p.detach().clone() for p in state.model.parameters()]
+    other = torch.Generator().manual_seed(0)
+    for remat in (True, _blocks(state.model)):
+        for generator in (None, other):
+            step = make_train_step(apply_fn, state.optimizer, remat=remat,
+                                   generator=generator)
+            with pytest.raises(RuntimeError, match="generator"):
+                step(batch)
+    assert not any("forward" in vars(m) for m in state.model.modules())
+    assert all(torch.equal(a, b) for a, b in zip(before, state.model.parameters()))
+    assert make_train_step(apply_fn, state.optimizer)(batch)["loss"].isfinite()

@@ -153,7 +153,25 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    (within 1e-4 of the gradient vector's largest entry); each task's step
    time (CUDA events) and ModelNet40's step profile (device ms, idle share,
    against its f32 product bound).  K1-K4 launches over these paths fail
-   the run.
+   the run;
+13. data parallelism and the set axis (``pcaudio_torch.parallel``): NCCL
+   refuses two ranks on one card, so the worlds' ranks, each a process of
+   its own started when the build ends (they run beside phases 2-3; phase 4
+   waits for them), share cuda:0 over gloo, which stages CUDA tensors
+   through the host.  4 ranks on a (data 2, set 2) mesh run the
+   set-sharded 3ST at the recipe's full width (16 clouds of 5,120 points,
+   ragged, one cloud's valid points ending inside the first set shard):
+   logits within 1e-4 of the unsharded K4 ST and of the sharded plain pair,
+   exactly 3 MAX + 6 SUM all-reduces over the set group in a forward (3
+   SUMs more in a backward), one backward through DDP whose gradients are
+   within 1e-4 of the unsharded step's largest entry, K4's forward and
+   backward launched on every rank; 2 ranks on data take one FST-recipe
+   DP step through DDP (global batch 128 frames of 1,025 points, Adam 1e-3,
+   weight decay 1e-3, K4), its loss and gradients against the
+   single-process step, then two more steps after which the ranks'
+   parameters are bit-identical; 1 rank takes the same step over NCCL.  The
+   ms of a sharded forward and of a DP step are printed (ranks sharing one
+   card; not a scaling number).  Any rank's failure fails the run.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -166,7 +184,10 @@ of output is the kernels' JSON record, the last one the device record.
 """
 import atexit
 import dataclasses
+import hashlib
 import json
+import multiprocessing
+import multiprocessing.forkserver
 import os
 import shutil
 import subprocess
@@ -212,6 +233,7 @@ from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
     RECIPES, build_trainer, make_train_step, prepare_data,
     prepare_framewise_data, prepare_temporal_data)
+from pcaudio_torch.utils import collective_calls
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_B = 1024
@@ -363,11 +385,11 @@ def phase(title):
     log(f"[phase] {title}: starts at {time.perf_counter() - T_START:.1f} s")
 
 
-def seeded_st(din, seed, dim=64, inds=64, heads=8):
+def seeded_st(din, seed, dim=64, inds=64, heads=8, fused_attn=False):
     """An ST (full width unless told: 64 hidden, 64 inducing points, 8
     heads) with weights drawn from a numpy seed, U(±1/sqrt(fan_in))."""
     model = ST(dim_input=din, dim_output=10, num_inds=inds, dim_hidden=dim,
-               num_heads=heads)
+               num_heads=heads, fused_attn=fused_attn)
     rng = np.random.default_rng(seed)
     sd = {k: torch.from_numpy(rng.uniform(-1, 1, v.shape).astype(np.float32)
                               / np.sqrt(v.shape[-1]))
@@ -1880,6 +1902,374 @@ def tasks_phase(tasks_job, grads_job, name_limit):
     log("[tasks] K1-K4 launches over phase 12's card work: none")
 
 
+# ---- phase 13: data parallelism and the set axis -----------------------------
+# NCCL refuses two ranks on one card, so phase 13's worlds put every rank on
+# cuda:0 over gloo (which stages CUDA tensors through the host); one world
+# of one rank runs the NCCL path.  (world, ranks, backend)
+PARALLEL_WORLDS = (("set", 4, "gloo"), ("dp", 2, "gloo"), ("nccl", 1, "nccl"))
+PARALLEL_TOL = 1e-4   # logits, and gradients of their vector's largest entry
+P13_CLOUDS, P13_POINTS = 16, 5120   # the 3ST recipe's batch (2,560 points a shard)
+P13_FST_BATCH, P13_FST_POINTS = 128, 1025   # the FST recipe's batch
+P13_TIMED = 10        # sharded forwards, DP steps timed
+class Stages:
+    """Seconds since the previous mark, by name (a rank's time split)."""
+
+    def __init__(self):
+        self.t, self.s = time.perf_counter(), {}
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.s[name], self.t = round(now - self.t, 3), now
+
+
+def grad_vector(model):
+    return torch.cat([p.grad.flatten() for p in model.parameters()])
+
+
+def mean_grad_vector(model, group, n):
+    """``model``'s gradients summed over ``group`` and divided by ``n``
+    (what DDP does), as one vector."""
+    import torch.distributed as dist
+
+    for p in model.parameters():
+        dist.all_reduce(p.grad, group=group)
+    return grad_vector(model) / n
+
+
+def synced_ms(fn, n, group):
+    """Host ms a call of ``fn`` over ``n`` calls, every rank of ``group``
+    starting together and the card synchronized at both ends."""
+    import torch.distributed as dist
+
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def p13_set_world(rank, size):
+    """The set-sharded 3ST at the recipe's full width over a (2, 2) mesh:
+    logits against the unsharded K4 ST and the sharded plain pair, the
+    collectives of a forward, one DDP backward's gradients against the
+    unsharded step's, the ms of a sharded forward."""
+    import torch.distributed as dist
+    from pcaudio_torch.parallel import make_mesh, set_sharded_st_forward, shard_batch
+    from pcaudio_torch.train import data_parallel
+
+    mark = Stages()
+    mesh = make_mesh(2, 2, device="cuda:0")
+    mark("mesh")
+    rng = np.random.default_rng(13)
+    pts = rng.standard_normal((P13_CLOUDS, P13_POINTS, 3)).astype(np.float32)
+    counts = rng.integers(1, P13_POINTS + 1, P13_CLOUDS)
+    # cloud 0 full; cloud 1's valid points end inside the first set shard
+    counts[0], counts[1] = P13_POINTS, P13_POINTS // 4
+    mask = np.arange(P13_POINTS)[None, :] < counts[:, None]
+    labels = rng.integers(0, 10, P13_CLOUDS)
+    model = seeded_st(3, seed=13, fused_attn=True)
+    x = shard_batch(mesh, {"points": pts, "mask": mask, "labels": labels},
+                    shard_set_axis=True)
+    rows = slice(mesh.data_index * P13_CLOUDS // 2, (mesh.data_index + 1) * P13_CLOUDS // 2)
+    full = {"points": torch.from_numpy(pts).cuda(), "mask": torch.from_numpy(mask).cuda(),
+            "labels": torch.from_numpy(labels).cuda()}
+    rec = {"shard": list(x["points"].shape),
+           "masked_shard": bool(not x["mask"].any(1).all()), "stages": mark.s}
+    mark("data")
+    with torch.no_grad():
+        ref = model(full["points"][rows], full["mask"][rows])
+        torch.cuda.synchronize()
+        mark("unsharded")
+        zero_counts()
+        with collective_calls({"set": mesh.set_group}) as calls:
+            got = set_sharded_st_forward(model, x["points"], x["mask"], mesh)
+        torch.cuda.synchronize()
+        rec["fwd_launches"] = fused_mha_fwd.launches
+        rec["calls"] = list(calls)
+        mark("sharded")
+        plain = set_sharded_st_forward(model, x["points"], x["mask"], mesh, plain=True)
+        torch.cuda.synchronize()
+        mark("plain")
+    rec["err_unsharded"] = (got - ref).abs().max().item()
+    rec["err_plain"] = (got - plain).abs().max().item()
+    rec["logit_scale"] = ref.abs().max().item()
+    rec["finite"] = bool(torch.isfinite(got).all())
+
+    # one backward through DDP over the set-sharded forward, against the
+    # unsharded K4 step on the global batch
+    F.cross_entropy(model(full["points"], full["mask"]), full["labels"]).backward()
+    gref = grad_vector(model)
+    model.zero_grad(set_to_none=True)
+    mark("unsharded grads")
+    ddp = data_parallel(model, mesh, shard_set_axis=True)
+    mark("ddp")
+    zero_counts()
+    with collective_calls({"set": mesh.set_group}) as calls:
+        loss = F.cross_entropy(ddp(x["points"], x["mask"]), x["labels"])
+        loss.backward()
+    torch.cuda.synchronize()
+    rec["step_calls"] = list(calls)
+    rec["step_launches"] = [fused_mha_fwd.launches, fused_mha_bwd.launches]
+    gddp = grad_vector(model)
+    rec["grad_err"] = (gddp - gref).abs().max().item()
+    rec["grad_scale"] = gref.abs().max().item()
+    mark("step")
+    # the same backward on the same shards through the plain pair (its
+    # backward given the combined out and lse, K4's contract), averaged
+    # over the world as DDP averages
+    model.zero_grad(set_to_none=True)
+    F.cross_entropy(set_sharded_st_forward(model, x["points"], x["mask"], mesh,
+                                           plain=True), x["labels"]).backward()
+    rec["grad_err_plain"] = (gddp - mean_grad_vector(model, mesh.group, size)
+                             ).abs().max().item()
+    mark("plain grads")
+
+    def forward():
+        with torch.no_grad():
+            set_sharded_st_forward(model, x["points"], x["mask"], mesh)
+    rec["fwd_ms"] = synced_ms(forward, P13_TIMED, mesh.group)
+    mark("timed")
+    dist.barrier()
+    mark("barrier")
+    return rec
+
+
+def fst_batch(seed):
+    """A global FST batch on the host: 128 frames of 1,025 2-D points."""
+    rng = np.random.default_rng(seed)
+    return {"points": rng.standard_normal((P13_FST_BATCH, P13_FST_POINTS, 2)
+                                          ).astype(np.float32),
+            "labels": rng.integers(0, 10, P13_FST_BATCH)}
+
+
+def p13_fst_dp(rank, size):
+    """One FST-recipe DP step over every rank on ``data`` (K4, Adam 1e-3,
+    weight decay 1e-3) against the single-process step on the same global
+    batch; on more than one rank, two more steps and the parameters' bits
+    across ranks, then the ms of a DP step."""
+    import torch.distributed as dist
+    from pcaudio_torch.parallel import make_mesh, shard_batch
+    from pcaudio_torch.train import data_parallel, fst_config, pointcloud_apply
+
+    mark = Stages()
+    mesh = make_mesh(device="cuda:0")
+    mark("mesh")
+    cfg = fst_config()
+    state, _ = build_trainer(cfg, "cuda:0")
+    ddp = data_parallel(state.model, mesh)   # every rank now holds rank 0's weights
+    mark("ddp")
+    ref, ref_apply = build_trainer(cfg, "cuda:0")
+    ref.model.load_state_dict(state.model.state_dict())
+    plain, plain_apply = build_trainer(cfg, "cuda:0", fused_attn=False)
+    plain.model.load_state_dict(state.model.state_dict())
+    batch = fst_batch(0)
+    m_ref = make_train_step(ref_apply, ref.optimizer)(
+        {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    mark("single-process step")
+    step = make_train_step(pointcloud_apply(ddp), state.optimizer)
+    zero_counts()
+    m = step(shard_batch(mesh, batch))
+    torch.cuda.synchronize()
+    mark("dp step")
+    rec = {"backend": dist.get_backend(), "stages": mark.s,
+           "launches": [fused_mha_fwd.launches, fused_mha_bwd.launches]}
+    loss = m["loss"].clone()
+    dist.all_reduce(loss, group=mesh.data_group)
+    rec["loss"], rec["loss_ref"] = loss.item() / mesh.n_data, m_ref["loss"].item()
+    gref, gddp = grad_vector(ref.model), grad_vector(state.model)
+    rec["grad_err"] = (gddp - gref).abs().max().item()
+    rec["grad_scale"] = gref.abs().max().item()
+    # the same shards through K4's plain pair, averaged over the data ranks
+    local = shard_batch(mesh, batch)
+    F.cross_entropy(plain_apply(local, train=True), local["labels"].long()).backward()
+    rec["grad_err_plain"] = (gddp - mean_grad_vector(plain.model, mesh.data_group,
+                                                     mesh.n_data)).abs().max().item()
+    mark("plain grads")
+    for seed in (1, 2):
+        step(shard_batch(mesh, fst_batch(seed)))
+    flat = torch.cat([p.detach().flatten() for p in state.model.parameters()])
+    rec["param_sha"] = hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+    mark("two steps")
+    b = shard_batch(mesh, fst_batch(3))
+    rec["step_ms"] = synced_ms(lambda: step(b), P13_TIMED, mesh.group)
+    mark("timed")
+    dist.barrier()
+    mark("barrier")
+    return rec
+
+
+PARALLEL_CASES = {"set": p13_set_world, "dp": p13_fst_dp, "nccl": p13_fst_dp}
+
+
+def parallel_rank(world, rank, size, backend, work):
+    """One rank of a phase-13 world, in a process of its own on cuda:0;
+    its output goes to ``work/<world>.<rank>.log``, its record to
+    ``work/<world>.<rank>.json``."""
+    import torch.distributed as dist
+    from pcaudio_torch.parallel import initialize_distributed
+
+    out = os.open(os.path.join(work, f"{world}.{rank}.log"),
+                  os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+    os.dup2(out, 1)
+    os.dup2(out, 2)
+    torch.set_num_threads(1)   # seven ranks and the main process on 8 cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    initialize_distributed(f"file://{os.path.join(work, world + '.store')}", size,
+                           rank, backend)
+    try:
+        rec = PARALLEL_CASES[world](rank, size)
+    finally:
+        dist.destroy_process_group()
+    rec["s"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"{world}.{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def start_parallel_worlds():
+    """Start the process that phase 13's ranks are forked from (a
+    forkserver), beside the build: it imports this script, torch and
+    ``torch._dynamo`` (which every ``DistributedDataParallel`` imports when
+    it is made, seconds a process) once, for all seven ranks."""
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["chip_smoke", "torch._dynamo"])
+    multiprocessing.forkserver.ensure_running()
+    return ctx
+
+
+def release_parallel_worlds(ctx):
+    """Fork phase 13's worlds, every rank a process on cuda:0, once the
+    build has made K4's library; they run beside phases 2-3 (no timed
+    phase: phase 4 waits for them)."""
+    work = tempfile.mkdtemp(prefix="pcaudio_parallel_")
+    atexit.register(shutil.rmtree, work, True)
+    procs = []
+    for world, size, backend in PARALLEL_WORLDS:
+        for rank in range(size):
+            proc = ctx.Process(target=parallel_rank, daemon=True,
+                               args=(world, rank, size, backend, work))
+            proc.start()
+            procs.append((world, rank, proc))
+    return work, procs, time.perf_counter()
+
+
+def wait_parallel_worlds(job, timeout=300):
+    """Wait for every rank of :func:`release_parallel_worlds`; the first that
+    fails (or the timeout) kills the rest and raises with its output.
+    Returns the seconds waited."""
+    work, procs = job[:2]
+    t0 = time.perf_counter()
+    pending = list(procs)
+    while pending:
+        for item in list(pending):
+            world, rank, proc = item
+            rc = proc.exitcode
+            if rc is None:
+                continue
+            pending.remove(item)
+            if rc != 0:
+                for *_, p in procs:
+                    p.kill()
+                with open(os.path.join(work, f"{world}.{rank}.log")) as f:
+                    log(f.read()[-4000:])
+                raise AssertionError(f"phase 13: rank {rank} of world {world!r} "
+                                     f"exited with {rc}")
+        if pending and time.perf_counter() - t0 > timeout:
+            for *_, p in procs:
+                p.kill()
+            raise AssertionError(f"phase 13: ranks {[(w, r) for w, r, _ in pending]} "
+                                 f"still running after {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
+def parallel_phase(job, name_limit):
+    """Phase 13: reads the worlds' records and holds them to their bars.
+    Returns K4's (forward, backward) launches over the worlds' main paths,
+    summed over the ranks."""
+    work, procs = job[:2]
+    recs = {}
+    for world, rank, _ in procs:
+        with open(os.path.join(work, f"{world}.{rank}.json")) as f:
+            recs[world, rank] = json.load(f)
+    mab = ["all_reduce:MAX@set", "all_reduce:SUM@set", "all_reduce:SUM@set"]
+    fwd = bwd = 0
+    for rank in range(PARALLEL_WORLDS[0][1]):
+        r = recs["set", rank]
+        check(r["shard"] == [P13_CLOUDS // 2, P13_POINTS // 2, 3], f"shard {r['shard']}")
+        check(r["finite"], f"set world rank {rank}: logits not finite")
+        check(r["calls"] == mab * 3, f"set world rank {rank}: the forward's "
+              f"collectives {r['calls']}, not 3 MAX + 6 SUM over the set group")
+        check(r["step_calls"] == mab * 3 + ["all_reduce:SUM@set"] * 3,
+              f"set world rank {rank}: the step's collectives {r['step_calls']}")
+        check(r["err_unsharded"] <= PARALLEL_TOL and r["err_plain"] <= PARALLEL_TOL,
+              f"set world rank {rank}: logits {r['err_unsharded']:.3e} from the "
+              f"unsharded K4 ST, {r['err_plain']:.3e} from the sharded plain pair")
+        check(max(r["grad_err"], r["grad_err_plain"]) <= PARALLEL_TOL * r["grad_scale"],
+              f"set world rank {rank}: gradients {r['grad_err']:.3e} from the "
+              f"unsharded step's, {r['grad_err_plain']:.3e} from the sharded plain "
+              f"pair's (scale {r['grad_scale']:.3e})")
+        check(r["fwd_launches"] > 0 and min(r["step_launches"]) > 0,
+              f"set world rank {rank}: K4 launches {r['fwd_launches']}, "
+              f"{r['step_launches']}")
+        fwd += r["fwd_launches"] + r["step_launches"][0]
+        bwd += r["step_launches"][1]
+        log(f"[parallel] set-sharded 3ST, mesh (data 2, set 2), rank {rank} (shard "
+            f"{r['shard']}, a shard all masked: {r['masked_shard']}): logits max |err| "
+            f"{r['err_unsharded']:.3e} vs the unsharded K4 ST, {r['err_plain']:.3e} vs "
+            f"the sharded plain pair (max |logit| {r['logit_scale']:.3f}); DDP "
+            f"backward gradients {r['grad_err']:.3e} vs the unsharded K4 step, "
+            f"{r['grad_err_plain']:.3e} vs the sharded plain pair's, of max "
+            f"{r['grad_scale']:.3e}; "
+            f"collectives a forward {len(r['calls'])} (3 MAX + 6 SUM), a step "
+            f"{len(r['step_calls'])} through Python (DDP's own all-reduces not "
+            f"counted); K4 launches: forward {r['fwd_launches']}, step "
+            f"{r['step_launches']}; {r['s']:.1f} s")
+    check(any(recs["set", k]["masked_shard"] for k in range(PARALLEL_WORLDS[0][1])),
+          "no rank's set shard held a cloud with no valid point")
+    for world, size, backend in PARALLEL_WORLDS[1:]:
+        rs = [recs[world, k] for k in range(size)]
+        for k, r in enumerate(rs):
+            rel = abs(r["loss"] - r["loss_ref"]) / abs(r["loss_ref"])
+            check(rel <= 1e-5, f"{world} rank {k}: loss {r['loss']} vs {r['loss_ref']}")
+            check(max(r["grad_err"], r["grad_err_plain"]) <= PARALLEL_TOL * r["grad_scale"],
+                  f"{world} rank {k}: gradients {r['grad_err']:.3e} from the "
+                  f"single-process step's, {r['grad_err_plain']:.3e} from the plain "
+                  f"pair's, of {r['grad_scale']:.3e}")
+            check(min(r["launches"]) > 0, f"{world} rank {k}: K4 launches {r['launches']}")
+            check(r["backend"] == backend, f"{world}: backend {r['backend']}")
+            fwd += r["launches"][0]
+            bwd += r["launches"][1]
+            log(f"[parallel] FST DP step ({size} of {size} ranks on data over {r['backend']}, "
+                f"global batch {P13_FST_BATCH} x {P13_FST_POINTS}, Adam 1e-3, wd 1e-3, "
+                f"K4), rank {k}: loss {r['loss']:.7f} vs {r['loss_ref']:.7f} single-"
+                f"process (rel {rel:.2e}), gradients {r['grad_err']:.3e} vs the single-"
+                f"process K4 step, {r['grad_err_plain']:.3e} vs the plain pair's "
+                f"on the same shards, of max {r['grad_scale']:.3e}; K4 launches {r['launches']}; {r['s']:.1f} s")
+        check(len({r["param_sha"] for r in rs}) == 1,
+              f"{world}: the ranks' parameters differ after three steps")
+    ms_fwd = recs["set", 0]["fwd_ms"]
+    log(f"[time] set-sharded 3ST forward, {P13_CLOUDS} x {P13_POINTS} points over "
+        f"(data 2, set 2): "
+        f"{ms_fwd:.3f} ms; FST DP step over 2 ranks: {recs['dp', 0]['step_ms']:.3f} "
+        f"ms, over 1 rank (NCCL): {recs['nccl', 0]['step_ms']:.3f} ms (host clock, "
+        f"{P13_TIMED} calls; ranks sharing one card over gloo, beside phases 2-3 and "
+        f"each other; not a scaling number) ({name_limit})")
+    for world, *_ in PARALLEL_WORLDS:
+        log(f"[parallel] {world} world, rank 0, seconds by stage: "
+            + ", ".join(f"{k} {v}" for k, v in recs[world, 0]["stages"].items()))
+    log(f"[parallel] the worlds ran beside phases 2-3; the FST ranks' parameters "
+        f"bit-identical after three steps; K4 launches over the worlds' paths, all "
+        f"ranks: forward {fwd}, backward {bwd}")
+    return fwd, bwd
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -1910,6 +2300,8 @@ def main():
     # phase 12's training runs on the card and its CPU gradients
     tasks_job = start_tasks_on_card()
     grads_job = start_task_grads_cpu()
+    # the process phase 13's ranks are forked from when the build ends
+    parallel_ctx = start_parallel_worlds()
     try:
         lib_path = _build.build()
         _build.library()
@@ -1918,6 +2310,7 @@ def main():
             proc.kill()
         raise
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    parallel_job = release_parallel_worlds(parallel_ctx)   # beside phases 2-3
     sass_job = start_sass_dump(lib_path)
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -2135,6 +2528,9 @@ def main():
     # before anything is timed
     waited = wait_job(tasks_job[0], "the tasks' training runs", tasks_job[2])
     log(f"[tasks] phase 12's training runs ended {waited:.1f} s after phase 3")
+    waited = wait_parallel_worlds(parallel_job)
+    log(f"[parallel] phase 13's worlds ended {waited:.1f} s after phase 3 "
+        f"({time.perf_counter() - parallel_job[2]:.1f} s after the build released them)")
     phase("4. timings at the bench shape")
     gen = torch.Generator(dev).manual_seed(0)
     bw = 0.1 * torch.randn(BENCH_B, L, device=dev, generator=gen)
@@ -2434,6 +2830,11 @@ def main():
     # ---- 12. the Set Transformer's tasks ----------------------------------
     phase("12. the Set Transformer's tasks")
     tasks_phase(tasks_job, grads_job, name_limit)
+    # ---- 13. data parallelism and the set axis ------------------------------
+    phase("13. data parallelism and the set axis: ranks sharing the card")
+    fwd, bwd = parallel_phase(parallel_job, name_limit)
+    launches["fused_mha_fwd"] += fwd
+    launches["fused_mha_bwd"] += bwd
     log(f"[done] {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -17,7 +17,9 @@ Subpackages and modules:
               plain versions
   eval        the temporal serving pipeline
   train       the recipes, train and eval steps (with remat), the epoch
-              loop
+              loop, data-parallel training
+  parallel    the (data, set) mesh of torch.distributed ranks, batch
+              sharding, the set-sharded ST, multi-process helpers
   tasks       the Set Transformer's own tasks: ModelNet40, MoG clustering,
               max-of-set regression
   utils       metrics streams and result files, parameter counts, NaN

@@ -24,7 +24,7 @@ the default is its plain version, the masked einsum-softmax.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -56,11 +56,16 @@ class MAB(nn.Module):
         self.fc_o = nn.Linear(dim_V, dim_V)
 
     def forward(self, Q: torch.Tensor, K: torch.Tensor,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_mask: Optional[torch.Tensor] = None,
+                attend: Optional[Callable] = None) -> torch.Tensor:
         """``Q [B, N, dim_Q]``, ``K [B, M, dim_K]``, ``key_mask [B, M]`` bool
-        → ``[B, N, dim_V]``."""
+        → ``[B, N, dim_V]``.  ``attend(q, k, v, mask, num_heads, scale)``
+        replaces the attention (the set-sharded ST passes one whose keys
+        are sharded); by default it is K4 with ``fused_attn``, else its
+        plain version."""
         q, k, v = self.fc_q(Q), self.fc_k(K), self.fc_v(K)
-        attend = fused_mha if self.fused_attn else fused_mha_plain
+        if attend is None:
+            attend = fused_mha if self.fused_attn else fused_mha_plain
         o = q + attend(q, k, v, key_mask, self.num_heads,
                        1.0 / math.sqrt(self.dim_V))
         if self.ln:

@@ -11,7 +11,12 @@ MAB passes ``1/sqrt(dim_V)``, not per head).
 CPU tensors take the plain pair (:func:`fused_mha_plain` forward,
 :func:`fused_mha_bwd_plain` backward); CUDA tensors always take the
 kernels, and a shape or type the kernels do not take raises.  The launch
-geometry is planned here (:func:`fwd_plan`, :func:`bwd_plan`).
+geometry is planned here (:func:`fwd_plan`, :func:`bwd_plan`).  The
+kernels' own contract, ``(out, lse)`` from the forward and a backward that
+reads a given ``out`` and ``lse``, has its plain form too
+(:func:`fused_mha_fwd_plain`, ``fused_mha_bwd_plain(..., out=, lse=)``):
+the set-sharded ST (``parallel/set_sharded.py``) combines per-shard pairs
+and hands the combined pair to each shard's backward.
 """
 from __future__ import annotations
 
@@ -147,10 +152,24 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def _probs(q, k, mask, num_heads, scale):
     """Attention probabilities ``[B, h, N, M]``."""
+    return masked_softmax(_masked_logits(q, k, mask, num_heads, scale),
+                          None if mask is None else mask[:, None, None, :], dim=-1)
+
+
+def _masked_logits(q, k, mask, num_heads, scale):
+    """Scaled logits ``[B, h, N, M]``, -inf at masked keys."""
     logits = torch.einsum("bnhd,bmhd->bhnm", _heads(q, num_heads),
                           _heads(k, num_heads)) * scale
-    return masked_softmax(logits, None if mask is None
-                          else mask[:, None, None, :], dim=-1)
+    if mask is None:
+        return logits
+    return logits.masked_fill(~mask[:, None, None, :], float("-inf"))
+
+
+def _probs_from_lse(q, k, mask, num_heads, scale, lse):
+    """``exp(S - lse)`` ``[B, h, N, M]`` for a given row log-sum-exp
+    ``lse [B, h, N]`` (+inf: the row's probabilities are all 0); 0 at
+    masked keys."""
+    return torch.exp(_masked_logits(q, k, mask, num_heads, scale) - lse[..., None])
 
 
 def fused_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -165,16 +184,47 @@ def fused_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         _heads(v, num_heads)).reshape(B, N, dv)
 
 
-def fused_mha_bwd_plain(q, k, v, mask, g, num_heads: int, scale: float
+def fused_mha_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor], num_heads: int,
+                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`fused_mha_fwd`: ``(out [B, N, dv], lse [B,
+    h, N])``, ``lse`` the natural-log row log-sum-exp of the scaled logits
+    over the valid keys, +inf for a row with no valid key (whose ``out``
+    is 0)."""
+    _check(q, k, v, mask, num_heads)
+    B, N, dv = q.shape
+    lse = torch.logsumexp(_masked_logits(q, k, mask, num_heads, scale), dim=-1)
+    lse = lse.masked_fill(lse == float("-inf"), float("inf"))
+    a = _probs_from_lse(q, k, mask, num_heads, scale, lse)
+    out = torch.einsum("bhnm,bmhd->bnhd", a, _heads(v, num_heads))
+    return out.reshape(B, N, dv), lse
+
+
+def fused_mha_bwd_plain(q, k, v, mask, g, num_heads: int, scale: float,
+                        out: Optional[torch.Tensor] = None,
+                        lse: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward, the formula the kernels implement:
-    ``dlg = a ⊙ (g·vᵀ − rowsum(g·vᵀ ⊙ a)) · scale``, then per head
-    ``dq = dlg·k``, ``dk = dlgᵀ·q``, ``dv = aᵀ·g``."""
+    ``dlg = a ⊙ (g·vᵀ − D) · scale`` with ``D = rowsum(g·vᵀ ⊙ a)``, then
+    per head ``dq = dlg·k``, ``dk = dlgᵀ·q``, ``dv = aᵀ·g``.
+
+    With ``out`` and ``lse`` (given together), it reads them as the
+    kernels do: ``a = exp(S − lse)`` and ``D = rowsum(g ⊙ out)`` per head.
+    With the forward's own pair that is the same function; with the pair
+    of an attention over more keys than ``k`` holds (a shard of them), it
+    gives this shard's dk and dv and its share of dq."""
+    if (out is None) != (lse is None):
+        raise ValueError("out and lse are given together or not at all")
     shape_q, shape_k = q.shape, k.shape
-    a = _probs(q, k, mask, num_heads, scale)
     qh, kh, vh, gh = (_heads(x, num_heads) for x in (q, k, v, g))
     da = torch.einsum("bnhd,bmhd->bhnm", gh, vh)
-    dlg = a * (da - (da * a).sum(-1, keepdim=True)) * scale
+    if lse is None:
+        a = _probs(q, k, mask, num_heads, scale)
+        D = (da * a).sum(-1, keepdim=True)
+    else:
+        a = _probs_from_lse(q, k, mask, num_heads, scale, lse)
+        D = torch.einsum("bnhd,bnhd->bhn", gh, _heads(out, num_heads))[..., None]
+    dlg = a * (da - D) * scale
     dq = torch.einsum("bhnm,bmhd->bnhd", dlg, kh).reshape(shape_q)
     dk = torch.einsum("bhnm,bnhd->bmhd", dlg, qh).reshape(shape_k)
     dv = torch.einsum("bhnm,bnhd->bmhd", a, gh).reshape(shape_k)

@@ -11,10 +11,12 @@ from pcaudio_torch.train.recipes import (
     prepare_temporal_data,
     st3_config,
 )
-from pcaudio_torch.train.step import TrainState, make_eval_step, make_train_step
+from pcaudio_torch.train.step import (
+    TrainState, data_parallel, make_eval_step, make_train_step)
 
 __all__ = [
-    "TrainState", "make_train_step", "make_eval_step", "pointcloud_apply",
+    "TrainState", "make_train_step", "make_eval_step", "data_parallel",
+    "pointcloud_apply",
     "dropout_apply", "fit", "RECIPES", "fst_config", "fb_config", "st3_config",
     "cnn_temp_config", "build_trainer", "prepare_framewise_data",
     "prepare_temporal_data", "prepare_data",

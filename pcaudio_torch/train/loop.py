@@ -4,7 +4,9 @@
 The batch order is ``np.random.default_rng(seed).permutation`` per epoch,
 exactly the JAX loop's ``_batches``.  When the data fits in device memory
 the loop keeps it there and gathers each batch on the device; per-step
-metrics stay device tensors, read once per epoch.
+metrics stay device tensors, read once per epoch.  Over a mesh of ranks
+every rank draws the same permutation and takes its shard of each global
+batch.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pcaudio_torch.train.step import TrainState
+from pcaudio_torch.train.step import TrainState, wrapped_set_axis
 
 
 def _batches(n: int, batch_size: int,
@@ -34,6 +37,17 @@ def _fits_on_device(arrays, device: torch.device) -> bool:
     return sum(a.nbytes for a in arrays) <= free // 2
 
 
+def _silent(msg: str) -> None:
+    pass
+
+
+def _data_sum(mesh, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the mesh's ``data`` ranks (a copy)."""
+    t = t.clone()
+    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    return t
+
+
 def _tensors(data: Dict[str, Any], device: torch.device,
              resident: bool) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) if resident else torch.as_tensor(v)
@@ -47,6 +61,7 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: Optional[int] = None, config=None,
         resume: bool = False, max_steps: Optional[int] = None,
+        mesh=None, shard_set_axis: Optional[bool] = None,
         log: Callable[[str], None] = print):
     """Run the training loop; returns ``(state, history)``.
 
@@ -62,15 +77,39 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
     an uninterrupted run would draw, and the dropout masks too where
     ``state.generator`` is set.  ``max_steps`` ends the run after that
     many optimizer steps in all.
+
+    With a ``mesh`` (``parallel.make_mesh``) every rank runs this loop:
+    ``batch_size`` is the global batch, each rank draws the same
+    permutation from ``seed`` and takes its shard of each batch with
+    ``parallel.shard_batch(mesh, batch, shard_set_axis)`` (the data stay on
+    the host, as in the JAX loop with a mesh).  ``train_step`` must be
+    built on ``data_parallel(state.model, mesh, shard_set_axis)``, which
+    decides whether the point axis is sharded: ``shard_set_axis`` defaults
+    to that call's, and one that differs from it, or a model that
+    ``data_parallel`` did not wrap over this mesh, raises.  The epoch's
+    losses and accuracies are averaged over the ``data`` ranks and the eval
+    counts summed over them, so every rank returns the same history; rank
+    0 alone logs and writes checkpoints, and every rank loads them on
+    ``resume``.
     """
     from pcaudio_torch.checkpoint import (
         latest_step, load_checkpoint, save_checkpoint)
 
+    if mesh is not None:
+        set_axis = wrapped_set_axis(state.model, mesh)
+        if shard_set_axis is not None and shard_set_axis != set_axis:
+            raise ValueError(f"fit(shard_set_axis={shard_set_axis}), but the train "
+                             f"step's module was made by data_parallel(..., "
+                             f"shard_set_axis={set_axis})")
+        shard_set_axis = set_axis
     device = next(state.model.parameters()).device
     n = len(data["labels"])
     if n < batch_size:
         raise ValueError(f"{n} examples make no batch of {batch_size}")
-    device_resident = _fits_on_device(
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        log = _silent
+    device_resident = mesh is None and _fits_on_device(
         list(data.values()) + list((eval_data or {}).values()), device)
     data = _tensors(data, device, device_resident)
     if eval_data is not None:
@@ -90,6 +129,12 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
         log(f"resumed from epoch {start} ({state.step} steps)")
 
     def batch_of(arrays, idx):
+        if mesh is not None:
+            from pcaudio_torch.parallel.mesh import shard_batch
+
+            idx = torch.from_numpy(idx)
+            return shard_batch(mesh, {k: v[idx] for k, v in arrays.items()},
+                               shard_set_axis)
         if device_resident:
             idx = torch.from_numpy(idx).to(device, non_blocking=True)
             return {k: v[idx] for k, v in arrays.items()}
@@ -109,11 +154,14 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
             if max_steps is not None and state.step >= max_steps:
                 break
         # one device sync per epoch: the per-step metrics were device tensors
-        step_losses = torch.stack(losses).cpu()
+        metrics = torch.stack([torch.stack(losses), torch.stack(accs)])
+        if mesh is not None:
+            metrics = _data_sum(mesh, metrics) / mesh.n_data
+        step_losses, step_accs = metrics.cpu()
         rec = {
             "epoch": epoch,
             "train_loss": float(step_losses.mean()),
-            "train_accuracy": float(torch.stack(accs).mean()),
+            "train_accuracy": float(step_accs.mean()),
             "step_losses": step_losses.tolist(),
             "seconds": time.perf_counter() - t0,
         }
@@ -126,6 +174,10 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
                 c, t = eval_step(batch_of(eval_data, np.arange(i, i + batch_size)))
                 correct += c
                 total += t
+            if mesh is not None:
+                correct, total = _data_sum(
+                    mesh, torch.stack([correct, torch.tensor(total, device=device)])
+                ).tolist()
             rec["test_accuracy"] = int(correct) / max(total, 1)
         history.append(rec)
         msg = (f"Epoch {epoch}: train loss {rec['train_loss']:.3f} "
@@ -135,7 +187,10 @@ def fit(state: TrainState, train_step: Callable, data: Dict[str, Any], *,
         log(msg)
         if (checkpoint_dir and checkpoint_every
                 and (epoch + 1) % checkpoint_every == 0):
-            save_checkpoint(checkpoint_dir, state, config, step=epoch + 1)
+            if lead:
+                save_checkpoint(checkpoint_dir, state, config, step=epoch + 1)
+            if mesh is not None:   # no rank reads a checkpoint being written
+                dist.barrier(group=mesh.group)
         if max_steps is not None and state.step >= max_steps:
             break
     return state, history

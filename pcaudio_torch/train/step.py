@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -152,6 +153,59 @@ def make_train_step(apply_fn: Callable[[Batch], torch.Tensor],
         return {"loss": loss.detach(), "accuracy": acc}
 
     return step
+
+
+# model -> (the mesh's layout, shard_set_axis) of its last data_parallel
+# wrap: fit reads how its batches are sharded from here
+_WRAPPED: "weakref.WeakKeyDictionary[torch.nn.Module, tuple]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _layout(mesh) -> tuple:
+    return mesh.ranks, mesh.n_data, mesh.n_set
+
+
+def wrapped_set_axis(model: torch.nn.Module, mesh) -> bool:
+    """The ``shard_set_axis`` that :func:`data_parallel` last wrapped
+    ``model`` with over ``mesh``'s layout; raises where it did not wrap it
+    over that layout (a step not built on it would not average the
+    gradients, or would shard the batch another way)."""
+    layout, set_axis = _WRAPPED.get(model, (None, None))
+    if layout != _layout(mesh):
+        raise ValueError("over a mesh, the train step must be built on "
+                         "data_parallel(state.model, mesh, ...) with this "
+                         "mesh's layout")
+    return set_axis
+
+
+def data_parallel(model: torch.nn.Module, mesh, shard_set_axis: bool = False
+                  ) -> torch.nn.Module:
+    """``model`` wrapped for data-parallel training over ``mesh`` (the
+    counterpart of ``jit_train_step(step, mesh)``): a
+    ``DistributedDataParallel`` over the mesh's whole group, which
+    broadcasts the parameters from rank 0 when it is made and averages the
+    parameter gradients over every rank in the backward.  Each rank's loss
+    is the mean over its own shard; the average of the ranks' gradients is
+    the gradient of the global batch's mean loss.
+
+    With ``shard_set_axis`` (an ``ST``), the forward is
+    ``parallel.set_sharded_st_forward`` over the mesh's ``set`` axis, and
+    the average over every rank is still the true gradient (see
+    ``parallel/set_sharded.py``).  Build the step's adapter from the
+    returned module (``pointcloud_apply(data_parallel(...))``); the
+    optimizer and checkpoints keep ``model``, whose parameters it shares.
+    ``fit(..., mesh=)`` reads ``shard_set_axis`` from this call
+    (:func:`wrapped_set_axis`)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    from pcaudio_torch.parallel.set_sharded import SetShardedST
+
+    module = SetShardedST(model, mesh) if shard_set_axis else model
+    _WRAPPED[model] = (_layout(mesh), shard_set_axis)
+    device_ids = [mesh.device.index or 0] if mesh.device.type == "cuda" else None
+    return DistributedDataParallel(module, device_ids=device_ids,
+                                   process_group=mesh.group,
+                                   broadcast_buffers=False)
 
 
 def make_eval_step(apply_fn: Callable[[Batch], torch.Tensor]

@@ -1,9 +1,12 @@
 """Numerical-debugging utilities (counterpart of
 ``pcaudio/utils/debugging.py``): NaNs in the backward, non-finite values in
-a tree of tensors, and functions whose result changes between calls."""
+a tree of tensors, and functions whose result changes between calls; and
+the ``torch.distributed`` collectives a block of code issues (the JAX tests
+read them from the compiled program's text)."""
 from __future__ import annotations
 
-from typing import Any, Iterator, Tuple
+import contextlib
+from typing import Any, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,3 +67,42 @@ def check_jit_purity(fn, *args, atol: float = 0.0) -> bool:
         if x.shape != y.shape or not np.allclose(x, y, atol=atol, rtol=0):
             return False
     return True
+
+
+COLLECTIVES = ("all_reduce", "broadcast", "reduce", "all_gather",
+               "all_gather_into_tensor", "gather", "scatter", "reduce_scatter",
+               "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+               "send", "recv", "isend", "irecv", "barrier")
+
+
+@contextlib.contextmanager
+def collective_calls(groups: Optional[Mapping[str, Any]] = None
+                     ) -> Iterator[List[str]]:
+    """Yields the list of the ``torch.distributed`` collectives called
+    (through the module's functions) inside the block, in order, each as
+    ``"<name>[:<op>]@<group>"``: the group's key in ``groups`` (matched by
+    identity), ``world`` for the default group, else ``other``.  Calls made
+    inside torch's C++ (DDP's gradient all-reduces) are not seen."""
+    import torch.distributed as dist
+
+    groups = groups or {}
+    calls: List[str] = []
+    saved = {name: getattr(dist, name) for name in COLLECTIVES}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            op, group = kwargs.get("op"), kwargs.get("group")
+            where = next((k for k, g in groups.items() if g is group),
+                         "world" if group is None else "other")
+            tag = name if op is None else f"{name}:{str(op).split('.')[-1]}"
+            calls.append(f"{tag}@{where}")
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)

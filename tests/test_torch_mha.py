@@ -14,7 +14,7 @@ from pcaudio.nn.attention import masked_softmax as jax_masked_softmax
 from pcaudio.ops.kernels.mha import fused_mha as jax_fused_mha
 from pcaudio_torch.ops.kernels.mha import (
     fused_mha, fused_mha_bwd, fused_mha_bwd_plain, fused_mha_fwd,
-    fused_mha_plain)
+    fused_mha_fwd_plain, fused_mha_plain)
 
 B, H, DV = 5, 4, 16
 SCALE = 1.0 / np.sqrt(DV)
@@ -135,3 +135,80 @@ def test_cpu_tensors_never_launch_and_bad_shapes_raise():
         fused_mha(*leaves, torch.ones(B, 3, dtype=torch.bool), H, SCALE)
     with pytest.raises(ValueError, match="CUDA"):   # the kernels' own check
         fused_mha_fwd(*leaves, None, H, SCALE)
+
+
+def _f64(q, k, v, mask, cot):
+    t = [torch.from_numpy(x).double() for x in (q, k, v, cot)]
+    return (*t[:3], None if mask is None else torch.from_numpy(mask), t[3])
+
+
+@pytest.mark.parametrize("N,M,pattern,tile", CASES, ids=IDS)
+def test_fwd_plain_gives_out_and_lse(N, M, pattern, tile):
+    """fused_mha_fwd_plain: the plain forward's output, and lse the row
+    log-sum-exp of the scaled logits over the valid keys, +inf (and a zero
+    output) for a row with none, as K4's forward writes it."""
+    q, k, v, mask, g = _f64(*_inputs(N, M, pattern, seed=4))
+    out, lse = fused_mha_fwd_plain(q, k, v, mask, H, SCALE)
+    torch.testing.assert_close(out, fused_mha_plain(q, k, v, mask, H, SCALE),
+                               atol=1e-12, rtol=1e-10)
+    dh = DV // H
+    logits = torch.einsum("bnhd,bmhd->bhnm", q.reshape(B, N, H, dh),
+                          k.reshape(B, M, H, dh)) * SCALE
+    keep = torch.ones(B, M, dtype=torch.bool) if mask is None else mask
+    for b in range(B):
+        if keep[b].any():
+            ref = torch.logsumexp(logits[b][..., keep[b]], dim=-1)
+            torch.testing.assert_close(lse[b], ref, atol=1e-12, rtol=1e-12)
+        else:
+            assert torch.isposinf(lse[b]).all() and not out[b].any()
+
+
+@pytest.mark.parametrize("N,M,pattern,tile", CASES, ids=IDS)
+def test_bwd_plain_with_the_forwards_own_out_and_lse(N, M, pattern, tile):
+    """fused_mha_bwd_plain(out=, lse=) given the forward's own pair is the
+    plain backward (which recomputes them)."""
+    q, k, v, mask, g = _f64(*_inputs(N, M, pattern, seed=5))
+    out, lse = fused_mha_fwd_plain(q, k, v, mask, H, SCALE)
+    got = fused_mha_bwd_plain(q, k, v, mask, g, H, SCALE, out=out, lse=lse)
+    for a, r, name in zip(got, fused_mha_bwd_plain(q, k, v, mask, g, H, SCALE), "qkv"):
+        torch.testing.assert_close(a, r, atol=1e-12, rtol=1e-10, msg=f"d{name}")
+    with pytest.raises(ValueError, match="together"):
+        fused_mha_bwd_plain(q, k, v, mask, g, H, SCALE, out=out)
+
+
+@pytest.mark.parametrize("pattern", ["full", "ragged", "second_half_masked"])
+def test_shard_combine_of_two_halves_is_the_whole_attention(pattern):
+    """The set-sharded ST's contract on two halves of the keys: each half's
+    (out, lse) combined by log-sum-exp weights is the attention over all
+    keys, and each half's backward on the combined pair gives that half's
+    dk and dv and a share of dq that sums to the whole dq, also where a
+    half holds no valid key (and where a sample holds none at all)."""
+    N, M = 9, 24
+    q, k, v, mask, g = _f64(*_inputs(N, M, "ragged" if pattern != "full" else "full",
+                                     seed=6))
+    if pattern == "second_half_masked":
+        mask = mask.clone()
+        mask[:, M // 2:] = False
+    out_all = fused_mha_plain(q, k, v, mask, H, SCALE)
+    grads_all = fused_mha_bwd_plain(q, k, v, mask, g, H, SCALE)
+    halves = [slice(0, M // 2), slice(M // 2, M)]
+    parts = [fused_mha_fwd_plain(q, k[:, s], v[:, s], None if mask is None else mask[:, s],
+                                 H, SCALE) for s in halves]
+    # +inf (no valid key in the half) counts as log 0
+    lses = [p[1].where(~torch.isposinf(p[1]), -torch.inf) for p in parts]
+    lse = torch.logaddexp(*lses)
+    w = [torch.exp(lr - lse).nan_to_num(0.0) for lr in lses]
+    dh = DV // H
+    out = sum(p[0].reshape(B, N, H, dh) * wr.transpose(1, 2)[..., None]
+              for p, wr in zip(parts, w)).reshape(B, N, DV)
+    lse = lse.where(torch.isfinite(lse), torch.inf)
+    torch.testing.assert_close(out, out_all, atol=1e-12, rtol=1e-10)
+    grads = [fused_mha_bwd_plain(q, k[:, s], v[:, s], None if mask is None else mask[:, s],
+                                 g, H, SCALE, out=out, lse=lse) for s in halves]
+    torch.testing.assert_close(grads[0][0] + grads[1][0], grads_all[0], atol=1e-12,
+                               rtol=1e-10, msg="dq")
+    for i, name in ((1, "dk"), (2, "dv")):
+        torch.testing.assert_close(torch.cat([grads[0][i], grads[1][i]], 1),
+                                   grads_all[i], atol=1e-12, rtol=1e-10, msg=name)
+    if pattern == "second_half_masked":
+        assert not any(x.any() for x in grads[1][1:])

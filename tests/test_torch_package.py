@@ -52,6 +52,8 @@ def test_port_never_imports_jax():
                 "pcaudio_torch.data.modelnet40", "pcaudio_torch.utils.metrics",
                 "pcaudio_torch.utils.params", "pcaudio_torch.utils.debugging",
                 "pcaudio_torch.utils.profiling"} <= set(mods), mods
+        assert {"pcaudio_torch.parallel.mesh", "pcaudio_torch.parallel.multihost",
+                "pcaudio_torch.parallel.set_sharded"} <= set(mods), mods
         for name in mods:
             importlib.import_module(name)
         from pcaudio_torch.eval import TemporalPipelineConfig

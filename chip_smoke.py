@@ -10,7 +10,8 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    each source's compile time is logged), while processes of their own
    write phase 6's corpus and phase 9's WAV files, run phase 12's training
    runs on the card (no kernel is on their path; phase 4 waits for them)
-   and compute phase 12's CPU gradients;
+   and compute phase 12's CPU gradients, and a thread makes phase 4's
+   synthetic clips;
 2. holds each kernel against its plain PyTorch version on the card at the
    serving path's shapes (featurize B=64 x 5 s clips; select on that grid, on
    a tie-heavy grid, at K 512 and 5120, on a grid with -0.0 entries, at K 1
@@ -19,7 +20,9 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    points, no, ragged and all-masked masks, also against the f32 ST, and
    with the trained FST checkpoint on 1025-point ragged-masked 2-D clouds;
    K1's scratch form at K 1281, 2048 and 5120, with and without a ragged
-   mask);
+   mask; K2a, the approximate select, on the bf16 and f32 grids, their
+   log-magnitudes as bf16 keys, the tie-heavy and -0.0 grids and ragged
+   rows, at the plans of recall 0.8, 0.9, 0.95 and 0.99);
 3. serves three requests (64, 17 and 100 ragged clips) through
    AudioClassifier with a full-width 3ST made from a seed and the bench's
    pipeline config, checks that each kernel was launched, that the logits
@@ -29,7 +32,9 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    None, 5,120-point clouds, K1's scratch form) on both featurize paths,
    each path's kernel counts read from 0, held against the fused path
    tie-aware, and in the f32 "highest" form (chunks with the same winning
-   set on both paths: chunk logits within 1e-4);
+   set on both paths: chunk logits within 1e-4); then one request in
+   approx mode (``extraction="approx"``) on each featurize path, K2a
+   selecting and no K2, labels against the plain path's tie-aware;
 4. times each kernel and its plain version, and the end-to-end path, at the
    bench shape (B=1024 clips of 5 s, 44,032 chunk clouds); times K3 a second
    way, on ragged traffic (synthetic clips of random lengths with trimmed
@@ -42,7 +47,11 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    clouds of 5,120 points) beside its plain version, the serving path's
    device time by kernel and the device's idle share
    (``torch.profiler``), and the e2e time of the xla featurize path beside
-   the fused one and of full-grid serving;
+   the fused one and of full-grid serving; K2a beside K2 at the bench
+   shape (recall 0.8, 0.9, 0.95), its recall of K2's exact set on the bench
+   traffic and on ``data/synthetic.py``'s clips, and the e2e time in approx
+   mode on both featurize paths beside the exact one (no K2 launch, no sort
+   or top-K on a CUDA tensor);
 5. holds K4 (the trainable attention, forward and backward) against its
    plain pair at the FST recipe's attends (B=128: 64 x 1025, 1025 x 64,
    1 x 1025 queries x keys), the 3ST recipe's (B=16, 5120 points, the
@@ -183,6 +192,7 @@ Any failure raises, so the exit code is non-zero.  The second-to-last line
 of output is the kernels' JSON record, the last one the device record.
 """
 import atexit
+import concurrent.futures
 import dataclasses
 import hashlib
 import json
@@ -202,6 +212,7 @@ import torch.nn.functional as F
 from pcaudio_torch import cli, native
 from pcaudio_torch.checkpoint import export_reference_pth, load_reference_pth
 from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves, pad_batch
+from pcaudio_torch.data.synthetic import synth_clip
 from pcaudio_torch.core.config import ExperimentConfig
 from pcaudio_torch.eval import (
     TemporalPipelineConfig, extract_chunk_clouds, framewise_expt1,
@@ -223,12 +234,14 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.ops.kernels.approx_select import (
+    approx_topk_chunks, approx_topk_chunks_plain, approx_topk_plan)
 from pcaudio_torch.probes import PROBES, ingest, probe_stages
 from pcaudio_torch.probes.clips import FS, L, negzero_grid, ragged_waves, synthetic_waves
 from pcaudio_torch.probes.k4_stages import bwd_parts, bwd_work
 from pcaudio_torch.probes.st_launch import K1_TOL, st_exps, st_flops
 from pcaudio_torch.probes.timing import (
-    bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
+    SortCalls, bound_ms, card, cuda_ms, describe, paired_ms, profile_device)
 from pcaudio_torch.serve import AudioClassifier
 from pcaudio_torch.train import (
     RECIPES, build_trainer, make_train_step, prepare_data,
@@ -247,6 +260,9 @@ KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
                          "pcaudio/ops/kernels/featurize.py:285"),
     "exact_topk_chunks": (exact_topk_chunks, "pcaudio_torch/csrc/select.cu",
                           "pcaudio/ops/kernels/select.py:435"),
+    # K2a replaces no Pallas kernel: XLA's ApproxTopK behind lax.approx_max_k
+    "approx_topk_chunks": (approx_topk_chunks, "pcaudio_torch/csrc/approx_select.cu",
+                           "pcaudio/eval/pipeline.py:134, :217 (lax.approx_max_k)"),
     "fused_st_forward": (fused_st_forward, "pcaudio_torch/csrc/fused_st.cu",
                          "pcaudio/ops/kernels/fused_st.py:554"),
     # K1's scratch form: clouds past the shared-memory form's 1,280 points
@@ -259,6 +275,11 @@ KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
                       "pcaudio/ops/kernels/mha.py:377"),
 }
 SERVE_KERNELS = ("fused_chunk_mag2", "exact_topk_chunks", "fused_st_forward")
+# approx serving (extraction="approx") on each featurize path: K2a, no K2
+APPROX_KERNELS = {"fused": ("fused_chunk_mag2", "approx_topk_chunks", "fused_st_forward"),
+                  "xla": ("approx_topk_chunks", "fused_st_forward")}
+APPROX_RECALLS = (0.8, 0.9, 0.95)   # three plans at 10 x 512 keys, K 128
+SYNTH_CLASSES, SYNTH_PER_CLASS = 10, 4   # phase 4's recall on data/synthetic.py
 # full-grid serving (top_k=None) on each featurize path: K3 on the fused
 # path only, no K2, K1 in its scratch form
 FULL_GRID_KERNELS = {"fused": ("fused_chunk_mag2", "fused_st_scratch"),
@@ -879,6 +900,177 @@ def k1_scratch_time(model, waves, lengths, times, bounds, lib_ms, name_limit):
         f"{bounds['fused_st_scratch'][1]} ({name_limit})")
     del pts
     torch.cuda.empty_cache()
+
+
+def k2a_check(keys, k, recall, label):
+    """K2a against its plain version on ``keys``: the same indices and the
+    same values bit for bit (a selected -0.0 keeps its sign)."""
+    v, i = approx_topk_chunks(keys, k, recall)
+    rv, ri = approx_topk_chunks_plain(keys, k, recall)
+    torch.cuda.synchronize()
+    check(torch.equal(i, ri), f"K2a {label} recall {recall}: selected indices differ")
+    check(torch.equal(v.view(torch.int32), rv.view(torch.int32)),
+          f"K2a {label} recall {recall}: values differ")
+    # |v - rv| where they differ (-inf keys: -inf - -inf is no number)
+    return v, torch.where(v == rv, 0.0, (v - rv).abs()).max().item()
+
+
+def k2a_phase2(grids, tie_grid, negzero):
+    """Phase 2's K2a: the serving grids (bf16 and f32 |X|² of the 64
+    clips, the fused path's keys), their log-magnitudes as bf16 keys (the
+    "xla" path's: negative, and -inf in silent chunks), the tie-heavy and
+    -0.0 grids, and signed ties in ragged rows of 5,130 keys (the last slab
+    padded, one key a load), at the plans of recall 0.8, 0.9, 0.95 and 0.99
+    (r 3, 2, 1, 0), K 128; and K 1 and 256.  Returns the largest
+    difference in values (0: exactly the plain version)."""
+    t0 = time.perf_counter()
+    err = 0.0
+    rows = {"bf16 grid": grids[torch.bfloat16].reshape(-1, FULL_POINTS),
+            "f32 grid": grids[torch.float32].reshape(-1, FULL_POINTS),
+            "log-magnitude bf16 keys": torch.log(
+                grids[torch.float32].reshape(-1, FULL_POINTS)).bfloat16(),
+            "tie-heavy bf16": tie_grid.reshape(-1, FULL_POINTS).bfloat16(),
+            "-0.0 grid": negzero.reshape(-1, FULL_POINTS),
+            "-0.0 grid bf16": negzero.reshape(-1, FULL_POINTS).bfloat16(),
+            "signed ties, rows of 5130": (torch.floor(torch.randn(
+                300, 5130, device=negzero.device,
+                generator=torch.Generator(negzero.device).manual_seed(2)) * 4) / 4)}
+    for label, keys in rows.items():
+        for recall in (0.8, 0.9, 0.95, 0.99):
+            v, e = k2a_check(keys, TOP_K, recall, label)
+            err = max(err, e)
+        negs = int(torch.signbit(v).sum())
+        log(f"[K2a] {label} {tuple(keys.shape)} K={TOP_K}, recall 0.8 / 0.9 / 0.95 / "
+            f"0.99 (plans {[approx_topk_plan(keys.shape[1], TOP_K, r) for r in (0.8, 0.9, 0.95, 0.99)]}): "
+            f"identical sets and values ({negs} selected values with the sign bit at 0.99)")
+    for k in (1, 256):
+        for label in ("bf16 grid", "tie-heavy bf16"):
+            err = max(err, k2a_check(rows[label], k, 0.9, f"{label} K={k}")[1])
+    log(f"[K2a] K 1 and 256 on the bf16 and tie-heavy grids: identical "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return err
+
+
+def approx_serve_phase(model, request, launches, name_limit):
+    """Phase 3's approx mode: one request (64 clips) through
+    AudioClassifier with ``extraction="approx"`` on each featurize path,
+    the counts set to 0 just before and read just after (K2a selects, K2
+    never launches, no sort or top-K runs on a CUDA tensor), the labels
+    held against the plain path's tie-aware."""
+    t0 = time.perf_counter()
+    launches["approx_topk_chunks"] = 0
+    for fz in ("fused", "xla"):
+        cfg = dataclasses.replace(CFG, featurize=fz, extraction="approx")
+        clf, plain_clf = (AudioClassifier(model=model, pipeline=cfg, batch_size=64,
+                                          buffer_len=L, device="cuda", plain=pl)
+                          for pl in (False, True))
+        zero_counts()
+        with SortCalls() as sorts:
+            lg = clf.logits(request)
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+        log(f"[serve] approx, {fz} featurize, {len(request)} clips: launches "
+            f"{counts}, sorts / top-Ks on CUDA tensors {sorts.calls}")
+        for k, n in counts.items():
+            check((n > 0) == (k in APPROX_KERNELS[fz]),
+                  f"approx serving, {fz} featurize: {k} launched {n} times")
+        check(not sorts.calls, f"approx serving, {fz}: sorts on the card {sorts.calls}")
+        launches["approx_topk_chunks"] += counts["approx_topk_chunks"]
+        check(lg.shape == (len(request), 10) and bool(np.isfinite(lg).all()),
+              "approx logits")
+        agree, decided, ldev = tie_aware_argmax(torch.from_numpy(lg),
+                                                torch.from_numpy(plain_clf.logits(request)))
+        log(f"[serve] approx, {fz} featurize: labels {lg.argmax(-1).tolist()}; "
+            f"argmax agrees with the plain path on {agree}/{len(request)} "
+            f"({decided} decided rows all agree), max logit dev {ldev:.3e}")
+    log(f"[serve] approx requests: {time.perf_counter() - t0:.1f} s ({name_limit})")
+
+
+def set_recall(approx_idx, exact_idx, n, valid):
+    """Per row, the share of the exact top K (``exact_idx``) that the
+    approximate selection kept; the mean and the least over valid rows."""
+    hit = torch.zeros(exact_idx.shape[0], n, dtype=torch.bool, device=exact_idx.device)
+    hit.scatter_(1, exact_idx.long(), True)
+    r = hit.gather(1, approx_idx.long()).float().mean(1)[valid]
+    return r.mean().item(), r.min().item()
+
+
+def synth_clips():
+    """data/synthetic.py's clips for phase 4's recall, SYNTH_PER_CLASS of
+    each of SYNTH_CLASSES classes (5 s each; about 2 s of host time, so
+    they are made beside the build)."""
+    return np.stack([synth_clip(c, i) for c in range(SYNTH_CLASSES)
+                     for i in range(SYNTH_PER_CLASS)])
+
+
+def k2a_time(grid, gmask, clips, times, bounds, lib_ms, name_limit):
+    """Phase 4's K2a on the bench grid (44,032 bf16 rows of 10 x 512
+    |X|²): kernel against plain (recall 0.9), its bound, the time at each
+    of APPROX_RECALLS' plans beside K2's, and its recall of K2's exact set
+    there and on ``clips`` (``synth_clips``)."""
+    dev = grid.device
+    keys = grid.reshape(grid.shape[0], -1)
+    times["approx_topk_chunks"] = paired_ms(
+        lambda: approx_topk_chunks(keys, TOP_K, 0.9),
+        lambda: approx_topk_chunks_plain(keys, TOP_K, 0.9), 10, 3)
+    bounds["approx_topk_chunks"] = bound_ms(
+        {}, nbytes(keys, *approx_topk_chunks(keys, TOP_K, 0.9)))
+    # no one PyTorch call computes the windowed function; torch.topk (exact)
+    # is K2's yardstick, printed beside it
+    lib_ms["approx_topk_chunks"] = None
+    sw = torch.from_numpy(np.pad(clips, ((0, 0), (0, L - clips.shape[1])))).to(dev)
+    sl = torch.full((len(clips),), clips.shape[1], dtype=torch.int32, device=dev)
+    sg, sm = fused_chunk_mag2(sw, sl, out_dtype=torch.bfloat16)
+    traffic = {"bench noise": (keys, gmask.reshape(-1)),
+               "data/synthetic.py clips": (sg.reshape(-1, FULL_POINTS), sm.reshape(-1))}
+    exact = {t: exact_topk_chunks(k.reshape(-1, 10, 512), TOP_K)[1]
+             for t, (k, _) in traffic.items()}
+    for recall in APPROX_RECALLS:
+        ms = cuda_ms(lambda: approx_topk_chunks(keys, TOP_K, recall), 10)
+        rec = {t: set_recall(approx_topk_chunks(k, TOP_K, recall)[1], exact[t],
+                             FULL_POINTS, v) for t, (k, v) in traffic.items()}
+        log(f"[time] K2a recall {recall} (plan {approx_topk_plan(FULL_POINTS, TOP_K, recall)}), "
+            f"{keys.shape[0]} rows of {FULL_POINTS} bf16, K {TOP_K}: {ms:.4f} ms beside "
+            f"K2's {times['exact_topk_chunks'][0]:.4f} ms (torch.topk, exact: "
+            f"{lib_ms['exact_topk_chunks']:.4f} ms); recall of K2's set: "
+            + "; ".join(f"{t} mean {m:.4f}, least {lo:.4f} ({int(traffic[t][1].sum())} "
+                        f"valid chunks)" for t, (m, lo) in rec.items())
+            + f" ({name_limit})")
+    ms, plain_ms = times["approx_topk_chunks"]
+    log(f"[time] K2a recall 0.9: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bounds['approx_topk_chunks'][0]:.4f} ms by {bounds['approx_topk_chunks'][1]} "
+        f"({name_limit})")
+
+
+def approx_e2e_time(model, bw, bl, e2e, name_limit):
+    """Phase 4's approx mode at the bench shape on each featurize path: a
+    first call with the counts set to 0 just before and read just after
+    (K2a, no K2, no sort or top-K on a CUDA tensor), then its time, the
+    fused one in turns with the exact fused path."""
+    for fz in ("fused", "xla"):
+        fn = make_temporal_classifier(model, dataclasses.replace(
+            CFG, featurize=fz, extraction="approx"), use_fused_st=True)
+        zero_counts()
+        with SortCalls() as sorts:
+            out = fn(bw, bl)
+            torch.cuda.synchronize()
+        counts = kernel_counts()
+        for k, n in counts.items():
+            check((n > 0) == (k in APPROX_KERNELS[fz]),
+                  f"approx e2e, {fz} featurize: {k} launched {n} times")
+        check(not sorts.calls and bool(torch.isfinite(out).all()),
+              f"approx e2e, {fz}: sorts on the card {sorts.calls} or logits not finite")
+        if fz == "fused":
+            a_ms, e_ms = paired_ms(lambda: fn(bw, bl), lambda: e2e(bw, bl), 5, 5)
+            log(f"[time] e2e B={BENCH_B}, top_k {TOP_K}, fused featurize: approx "
+                f"(recall 0.9) {a_ms:.3f} ms = {BENCH_B / a_ms * 1e3:.1f} clips/s, exact "
+                f"{e_ms:.3f} ms = {BENCH_B / e_ms * 1e3:.1f} clips/s; launches of the "
+                f"first approx call {counts} ({name_limit})")
+        else:
+            a_ms = cuda_ms(lambda: fn(bw, bl), 2)
+            log(f"[time] e2e B={BENCH_B}, top_k {TOP_K}, xla featurize: approx "
+                f"(recall 0.9) {a_ms:.3f} ms = {BENCH_B / a_ms * 1e3:.1f} clips/s; "
+                f"launches {counts} ({name_limit})")
 
 
 def kernel_counts():
@@ -2302,6 +2494,9 @@ def main():
     grads_job = start_task_grads_cpu()
     # the process phase 13's ranks are forked from when the build ends
     parallel_ctx = start_parallel_worlds()
+    # phase 4's synthetic clips, in a thread
+    synth_pool = concurrent.futures.ThreadPoolExecutor(1)
+    synth_job = synth_pool.submit(synth_clips)
     try:
         lib_path = _build.build()
         _build.library()
@@ -2383,6 +2578,7 @@ def main():
             + (f" ({int(torch.signbit(v).sum())} -0.0 values selected)"
                if label.startswith("-0.0") else ""))
     errs["exact_topk_chunks"] = sel_err
+    errs["approx_topk_chunks"] = k2a_phase2(grids, tie_grid, negzero)
 
     model = seeded_st(3, seed=0)
     cloud, _ = extract_chunk_clouds(waves, lengths, CFG)
@@ -2522,6 +2718,7 @@ def main():
             f"max logit dev {ldev:.3e}")
 
     serve_paths_phase(model, requests, served, launches, name_limit)
+    approx_serve_phase(model, requests[0], launches, name_limit)
 
     # ---- 4. timings at the bench shape --------------------------------------
     # phase 12's training runs share the card and the host: they end
@@ -2612,6 +2809,8 @@ def main():
             ).bfloat16()
     k2_time("tie-heavy (16 levels)", ties, TOP_K)
     del ties
+    k2a_time(grid, gmask, synth_job.result(), times, bounds, lib_ms, name_limit)
+    synth_pool.shutdown()
     cloud, _ = extract_chunk_clouds(bw, bl, CFG)
     pts = cloud.points
     del grid, flat, cloud
@@ -2681,6 +2880,7 @@ def main():
     log(f"[time] e2e B={BENCH_B}, top_k {TOP_K}: xla featurize {xla_ms:.3f} ms = "
         f"{BENCH_B / xla_ms * 1e3:.1f} clips/s, fused {fused_ms:.3f} ms = "
         f"{BENCH_B / fused_ms * 1e3:.1f} clips/s ({name_limit})")
+    approx_e2e_time(model, bw, bl, e2e, name_limit)
     full_ms = {fz: cuda_ms(lambda fz=fz: make_temporal_classifier(
         model, dataclasses.replace(CFG, featurize=fz, top_k=None),
         use_fused_st=True)(bw[:64], bl[:64]), 3) for fz in ("fused", "xla")}

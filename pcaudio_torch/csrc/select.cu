@@ -12,6 +12,11 @@
 // flat order as the JAX kernel's value comparisons make it.  Comparing
 // keys is exact for subnormals too.
 //
+// The select itself (the bound, the candidate lists, the radix search of
+// tau and the compaction) lives in select.cuh, where kernel K2a
+// (approx_select.cu) runs it on its window maxima under a key map for
+// signed values; this file holds K2's load and its walk over the chunks.
+//
 // What bounds it on the H100: the chunk is read once (10 KB for a bf16
 // 10 x 512 chunk) and K (value, index) pairs written, 0.148 ms at 3.35 TB/s
 // for the bench's 44,032 chunks at K 128.  Everything else runs in shared
@@ -51,103 +56,27 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <mutex>
 
 #include "common.cuh"
+#include "select.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;                 // one warp group a chunk
-constexpr int kWarps = kThreads / 32;
-// radix digits: 9 bits for bf16's 15-bit keys (one pass on the bench's
-// noise), 8 for f32, whose largest chunk (57,600 keys, 230,400 bytes)
-// leaves room for three 256-bin histograms only; 16-bit bins, two a word
-template <typename T>
-__host__ __device__ constexpr int digit_bits() { return sizeof(T) == 2 ? 9 : 8; }
-template <typename T>
-__host__ __device__ constexpr int hist_words() { return (1 << digit_bits<T>()) / 2; }
-template <typename T>
-__host__ __device__ constexpr int header_bytes() {
-  return 16 + 3 * hist_words<T>() * 4 + 4 * kWarps * 4;
-}
+using pcaudio::sel::kThreads;
+using pcaudio::sel::kWarps;
+using pcaudio::sel::header_bytes;
+using pcaudio::sel::hist_words;
+using pcaudio::sel::kSmemMax;
+using pcaudio::sel::kMaxChunk;
+using Key = pcaudio::sel::AbsKey;             // non-negative magnitudes
+using pcaudio::sel::bulk_load;
+using pcaudio::sel::mbar_init;
+using pcaudio::sel::mbar_wait;
+
 constexpr int kMinBlocks = 10;                // blocks an SM: caps registers
-constexpr int kSmemMax = 227 * 1024;          // shared memory a block can use
-constexpr int kMaxChunk = 57600;              // bins count up to 65,535 keys
 // 0: the whole kernel.  probes/k2_stages.py builds 1 (stop after the load)
 // and 2 (stop once tau is found) to time the stages.
 constexpr int kStopAfter = 0;
-
-static_assert(header_bytes<unsigned short>() % 16 == 0 && header_bytes<unsigned>() % 16 == 0,
-              "the buffers must stay 16-byte aligned");
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// One thread: copy `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from global to shared memory; `bar` completes when they land.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
-                                          uint64_t* bar) {
-  // the buffer was last read through the generic proxy
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// element e of a 16-byte word of raw values
-template <typename T>
-__device__ __forceinline__ T raw_at(const uint4& q, int e) {
-  if (sizeof(T) == 2) {
-    const unsigned w = (&q.x)[e >> 1];
-    return (T)((e & 1) ? w >> 16 : w & 0xffffu);
-  }
-  return (T)(&q.x)[e];
-}
-
-__device__ __forceinline__ unsigned key_of(unsigned short r) { return r & 0x7fffu; }
-__device__ __forceinline__ unsigned key_of(unsigned r) { return r & 0x7fffffffu; }
-__device__ __forceinline__ float value_of(unsigned short r) {
-  return __uint_as_float((unsigned)r << 16);
-}
-__device__ __forceinline__ float value_of(unsigned r) { return __uint_as_float(r); }
-
-// a thread's largest and r-th largest key (r = 1 or 2) from its running
-// largest `a` and second largest `b`; bf16 tracks both 16-bit halves apart
-__device__ __forceinline__ void thread_keys(unsigned a, unsigned b, int r, bool halves,
-                                            unsigned* top, unsigned* rth) {
-  if (!halves) {
-    *top = a;
-    *rth = r == 1 ? a : b;
-    return;
-  }
-  const unsigned alo = a & 0xffffu, ahi = a >> 16, blo = b & 0xffffu, bhi = b >> 16;
-  *top = max(alo, ahi);
-  *rth = r == 1 ? *top : max(min(alo, ahi), max(blo, bhi));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -155,14 +84,9 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
                    int buf_off, int list_off, float* __restrict__ out_v,
                    int* __restrict__ out_i) {
   constexpr int V = 16 / sizeof(T);              // values a 16-byte word
-  constexpr int kHistWords = hist_words<T>(), kBins = 2 * kHistWords;
-  constexpr int kLaneWords = kHistWords / 32;    // a lane's bins in the tau search
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [1]
-  unsigned* hist = reinterpret_cast<unsigned*>(smem + 16);            // [3][256]
-  unsigned* wmin = hist + 3 * kHistWords;                             // [kWarps]
-  unsigned* wmax = wmin + kWarps;                                     // [kWarps]
-  int* wcount = reinterpret_cast<int*>(wmax + kWarps);                // gt, eq
+  const pcaudio::sel::Header sh = pcaudio::sel::header_at<T>(smem);
   const int nvec = (L + V - 1) / V;
   const int buf_elems = nvec * V;
   // the chunk and the candidate list (list_off 0: none) at the byte
@@ -174,7 +98,7 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
   unsigned short* const list = reinterpret_cast<unsigned short*>(smem + list_off);
   const bool use_list = list_off > 0;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int G = gridDim.x;
   const int nmine = (N - (int)blockIdx.x + G - 1) / G;   // this block's chunks
   const unsigned chunk_bytes = (unsigned)L * sizeof(T);
@@ -189,7 +113,7 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
   int s = 1;
   while (r == 1 && s < 32 && kThreads / (2 * s) >= K) s *= 2;
 
-  for (int i = tid; i < 2 * kHistWords; i += kThreads) hist[i] = 0u;
+  for (int i = tid; i < 2 * hist_words<T>(); i += kThreads) sh.hist[i] = 0u;
   if (tid == 0) {
     mbar_init(full);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -211,7 +135,7 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
       __syncthreads();   // the previous chunk's readers are done with buf
       const T* src = mags + c * L;
       for (int i = tid; i < L; i += kThreads) buf[i] = src[i];
-      for (int i = L + tid; i < buf_elems; i += kThreads) buf[i] = 0;
+      for (int i = L + tid; i < buf_elems; i += kThreads) buf[i] = Key::pad<T>();
       __syncthreads();
     }
     if (kStopAfter == 1) {
@@ -223,137 +147,19 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
 
     // ---- the chunk's largest key kmax and the bound t0 (0 without a list:
     // then every key is a candidate)
-    unsigned a = 0, b = 0;
-    for (int v = tid; v < nvec; v += kThreads) {   // the tail past L is zero-filled
-      const uint4 q = words[v];
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-        if (sizeof(T) == 2) {
-          const unsigned k2 = (&q.x)[w] & 0x7fff7fffu;   // two keys
-          b = __vmaxu2(b, __vminu2(a, k2));
-          a = __vmaxu2(a, k2);
-        } else {
-          const unsigned k = (&q.x)[w] & 0x7fffffffu;
-          b = max(b, min(a, k));
-          a = max(a, k);
-        }
-      }
-    }
-    unsigned top, t0;
-    thread_keys(a, b, r, sizeof(T) == 2, &top, &t0);
-    for (int o = 1; o < s; o <<= 1) t0 = max(t0, __shfl_xor_sync(pcaudio::kFullMask, t0, o));
-    t0 = use_list ? __reduce_min_sync(pcaudio::kFullMask, t0) : 0u;
-    top = __reduce_max_sync(pcaudio::kFullMask, top);
-    if (lane == 0) {
-      wmin[warp] = t0;
-      wmax[warp] = top;
-    }
-    __syncthreads();
-    unsigned kmax = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      t0 = min(t0, wmin[w]);
-      kmax = max(kmax, wmax[w]);
-    }
+    unsigned t0, kmax;
+    pcaudio::sel::key_bounds<T, Key>(words, nvec, r, s, use_list, sh, &t0, &kmax);
     // every key <= t0 = kmax: tau = t0, and the winners are the first K keys
     // equal to it (an all-equal chunk: empty, silent or tie-heavy)
     const bool flat = t0 == kmax;
     int n = seg_end - seg;   // this warp's candidates
-    if (use_list && !flat) {
-      // the warp's candidates (keys >= t0) in flat order, at list[seg ...]
-      n = 0;
-      for (int v0 = v_lo; v0 < v_hi; v0 += 32) {
-        const int v = v0 + lane;
-        const uint4 q = v < v_hi ? words[v] : make_uint4(0u, 0u, 0u, 0u);
-        unsigned bits = 0;
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          if (v < v_hi && v * V + e < L && key_of(raw_at<T>(q, e)) >= t0) bits |= 1u << e;
-        const int cnt = __popc(bits);
-        int incl = cnt;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const int y = __shfl_up_sync(pcaudio::kFullMask, incl, o);
-          if (lane >= o) incl += y;
-        }
-        int p = seg + n + incl - cnt;
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          if (bits >> e & 1u) list[p++] = (unsigned short)(v * V + e);
-        n += __shfl_sync(pcaudio::kFullMask, incl, 31);
-      }
-      __syncwarp();
-    }
-    const int n_pad = (n + 31) & ~31;
-    auto cand = [&](int i) { return use_list ? (int)list[seg + i] : seg + i; };
+    if (use_list && !flat)   // the warp's candidates (keys >= t0) in flat order
+      n = pcaudio::sel::list_candidates<T, Key>(words, v_lo, v_hi, seg, L, t0, list);
 
-    // ---- radix select of tau on the offsets key - t0 <= kmax - t0, 9-bit
-    // digits from the top bit of kmax - t0 (no pass when every candidate
-    // equals t0: an all-equal chunk, or a tie-heavy one)
-    unsigned prefix = 0, known = 0;   // offset digits found so far, their bits
-    int krem = K;                     // rank of tau among the matching keys
-    for (int shift = 32 - __clz(kmax - t0); shift > 0; ++g) {
-      const int lo = max(0, shift - digit_bits<T>());
-      const unsigned dmask = (1u << (shift - lo)) - 1u;
-      unsigned* h = hist + (g % 3) * kHistWords;
-      for (int i = lane; i < n_pad; i += 32) {
-        if (i >= n) continue;
-        const unsigned o = key_of(buf[cand(i)]) - t0;
-        if ((o & known) == prefix) {
-          const unsigned d = (o >> lo) & dmask;
-          atomicAdd(&h[d >> 1], 1u << ((d & 1u) * 16));
-        }
-      }
-      __syncthreads();
-      // hist[(g + 2) % 3] was last read in pass g - 1, before this barrier,
-      // and is next counted into after the next pass's barrier
-      for (int i = tid; i < kHistWords; i += kThreads)
-        hist[((g + 2) % 3) * kHistWords + i] = 0u;
-      // every warp finds the digit holding tau: lane l holds the 2 kLaneWords
-      // bins below kBins - 2 kLaneWords l, counted from the top
-      const uint4* h4 = reinterpret_cast<const uint4*>(h);
-      unsigned cnt[2 * kLaneWords];
-#pragma unroll
-      for (int q = 0; q < kLaneWords / 4; ++q) {
-        const uint4 u = h4[kHistWords / 4 - 1 - (kLaneWords / 4) * lane - q];
-        const unsigned w[4] = {u.w, u.z, u.y, u.x};
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          cnt[8 * q + 2 * x] = w[x] >> 16;
-          cnt[8 * q + 2 * x + 1] = w[x] & 0xffffu;
-        }
-      }
-      int local = 0;
-#pragma unroll
-      for (int e = 0; e < 2 * kLaneWords; ++e) local += (int)cnt[e];
-      int incl = local;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(pcaudio::kFullMask, incl, o);
-        if (lane >= o) incl += y;
-      }
-      int above = incl - local;   // keys in the bins above my first
-      const bool mine = above < krem && krem <= incl;
-      int digit = 0, nk = 0;
-      bool found = false;
-#pragma unroll
-      for (int e = 0; e < 2 * kLaneWords; ++e) {
-        if (mine && !found && above + (int)cnt[e] >= krem) {
-          digit = kBins - 1 - 2 * kLaneWords * lane - e;
-          nk = krem - above;
-          found = true;
-        }
-        above += (int)cnt[e];
-      }
-      const int src = __ffs(__ballot_sync(pcaudio::kFullMask, mine)) - 1;
-      digit = __shfl_sync(pcaudio::kFullMask, digit, src);
-      krem = __shfl_sync(pcaudio::kFullMask, nk, src);
-      prefix |= (unsigned)digit << lo;
-      known |= dmask << lo;
-      shift = lo;
-    }
-    const unsigned tau = t0 + prefix;
-    const int need = krem;   // keys == tau to take; keys > tau number K - need
+    // ---- radix select of tau on the offsets key - t0 <= kmax - t0
+    int need;   // keys == tau to take; keys > tau number K - need
+    const unsigned tau = pcaudio::sel::radix_tau<T, Key>(buf, list, use_list, seg, n, t0,
+                                                         kmax, K, sh.hist, g, &need);
     if (kStopAfter == 2) {
       if (tau == 0xffffffffu && tid == 0) out_i[c * K] = need;   // keeps tau live
       if (fetch_next) {
@@ -366,109 +172,19 @@ topk_chunks_kernel(const T* __restrict__ mags, int N, int L, int K, int use_tma,
     // ---- compaction in flat order: every key >= tau is a candidate ----------
     float* ov = out_v + c * K;
     int* oi = out_i + c * K;
-    if (flat) {
-      if (warp == 0) {
-        int found = 0;
-        for (int base = 0; found < K && base < L; base += 32) {
-          const int i = base + lane;
-          const T raw = i < L ? buf[i] : (T)0;
-          const bool hit = i < L && key_of(raw) == tau;
-          const unsigned bits = __ballot_sync(pcaudio::kFullMask, hit);
-          const int rank = found + __popc(bits & ((1u << lane) - 1u));
-          if (hit && rank < K) {
-            ov[rank] = value_of(raw);
-            oi[rank] = i;
-          }
-          found += __popc(bits);
-        }
-      }
-      if (fetch_next) {
-        __syncthreads();
-        if (tid == 0) issue(j + 1);
-      }
-      continue;
-    }
-    int gt = 0, eq = 0;
-    for (int i = lane; i < n; i += 32) {
-      const unsigned k = key_of(buf[cand(i)]);
-      gt += k > tau;
-      eq += k == tau;
-    }
-    gt = __reduce_add_sync(pcaudio::kFullMask, gt);
-    eq = __reduce_add_sync(pcaudio::kFullMask, eq);
-    if (lane == 0) {
-      wcount[warp] = gt;
-      wcount[kWarps + warp] = eq;
-    }
-    __syncthreads();
-    int pos = 0, eq_seen = 0;
-    for (int w = 0; w < warp; ++w) {
-      pos += wcount[w];
-      eq_seen += wcount[kWarps + w];
-    }
-    pos += min(eq_seen, need);
-    for (int i = lane; i < n_pad; i += 32) {
-      const int idx = i < n ? cand(i) : 0;
-      const T raw = i < n ? buf[idx] : (T)0;
-      const unsigned k = key_of(raw);
-      const bool is_gt = i < n && k > tau, is_eq = i < n && k == tau;
-      const unsigned gt_bits = __ballot_sync(pcaudio::kFullMask, is_gt);
-      const unsigned eq_bits = __ballot_sync(pcaudio::kFullMask, is_eq);
-      const unsigned below = (1u << lane) - 1u;
-      const int eq_rank = eq_seen + __popc(eq_bits & below);
-      const int room = max(0, need - eq_seen);   // ties still to take
-      if (is_gt || (is_eq && eq_rank < need)) {
-        const int p = pos + __popc(gt_bits & below) + min(__popc(eq_bits & below), room);
-        ov[p] = value_of(raw);
-        oi[p] = idx;
-      }
-      pos += __popc(gt_bits) + min(__popc(eq_bits), room);
-      eq_seen += __popc(eq_bits);
-    }
+    auto emit = [&](int p, int i, T raw) {
+      ov[p] = pcaudio::sel::value_of(raw);
+      oi[p] = i;
+    };
+    if (flat)
+      pcaudio::sel::take_first_equal<T, Key>(buf, L, K, tau, emit);
+    else
+      pcaudio::sel::compact<T, Key>(buf, list, use_list, seg, n, tau, need, sh.wcount, emit);
     if (fetch_next) {
       __syncthreads();
       if (tid == 0) issue(j + 1);
     }
   }
-}
-
-// blocks of topk_chunks_kernel<T> an SM holds at `smem` bytes of shared
-// memory, and the device's SMs: one occupancy query per (device, smem),
-// kept, so a serving launch makes no query after its shape's first call
-struct Occupancy {
-  int dev;
-  size_t smem;
-  int per_sm, sms;
-};
-
-template <typename T>
-cudaError_t occupancy(size_t smem, int* per_sm, int* sms) {
-  static std::mutex mu;
-  static Occupancy table[32];
-  static int used = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> lock(mu);
-  size_t top = smem;   // the attribute only grows: a larger launch may be in flight
-  for (int i = 0; i < used; ++i) {
-    if (table[i].dev != dev) continue;
-    if (table[i].smem == smem) {
-      *per_sm = table[i].per_sm;
-      *sms = table[i].sms;
-      return cudaSuccess;
-    }
-    top = table[i].smem > top ? table[i].smem : top;
-  }
-  auto kernel = topk_chunks_kernel<T>;
-  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)top)) != cudaSuccess)
-    return e;
-  if ((e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, smem);
-  if (e == cudaSuccess && used < 32) table[used++] = {dev, smem, *per_sm, *sms};
-  return e;
 }
 
 template <typename T>
@@ -485,7 +201,7 @@ int launch(const T* mags, void* vals, void* idx, int N, int L, int K,
   const size_t extra = K <= 2 * kThreads && fits(buf + list) ? list : 0;
   const size_t smem = kHeader + buf + extra;
   int per_sm = 0, sms = 0;
-  const cudaError_t e = occupancy<T>(smem, &per_sm, &sms);
+  const cudaError_t e = pcaudio::sel::occupancy(topk_chunks_kernel<T>, smem, &per_sm, &sms);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int grid = (int)((long long)per_sm * sms < N ? (long long)per_sm * sms : N);

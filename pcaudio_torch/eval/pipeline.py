@@ -14,6 +14,15 @@ Two featurize paths, as in the JAX package:
   ``top_k=None`` the full-grid clouds of ``ops/cloud.py::grid_cloud``.
   These are plain PyTorch ops in place of XLA ops, not of a Pallas kernel.
 
+``extraction="approx"`` selects on either path with kernel K2a
+(``ops/kernels/approx_select.py``, the counterpart of ``lax.approx_max_k``)
+in place of the exact top-K: on the fused path over the |X|² grid (a bf16
+grid unless ``stft_precision="highest"``), on the ``"xla"`` path over the
+chunks cast to bf16, whose bf16 values become the points' values.
+``extraction="flat"`` selects the same set as ``"exact"`` on both paths
+(the JAX package's flat ``lax.top_k`` where ``"exact"`` takes a two-stage
+per-frame form; both are exact).
+
 Then the ST forward (kernel K1 when ``use_fused_st``, which takes the full
 5,120-point clouds too) and the mean of the chunk logits over valid chunks.
 Reference semantics: ``Code/settransformertemp.py:35-59`` (n_fft 1024,
@@ -32,6 +41,8 @@ from pcaudio_torch.core.types import PointCloud
 from pcaudio_torch.dsp.featurize import (
     FeaturizeConfig, batched_temporal_chunks, featurize_batch)
 from pcaudio_torch.ops.cloud import freq_coords, grid_cloud, time_coords
+from pcaudio_torch.ops.kernels.approx_select import (
+    approx_topk_chunks, approx_topk_chunks_plain)
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
@@ -44,11 +55,14 @@ from pcaudio_torch.ops.subsample import topk_stable
 @dataclasses.dataclass(frozen=True)
 class TemporalPipelineConfig:
     """3ST pipeline config: the JAX package's fields, except that the JAX
-    package's ``approx_recall``, ``exact_kernel`` and ``st_block_b`` are
-    absent.  Those three tune the TPU kernels (``lax.approx_max_k``'s
-    recall, the Pallas select against ``lax.top_k``, the fused ST's clouds
-    per grid step) and have no counterpart here; a config that passes them
-    raises ``TypeError``.
+    package's ``exact_kernel`` and ``st_block_b`` are absent.  Those two
+    tune the TPU kernels (the Pallas select against ``lax.top_k``, the
+    fused ST's clouds per grid step) and have no counterpart here; a config
+    that passes them raises ``TypeError``.
+
+    ``extraction``: ``"exact"`` (the default), ``"flat"`` (the same set)
+    or ``"approx"``, the top K of XLA's window maxima at the recall target
+    ``approx_recall`` (``approx_select.py::approx_topk_plan``).
 
     ``featurize`` defaults to ``"fused"``, where the JAX package's default
     is ``"xla"``: the fused path is the one the kernels serve and
@@ -69,12 +83,13 @@ class TemporalPipelineConfig:
     compute_dtype: str = "float32"   # "bfloat16": bf16 grid and clouds
     extraction: str = "exact"
     featurize: str = "fused"
+    approx_recall: float = 0.9
 
     def check_ported(self) -> None:
-        """Raise for what the port does not have (``extraction="approx"``,
-        ROADMAP's "Not ported") and for a fused featurize outside the
-        serving config (resampling, another hop or window), as the JAX
-        package asserts.
+        """Raise ``ValueError`` for an unknown ``extraction`` or
+        ``featurize``, an ``approx_recall`` outside (0, 1] in approx mode,
+        and a fused featurize outside the serving config (resampling,
+        another hop or window), as the JAX package asserts.
 
         Two fused configs serve here that the JAX ``_extract_fused``
         refuses, both port-only: ``top_k=None`` (full grids; the JAX
@@ -82,9 +97,12 @@ class TemporalPipelineConfig:
         config (``featurize="fused"``, ``top_k=None``) serves, and
         ``target_fs == fs`` (no resampling).  Their tests hold them to the
         JAX package's ``"xla"`` path."""
-        if self.extraction != "exact":
-            raise NotImplementedError(f"extraction={self.extraction!r} is not "
-                                      f"ported (ROADMAP, Not ported)")
+        if self.extraction not in ("exact", "flat", "approx"):
+            raise ValueError(f"extraction must be 'exact', 'flat' or 'approx', "
+                             f"got {self.extraction!r}")
+        if self.extraction == "approx" and not 0.0 < self.approx_recall <= 1.0:
+            raise ValueError(f"approx_recall must lie in (0, 1], got "
+                             f"{self.approx_recall}")
         if self.featurize not in ("fused", "xla"):
             raise ValueError(f"featurize must be 'fused' or 'xla', got "
                              f"{self.featurize!r}")
@@ -120,7 +138,7 @@ def extract_chunk_clouds(waves: torch.Tensor, lengths: torch.Tensor,
     if cfg.featurize == "fused":
         clouds, chunk_mask = _clouds_fused(waves, lengths, cfg, plain)
     else:
-        clouds, chunk_mask = _clouds_xla(waves, lengths, cfg)
+        clouds, chunk_mask = _clouds_xla(waves, lengths, cfg, plain)
     B, C, K = clouds.shape[:3]
     pmask = chunk_mask[:, :, None].expand(B, C, K)
     return (PointCloud(points=clouds.reshape(B * C, K, 3),
@@ -143,20 +161,27 @@ def _affine_clouds(idx: torch.Tensor, vals: torch.Tensor, F: int, Nt: int,
 
 
 def _clouds_fused(waves, lengths, cfg, plain):
-    """K3's |X|² chunks, then K2's top K (log-magnitude of the winners
-    only) or, at ``top_k=None``, every bin: ``(clouds [B, C, K, 3],
-    chunk_mask)``."""
+    """K3's |X|² chunks, then K2's top K, or K2a's in approx mode
+    (log-magnitude of the winners only) or, at ``top_k=None``, every bin:
+    ``(clouds [B, C, K, 3], chunk_mask)``.  The grid is bf16 in approx mode
+    or at ``compute_dtype="bfloat16"``, unless ``stft_precision="highest"``
+    (the JAX ``_extract_fused``'s rule)."""
+    approx = cfg.extraction == "approx"
     serving_bf16 = cfg.compute_dtype == "bfloat16"
     cdt = torch.bfloat16 if serving_bf16 else torch.float32
-    grid_dt = (torch.bfloat16 if serving_bf16 and cfg.stft_precision != "highest"
-               else torch.float32)
+    grid_dt = (torch.bfloat16 if (approx or serving_bf16)
+               and cfg.stft_precision != "highest" else torch.float32)
     featurize = fused_chunk_mag2_plain if plain else fused_chunk_mag2
     m2, chunk_mask = featurize(waves, lengths, n_fft=cfg.n_fft,
                                num_frames=cfg.num_frames, trim=cfg.trim,
                                top_db=cfg.top_db, out_dtype=grid_dt)
     B, C, Nt, F = m2.shape
     k = cfg.top_k
-    if k is not None:
+    if k is not None and approx:
+        select = approx_topk_chunks_plain if plain else approx_topk_chunks
+        vals2, idx = select(m2.reshape(B * C, Nt * F), k, cfg.approx_recall)
+        vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
+    elif k is not None:
         select = exact_topk_chunks_plain if plain else exact_topk_chunks
         vals2, idx = select(m2.reshape(B * C, Nt, F), k)
         vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
@@ -183,16 +208,24 @@ def _full_clouds(grid, Nt, F, cfg, fs):
                       time_coords(Nt, cfg.n_fft, fs, cfg.hop_factor, device=dev))
 
 
-def _clouds_xla(waves, lengths, cfg):
+def _clouds_xla(waves, lengths, cfg, plain):
     """``featurize_batch`` → chunks → one flat stable top K (the JAX
-    two-stage per-frame form selects the same set in the same order) or
-    the full grid: ``(clouds [B, C, K, 3], chunk_mask)``."""
+    two-stage per-frame form selects the same set in the same order), K2a
+    on the chunks' bf16 keys in approx mode (the points take the bf16
+    values, cast back to the chunk dtype), or the full grid: ``(clouds
+    [B, C, K, 3], chunk_mask)``."""
     logmag, frame_mask = featurize_batch(waves, lengths, cfg.featurize_config())
     chunks, chunk_mask = batched_temporal_chunks(logmag, frame_mask,
                                                  cfg.num_frames)
     B, C, Nt, F = chunks.shape
     eff_fs = cfg.target_fs or cfg.fs
     k = cfg.top_k
+    if k is not None and k < Nt * F and cfg.extraction == "approx":
+        select = approx_topk_chunks_plain if plain else approx_topk_chunks
+        keys = chunks.reshape(B * C, Nt * F).to(torch.bfloat16)
+        bvals, idx = select(keys, k, cfg.approx_recall)
+        vals = bvals.to(chunks.dtype).reshape(B, C, k)
+        return _affine_clouds(idx.reshape(B, C, k), vals, F, Nt, cfg, eff_fs), chunk_mask
     if k is not None and k < Nt * F:
         vals, idx = topk_stable(chunks.reshape(B, C, Nt * F), k)
         return _affine_clouds(idx, vals, F, Nt, cfg, eff_fs), chunk_mask

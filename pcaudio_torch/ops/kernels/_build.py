@@ -24,9 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
-SOURCES = ("featurize.cu", "select.cu", "fused_st.cu", "fused_st_scratch.cu",
-           "mha.cu", "probe_mma.cu", "probe_attend.cu", "probe_stream.cu",
-           "probe_featurize.cu")
+SOURCES = ("featurize.cu", "select.cu", "approx_select.cu", "fused_st.cu",
+           "fused_st_scratch.cu", "mha.cu", "probe_mma.cu", "probe_attend.cu",
+           "probe_stream.cu", "probe_featurize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a source's options beside NVCC_FLAGS: K1's two forms, four instantiations
@@ -43,6 +43,7 @@ _SIGNATURES = {
     "pcaudio_trim_bounds": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
     "pcaudio_chunk_mag2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
+    "pcaudio_approx_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P, _L, _P,
                          _I, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st_max_points": [_I],

@@ -7,10 +7,16 @@ about half the chunks invalid).  Given the source of an earlier design
 (``--old-source``, e.g. from ``git show
 472eb60:pcaudio_torch/csrc/select.cu``), it cuts and times that one the
 same way, on the same grids, in the same process, and runs both on a grid
-with -0.0 entries against the plain version.  Each variant is its own
-shared library, built with ``nvcc`` into ``build/k2_stages/``.
+with -0.0 entries against the plain version.  Given an earlier source of
+the current design (``--earlier-source``, a ``select.cu`` with its
+``kStopAfter``, e.g. from ``git show REV:pcaudio_torch/csrc/select.cu``), it
+cuts that one as the current source and also times the two whole kernels
+in turns (earlier, current, current, earlier) on each grid.  Each variant
+is its own shared library, built with ``nvcc`` into ``build/k2_stages/``
+beside copies of ``csrc/*.cuh``.
 
     python -m pcaudio_torch.probes.k2_stages [--old-source PATH] [--old-only]
+        [--earlier-source PATH]
 """
 from __future__ import annotations
 
@@ -86,7 +92,8 @@ def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
     for name, text in sources.items():
         d = OUT / name.replace(" ", "_")
         d.mkdir(parents=True, exist_ok=True)
-        (d / "common.cuh").write_text((_build.CSRC / "common.cuh").read_text())
+        for header in _build.CSRC.glob("*.cuh"):   # select.cuh, common.cuh
+            (d / header.name).write_text(header.read_text())
         (d / "select.cu").write_text(text)
         procs[name] = (d / "lib.so", subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
@@ -146,6 +153,8 @@ def main(argv=None) -> None:
     ap.add_argument("--old-source", help="an earlier design's select.cu")
     ap.add_argument("--old-only", action="store_true",
                     help="time only the --old-source design")
+    ap.add_argument("--earlier-source",
+                    help="an earlier select.cu of the current design")
     args = ap.parse_args(argv)
     if args.old_only and not args.old_source:
         ap.error("--old-only needs --old-source")
@@ -158,6 +167,10 @@ def main(argv=None) -> None:
     if args.old_source:
         with open(args.old_source) as f:
             designs["old"] = stage_sources(f.read(), OLD_EDITS, args.old_source)
+    if args.earlier_source:
+        with open(args.earlier_source) as f:
+            designs["earlier"] = stage_sources(f.read(), CURRENT_EDITS,
+                                               args.earlier_source)
     libs = _build_all({f"{d} {s}": text for d, srcs in designs.items()
                        for s, text in srcs.items()})
 
@@ -190,6 +203,12 @@ def main(argv=None) -> None:
                   f"{t['tau'] - t['load']:.4f} ms (cut at tau {t['tau']:.4f}), "
                   f"compaction {t['whole'] - t['tau']:.4f} ms, whole {t['whole']:.4f} "
                   f"ms; bound {b:.4f} ms by bytes ({name_limit})", flush=True)
+        if "earlier" in designs and "current" in designs:
+            turns = [cuda_ms(_select(libs[f"{d} whole"], d, grid, K)[0], 10)
+                     for d in ("earlier", "current", "current", "earlier")]
+            print(f"[K2 stages] {gname} grid, whole kernel in turns (earlier, current, "
+                  f"current, earlier): {' / '.join(f'{t:.4f}' for t in turns)} ms "
+                  f"({name_limit})", flush=True)
         del grid
         torch.cuda.empty_cache()
 

@@ -49,6 +49,26 @@ def tf32_off():
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
+class SortCalls(torch.overrides.TorchFunctionMode):
+    """Counts the sorts and top-Ks (``sort``, ``argsort``, ``msort``,
+    ``topk``, ``kthvalue``, as functions or methods) called on CUDA tensors
+    while it is active, by name in ``calls``: a path that must select with
+    a kernel alone shows none."""
+
+    NAMES = ("sort", "argsort", "msort", "topk", "kthvalue")
+
+    def __init__(self):
+        super().__init__()
+        self.calls: Dict[str, int] = {}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in self.NAMES and any(isinstance(a, torch.Tensor) and a.is_cuda
+                                      for a in args):
+            self.calls[name] = self.calls.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call of ``fn`` over ``iters`` calls after one warm-up,
     between two CUDA events."""

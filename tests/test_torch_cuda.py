@@ -30,7 +30,10 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     MAX_CHUNK, exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.ops.kernels.approx_select import (
+    approx_topk_chunks, approx_topk_chunks_plain, approx_topk_plan)
 from pcaudio_torch.probes.clips import negzero_grid
+from pcaudio_torch.probes.timing import SortCalls
 
 pytestmark = pytest.mark.cuda
 
@@ -525,6 +528,130 @@ def test_featurize_check_catches_a_wrong_kernel(cuda, wrong):
         frames[0, 16:32] = ref.view(1, -1, 512)[0, 15:31]
     assert not torch.equal(bad, ref)
     assert not _k3_within(bad, rm, ref, rm, torch.float32)
+
+
+def _approx_keys(kind, R, N, device, dtype, seed=1):
+    """[R, N] signed keys for K2a: "noise" signed normal, "negative" below
+    0 (log-magnitudes), "ties" 16 signed levels, "negzero" ``negzero_grid``
+    (-0.0 entries), "equal" one value a row, "mixed" equal, zero and noise
+    rows in turn."""
+    rng = np.random.default_rng(seed)
+    if kind == "negzero":
+        m = negzero_grid(R, -(-N // 10), seed).reshape(R, -1)[:, :N]
+    else:
+        m = rng.standard_normal((R, N))
+    if kind == "negative":
+        m = -1.0 - np.abs(m)
+    elif kind == "ties":
+        m = np.floor(m * 4.0).clip(-8, 7) / 4.0
+    elif kind == "equal":
+        m = np.repeat(rng.uniform(-2.0, 2.0, (R, 1)), N, 1)
+    elif kind == "mixed":
+        m[0::3] = -0.75
+        m[1::3] = 0.0
+    return torch.from_numpy(np.ascontiguousarray(m, dtype=np.float32)).to(
+        device=device, dtype=dtype)
+
+
+def _approx_equal(x, K, recall):
+    """K2a on ``x`` == its plain version: the same indices, and the same
+    values bit for bit (the sign of a selected -0.0 included)."""
+    before = approx_topk_chunks.launches
+    gv, gi = approx_topk_chunks(x, K, recall)
+    torch.cuda.synchronize()
+    assert approx_topk_chunks.launches == before + 1
+    rv, ri = approx_topk_chunks_plain(x, K, recall)
+    assert torch.equal(gi, ri)
+    assert torch.equal(gv.view(torch.int32), rv.view(torch.int32))
+    return gi
+
+
+@pytest.mark.parametrize("recall", [0.8, 0.9, 0.95, 0.99])
+@pytest.mark.parametrize("K", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["noise", "negative", "ties", "negzero"])
+def test_approx_select_kernel_matches_plain(cuda, kind, dtype, K, recall):
+    """K2a == its plain version exactly at the serving row (10 x 512 keys)
+    for every plan the recall targets give (r 3, 2, 1 and 0 at K 128):
+    signed and negative keys, ties inside and across windows, -0.0 tied
+    with 0.0."""
+    _approx_equal(_approx_keys(kind, 37, 5120, cuda, dtype), K, recall)
+
+
+@pytest.mark.parametrize("N", [5130, 1000, 130, 133])
+@pytest.mark.parametrize("K", [1, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["noise", "ties", "negzero", "equal"])
+def test_approx_select_kernel_ragged_rows(cuda, kind, dtype, K, N):
+    """K2a == its plain version on rows that are not multiples of 128 · 2^r
+    (the last slab padded) and whose bytes are not 16-byte multiples (one
+    key a load), at K 1 (XLA's own plan) and where K exceeds the row."""
+    if K > N:
+        with pytest.raises(ValueError):
+            approx_topk_chunks(_approx_keys(kind, 3, N, cuda, dtype), K, 0.9)
+        return
+    _approx_equal(_approx_keys(kind, 9, N, cuda, dtype), K, 0.9)
+
+
+@pytest.mark.parametrize("N,K,recall", [(5120, 1, 0.9), (5120, 512, 0.9),
+                                        (20480, 128, 0.9), (20480, 256, 0.99),
+                                        (5120, 5120, 1.0)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_approx_select_kernel_plans(cuda, N, K, recall, dtype):
+    """K2a == its plain version at the plans' edges: K 1 (64 slabs of 128
+    windows), K 512 (no candidate list), long rows (dynamic shared memory
+    past 48 KB at r 0), every key at recall 1.0."""
+    M, r = approx_topk_plan(N, K, recall)
+    assert M >= K
+    _approx_equal(_approx_keys("ties", 5, N, cuda, dtype), K, recall)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_approx_select_kernel_many_rows(cuda, dtype):
+    """K2a on 5,000 rows of equal, zero and noise rows in turn, and on an
+    unaligned view's copy."""
+    x = _approx_keys("mixed", 5000, 5120, cuda, dtype)
+    _approx_equal(x, 128, 0.9)
+    _approx_equal(x[:, 1:].contiguous(), 128, 0.9)
+    with pytest.raises(ValueError, match="contiguous"):
+        approx_topk_chunks(x[:, 1:], 128, 0.9)
+
+
+@pytest.mark.parametrize("featurize", ["fused", "xla"])
+def test_approx_path_matches_plain_path(cuda, featurize):
+    """``extraction="approx"`` end to end at full width, bf16 serving, on
+    both featurize paths: K2a selects (no K2, and no sort or top-K on a
+    CUDA tensor), K1 classifies, K3 featurizes on the fused path; the
+    logits match the plain path's as in test_kernel_path_matches_plain_path
+    (within 5e-2, argmax where the plain path's top-2 gap exceeds twice the
+    largest deviation)."""
+    model = _full_st(3, cuda)
+    cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
+                                 compute_dtype="bfloat16", extraction="approx",
+                                 featurize=featurize)
+    rng = np.random.default_rng(3)
+    B, L = 4, 65536
+    t = np.arange(L) / 44100.0
+    f0 = rng.uniform(200.0, 3000.0, (B, 1))
+    waves = (0.3 * np.sin(2 * np.pi * f0 * t)
+             + 0.05 * rng.standard_normal((B, L))).astype(np.float32)
+    w = torch.from_numpy(waves).to(cuda)
+    ln = torch.tensor([60000, 42000, L, 900], dtype=torch.int32).to(cuda)
+    fns = (fused_chunk_mag2, exact_topk_chunks, approx_topk_chunks, fused_st_forward)
+    counts = [f.launches for f in fns]
+    with SortCalls() as sorts:
+        got = make_temporal_classifier(model, cfg, use_fused_st=True)(w, ln)
+        torch.cuda.synchronize()
+    assert sorts.calls == {}
+    assert [f.launches - c for f, c in zip(fns, counts)] == [
+        int(featurize == "fused"), 0, 1, 1]
+    ref = make_temporal_classifier(model, cfg, use_fused_st=True,
+                                   plain=True)(w, ln)
+    dev = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and dev <= 5e-2
+    top2 = ref.sort(dim=-1).values[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) >= 2 * dev
+    assert torch.equal(got.argmax(-1)[decided], ref.argmax(-1)[decided])
 
 
 def test_kernel_path_matches_plain_path(cuda):

@@ -240,18 +240,34 @@ def test_wrappers_send_cpu_tensors_to_plain_versions():
 
 @pytest.mark.parametrize("field,value", [("featurize", "xla"),
                                          ("extraction", "approx"),
+                                         ("extraction", "unknown"),
                                          ("target_fs", 16000)])
 def test_unported_pipeline_options_raise(field, value):
-    """Of the JAX options, only ``extraction="approx"`` is not ported and
-    raises.  ``featurize="xla"`` and resampling, which raised until they
-    were ported, now pass (``top_k`` set or None); resampling, another hop
-    or another window with the fused featurize raise ``ValueError``, as the
-    JAX package asserts."""
+    """Every JAX option is ported: ``featurize="xla"``, resampling and
+    ``extraction="approx"`` and ``"flat"``, which raised until they were
+    ported, now pass (``top_k`` set or None); an unknown extraction mode,
+    an approx recall outside (0, 1], and resampling, another hop or another
+    window with the fused featurize raise ``ValueError``, as the JAX
+    package asserts.  The TPU knobs ``exact_kernel`` and ``st_block_b``
+    are no fields (``TypeError``)."""
     for top_k in (64, None):
         cfg = TemporalPipelineConfig(top_k=top_k, **{field: value})
-        if field == "extraction":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if value == "unknown":
+            with pytest.raises(ValueError, match="extraction"):
                 cfg.check_ported()
+            continue
+        if field == "extraction":
+            for mode in ("approx", "flat"):
+                for fz in ("fused", "xla"):
+                    TemporalPipelineConfig(top_k=top_k, extraction=mode,
+                                           featurize=fz).check_ported()
+            for recall in (0.0, 1.5):
+                with pytest.raises(ValueError, match="approx_recall"):
+                    TemporalPipelineConfig(top_k=top_k, extraction="approx",
+                                           approx_recall=recall).check_ported()
+            for knob in ("exact_kernel", "st_block_b"):
+                with pytest.raises(TypeError):
+                    TemporalPipelineConfig(top_k=top_k, **{knob: None})
             continue
         TemporalPipelineConfig(top_k=top_k, **{"featurize": "xla",
                                                field: value}).check_ported()

@@ -34,6 +34,15 @@ draws come from a ``torch.Generator`` seeded from ``seed`` and the
 microbatch index, so they cannot match ``jax.random``'s bit for bit; the
 maxK counts are deterministic.
 
+Under a ``torch.profiler`` the expt-2 sweeps record spans
+(``utils/profiling.py``): ``expt2.call`` over a call, in it
+``expt2.featurize`` (the clips to valid rows, and each microbatch's
+clouds), ``expt2.microbatch``, ``expt2.ranks`` (the random draws and the
+ranks), ``expt2.forward`` (a masked forward and its hits) and
+``expt2.results`` (the counts to the host, the dicts); and they count the
+points each mask keeps (``expt2.points_kept``) against the points the
+cloud classifier runs (``expt2.points_run``).
+
 Not ported, because each works around an XLA compile or a TPU dispatch
 cost that eager PyTorch does not have: ``_SweepPrefetcher`` and
 ``_compile_workers`` (compiles of sweep points in threads), the
@@ -61,6 +70,7 @@ from pcaudio_torch.dsp.featurize import (
 from pcaudio_torch.ops.cloud import (
     frame_cloud, freq_coords, grid_cloud, time_coords)
 from pcaudio_torch.ops.subsample import importance_heatmap, topk_stable
+from pcaudio_torch.utils.profiling import count, span
 
 # classifier rows a call (the JAX package's defaults): frames of up to
 # 2049 points, temporal chunks of up to 10240
@@ -227,11 +237,16 @@ def _mask_counts(apply_masked: Callable, x: torch.Tensor, rmax: torch.Tensor,
     R = rrand.shape[0]
     cmax = torch.zeros(len(list_K), dtype=torch.int64, device=x.device)
     crand = torch.zeros(len(list_K), R, dtype=torch.int64, device=x.device)
+    rows, n = rmax.shape[0], rmax.shape[-1]
     for j, K in enumerate(list_K):
-        cmax[j] = _hits(apply_masked(x, rmax < K), labels, valid)
+        with span("expt2.forward"):
+            count("expt2.points_kept", rows * min(K, n))
+            cmax[j] = _hits(apply_masked(x, rmax < K), labels, valid)
         for r in range(R):
             xr = x if x_rand is None else x_rand[r]
-            crand[j, r] = _hits(apply_masked(xr, rrand[r] < K), labels, valid)
+            with span("expt2.forward"):
+                count("expt2.points_kept", rows * min(K, n))
+                crand[j, r] = _hits(apply_masked(xr, rrand[r] < K), labels, valid)
     return cmax, crand
 
 
@@ -242,10 +257,11 @@ def _prefix_mask_counts(apply_masked: Callable, x: torch.Tensor,
     """The K sweep of one microbatch: maxK ranks from ``rank_src [..., n]``,
     randK ranks from ``R`` draws of uniform noise from ``gen`` (ranking the
     noise samples without replacement), then :func:`_mask_counts`."""
-    noise = torch.rand((R,) + tuple(rank_src.shape), generator=gen,
-                       device=rank_src.device)
-    return _mask_counts(apply_masked, x, _ranks_desc(rank_src),
-                        _ranks_desc(noise), labels, valid, list_K)
+    with span("expt2.ranks"):
+        noise = torch.rand((R,) + tuple(rank_src.shape), generator=gen,
+                           device=rank_src.device)
+        rmax, rrand = _ranks_desc(rank_src), _ranks_desc(noise)
+    return _mask_counts(apply_masked, x, rmax, rrand, labels, valid, list_K)
 
 
 def _microbatch_generator(seed, mb_index: int,
@@ -271,21 +287,23 @@ def _run_masked_sweep(mb_counts: Callable, arrays: Sequence[torch.Tensor],
     cmax = torch.zeros(len(list_K), dtype=torch.int64, device=labels.device)
     crand = torch.zeros(len(list_K), R, dtype=torch.int64, device=labels.device)
     for mb_i, i in enumerate(range(0, n, mb)):
-        a, b = mb_counts(*(t[i: i + mb] for t in arrays), labels[i: i + mb],
-                         _microbatch_generator(seed, mb_i, labels.device),
-                         list_K)
-        cmax += a
-        crand += b
-    nvalid = max(n, 1)
-    cmax, crand = cmax.cpu().numpy(), crand.cpu().numpy()
-    accs_rand = crand / nvalid  # [nK, R]
-    rand_out = {"data": {}, "list_K": [int(k) for k in list_K]}
-    max_out = {"data": {}, "list_K": [int(k) for k in list_K]}
-    for j, K in enumerate(list_K):
-        rand_out["data"][int(K)] = [float(np.mean(accs_rand[j])),
-                                    float(np.var(accs_rand[j]))]
-        max_out["data"][int(K)] = [float(cmax[j] / nvalid), 0]
-    return rand_out, max_out
+        with span("expt2.microbatch"):
+            a, b = mb_counts(*(t[i: i + mb] for t in arrays), labels[i: i + mb],
+                             _microbatch_generator(seed, mb_i, labels.device),
+                             list_K)
+            cmax += a
+            crand += b
+    with span("expt2.results"):
+        nvalid = max(n, 1)
+        cmax, crand = cmax.cpu().numpy(), crand.cpu().numpy()
+        accs_rand = crand / nvalid  # [nK, R]
+        rand_out = {"data": {}, "list_K": [int(k) for k in list_K]}
+        max_out = {"data": {}, "list_K": [int(k) for k in list_K]}
+        for j, K in enumerate(list_K):
+            rand_out["data"][int(K)] = [float(np.mean(accs_rand[j])),
+                                        float(np.var(accs_rand[j]))]
+            max_out["data"][int(K)] = [float(cmax[j] / nvalid), 0]
+        return rand_out, max_out
 
 
 # ---------------------------------------------------------------------------
@@ -396,26 +414,30 @@ def framewise_expt2(frame_classifier: Optional[Callable],
     unkept bins zeroed, the kept ones chosen by the same ranks."""
     if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
-    device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
-    list_K = (default_list_K(Nfft // 2) if list_K is None
-              else [int(k) for k in list_K])
-    cfg = FeaturizeConfig(fs=fsog, n_fft=Nfft, top_db=tDb, trim=True)
-    frames, valid, flabels = _valid_frames(
-        *_featurize(_kept(waves, lengths, cfg), cfg), labels)
-    farr = freq_coords(frames.shape[-1], fsog, device=device)
-    R = int(nruns)
+    with span("expt2.call"):
+        device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
+        list_K = (default_list_K(Nfft // 2) if list_K is None
+                  else [int(k) for k in list_K])
+        cfg = FeaturizeConfig(fs=fsog, n_fft=Nfft, top_db=tDb, trim=True)
+        with span("expt2.featurize"):
+            frames, valid, flabels = _valid_frames(
+                *_featurize(_kept(waves, lengths, cfg), cfg), labels)
+            farr = freq_coords(frames.shape[-1], fsog, device=device)
+            frames, flabels = frames[valid], flabels[valid]
+        R = int(nruns)
 
-    def mb_counts(frames_mb, labels_mb, gen, Ks):
-        if mode == "cloud":
-            return _prefix_mask_counts(cloud_classifier,
-                                       frame_cloud(frames_mb, farr), frames_mb,
-                                       labels_mb, None, gen, Ks, R)
-        return _prefix_mask_counts(
-            lambda fr, keep: frame_classifier(torch.where(keep, fr, 0.0), farr),
-            frames_mb, frames_mb, labels_mb, None, gen, Ks, R)
+        def mb_counts(frames_mb, labels_mb, gen, Ks):
+            if mode == "cloud":
+                with span("expt2.featurize"):
+                    clouds = frame_cloud(frames_mb, farr)
+                return _prefix_mask_counts(cloud_classifier, clouds, frames_mb,
+                                           labels_mb, None, gen, Ks, R)
+            return _prefix_mask_counts(
+                lambda fr, keep: frame_classifier(torch.where(keep, fr, 0.0), farr),
+                frames_mb, frames_mb, labels_mb, None, gen, Ks, R)
 
-    return _run_masked_sweep(mb_counts, [frames[valid]], flabels[valid], seed,
-                             list_K, _MB_FRAMES, R)
+        return _run_masked_sweep(mb_counts, [frames], flabels, seed,
+                                 list_K, _MB_FRAMES, R)
 
 
 @torch.no_grad()
@@ -434,28 +456,31 @@ def temporal_expt2(cloud_classifier: Callable,
     zeroed."""
     if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
-    device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
-    n_total = Nfft * Ntemp // 2
-    list_K = (default_list_K(n_total) if list_K is None
-              else [int(k) for k in list_K])
-    rows, row_labels, farr, tarr = _temporal_test_rows(
-        waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
-        tDb=tDb, device=device)
-    R = int(nruns)
+    with span("expt2.call"):
+        device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
+        n_total = Nfft * Ntemp // 2
+        list_K = (default_list_K(n_total) if list_K is None
+                  else [int(k) for k in list_K])
+        with span("expt2.featurize"):
+            rows, row_labels, farr, tarr = _temporal_test_rows(
+                waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
+                tDb=tDb, device=device)
+        R = int(nruns)
 
-    def mb_counts(flat_mb, labels_mb, gen, Ks):
-        vals = flat_mb.reshape(flat_mb.shape[0], -1)
-        if mode == "cloud":
+        def mb_counts(flat_mb, labels_mb, gen, Ks):
+            vals = flat_mb.reshape(flat_mb.shape[0], -1)
+            if mode == "cloud":
+                with span("expt2.featurize"):
+                    clouds = grid_cloud(flat_mb, farr, tarr)
+                return _prefix_mask_counts(cloud_classifier, clouds, vals,
+                                           labels_mb, None, gen, Ks, R)
             return _prefix_mask_counts(
-                cloud_classifier, grid_cloud(flat_mb, farr, tarr), vals,
-                labels_mb, None, gen, Ks, R)
-        return _prefix_mask_counts(
-            lambda fl, keep: grid_classifier(
-                torch.where(keep.reshape(fl.shape), fl, 0.0)),
-            flat_mb, vals, labels_mb, None, gen, Ks, R)
+                lambda fl, keep: grid_classifier(
+                    torch.where(keep.reshape(fl.shape), fl, 0.0)),
+                flat_mb, vals, labels_mb, None, gen, Ks, R)
 
-    return _run_masked_sweep(mb_counts, [rows], row_labels, seed,
-                             list_K, _MB_CHUNKS, R)
+        return _run_masked_sweep(mb_counts, [rows], row_labels, seed,
+                                 list_K, _MB_CHUNKS, R)
 
 
 @torch.no_grad()
@@ -481,35 +506,41 @@ def rebut_importance_expt(cloud_classifier: Callable, waves, lengths, labels,
     first K draws (a prefix of i.i.d. draws is distributed as K draws).
     Each (winF, microbatch) has its own generator, from ``(seed, winF)``
     and the microbatch index."""
-    device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
-    n_total = Nfft * Ntemp // 2
-    list_K = (default_list_K(n_total) if list_K is None
-              else [int(k) for k in list_K])
-    rows, row_labels, farr, tarr = _temporal_test_rows(
-        waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
-        tDb=tDb, device=device)
-    R = int(nruns)
-    rand_out = {"data": {}, "list_K": list_K}
-    max_out = {"data": {}, "list_K": list_K}
-    for winF in list_winF:
-        def mb_counts(flat_mb, labels_mb, gen, Ks, _w=int(winF)):
-            heat = importance_heatmap(flat_mb, win_f=_w)
-            heat_flat = heat.transpose(-1, -2).reshape(heat.shape[0], -1)
-            clouds = grid_cloud(flat_mb, farr, tarr)
-            B, n = heat_flat.shape
-            draws = torch.multinomial(heat_flat.repeat(R, 1), n, replacement=True,
-                                      generator=gen).reshape(R, B, n)
-            drawn = torch.stack([clouds.gather(1, d[..., None].expand(B, n, 3))
-                                 for d in draws])
-            pos = torch.arange(n, device=flat_mb.device).expand(R, B, n)
-            return _mask_counts(cloud_classifier, clouds, _ranks_desc(heat_flat),
-                                pos, labels_mb, None, Ks, x_rand=drawn)
+    with span("expt2.call"):
+        device, waves, lengths, labels = _inputs(device, waves, lengths, labels)
+        n_total = Nfft * Ntemp // 2
+        list_K = (default_list_K(n_total) if list_K is None
+                  else [int(k) for k in list_K])
+        with span("expt2.featurize"):
+            rows, row_labels, farr, tarr = _temporal_test_rows(
+                waves, lengths, labels, fsog=fsog, Nfft=Nfft, Ntemp=Ntemp, hf=hf,
+                tDb=tDb, device=device)
+        R = int(nruns)
+        rand_out = {"data": {}, "list_K": list_K}
+        max_out = {"data": {}, "list_K": list_K}
+        for winF in list_winF:
+            def mb_counts(flat_mb, labels_mb, gen, Ks, _w=int(winF)):
+                with span("expt2.featurize"):
+                    clouds = grid_cloud(flat_mb, farr, tarr)
+                with span("expt2.ranks"):
+                    heat = importance_heatmap(flat_mb, win_f=_w)
+                    heat_flat = heat.transpose(-1, -2).reshape(heat.shape[0], -1)
+                    B, n = heat_flat.shape
+                    draws = torch.multinomial(heat_flat.repeat(R, 1), n,
+                                              replacement=True,
+                                              generator=gen).reshape(R, B, n)
+                    drawn = torch.stack([clouds.gather(1, d[..., None].expand(B, n, 3))
+                                         for d in draws])
+                    pos = torch.arange(n, device=flat_mb.device).expand(R, B, n)
+                    rmax = _ranks_desc(heat_flat)
+                return _mask_counts(cloud_classifier, clouds, rmax, pos, labels_mb,
+                                    None, Ks, x_rand=drawn)
 
-        rnd_w, max_w = _run_masked_sweep(mb_counts, [rows], row_labels,
-                                         (seed, int(winF)), list_K, _MB_CHUNKS, R)
-        rand_out["data"][int(winF)] = rnd_w["data"]
-        max_out["data"][int(winF)] = max_w["data"]
-    return rand_out, max_out
+            rnd_w, max_w = _run_masked_sweep(mb_counts, [rows], row_labels,
+                                             (seed, int(winF)), list_K, _MB_CHUNKS, R)
+            rand_out["data"][int(winF)] = rnd_w["data"]
+            max_out["data"][int(winF)] = max_w["data"]
+        return rand_out, max_out
 
 
 # ---------------------------------------------------------------------------
@@ -551,7 +582,9 @@ def make_3st_chunk_classifier(model):
 
 def make_cloud_classifier(model):
     """points ``[Nb, n, d]`` (+ a key mask) → logits: the expt-2 engine
-    passes the mask, so unselected points never enter the attention."""
+    passes the mask, so unselected points never enter the attention.
+    Counts the points handed to the model (``expt2.points_run``)."""
     def fn(points, mask=None):
+        count("expt2.points_run", points.shape[0] * points.shape[1])
         return model(points, mask)
     return fn

@@ -28,6 +28,12 @@ Then the ST forward (kernel K1 when ``use_fused_st``, which takes the full
 Reference semantics: ``Code/settransformertemp.py:35-59`` (n_fft 1024,
 Nyquist bin dropped, 10-frame chunks, remainder dropped) and the
 ``ESC_pc_temp_maxKSS`` top-K clouds (``Code/dataset.py:169-202``).
+
+Under a ``torch.profiler`` each call is a span ``pipeline.classify`` over
+the stages' spans ``pipeline.featurize``, ``pipeline.select``,
+``pipeline.clouds``, ``pipeline.st`` and ``pipeline.mean``, and it counts
+the clouds handed to the ST (``pipeline.clouds_st``) and the valid ones
+among them (``pipeline.clouds_valid``; ``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ from pcaudio_torch.ops.kernels.fused_st import (
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
 from pcaudio_torch.ops.subsample import topk_stable
+from pcaudio_torch.utils.profiling import count, count_device, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,10 +146,11 @@ def extract_chunk_clouds(waves: torch.Tensor, lengths: torch.Tensor,
         clouds, chunk_mask = _clouds_fused(waves, lengths, cfg, plain)
     else:
         clouds, chunk_mask = _clouds_xla(waves, lengths, cfg, plain)
-    B, C, K = clouds.shape[:3]
-    pmask = chunk_mask[:, :, None].expand(B, C, K)
-    return (PointCloud(points=clouds.reshape(B * C, K, 3),
-                       mask=pmask.reshape(B * C, K)), chunk_mask)
+    with span("pipeline.clouds"):
+        B, C, K = clouds.shape[:3]
+        pmask = chunk_mask[:, :, None].expand(B, C, K)
+        return (PointCloud(points=clouds.reshape(B * C, K, 3),
+                           mask=pmask.reshape(B * C, K)), chunk_mask)
 
 
 def _affine_clouds(idx: torch.Tensor, vals: torch.Tensor, F: int, Nt: int,
@@ -172,32 +180,34 @@ def _clouds_fused(waves, lengths, cfg, plain):
     grid_dt = (torch.bfloat16 if (approx or serving_bf16)
                and cfg.stft_precision != "highest" else torch.float32)
     featurize = fused_chunk_mag2_plain if plain else fused_chunk_mag2
-    m2, chunk_mask = featurize(waves, lengths, n_fft=cfg.n_fft,
-                               num_frames=cfg.num_frames, trim=cfg.trim,
-                               top_db=cfg.top_db, out_dtype=grid_dt)
+    with span("pipeline.featurize"):
+        m2, chunk_mask = featurize(waves, lengths, n_fft=cfg.n_fft,
+                                   num_frames=cfg.num_frames, trim=cfg.trim,
+                                   top_db=cfg.top_db, out_dtype=grid_dt)
     B, C, Nt, F = m2.shape
     k = cfg.top_k
-    if k is not None and approx:
-        select = approx_topk_chunks_plain if plain else approx_topk_chunks
-        vals2, idx = select(m2.reshape(B * C, Nt * F), k, cfg.approx_recall)
-        vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
-    elif k is not None:
-        select = exact_topk_chunks_plain if plain else exact_topk_chunks
-        vals2, idx = select(m2.reshape(B * C, Nt, F), k)
-        vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
-    else:
-        vals2 = m2
-    if cfg.stft_precision == "highest":
-        vals = torch.log(1.0e-8 + torch.sqrt(vals2.float()) / cfg.n_fft).to(cdt)
-    else:
-        # 0.5·log(v) − log(n) equals log(1e-8 + sqrt(v)/n) up to
-        # O(1e-8·n/sqrt(v)); the floor pins silent points near log(1e-8)
-        floor = (1.0e-8 * cfg.n_fft) ** 2
-        vals = (0.5 * torch.log(vals2.float().clamp_min(floor))
-                - math.log(cfg.n_fft)).to(cdt)
+    vals2 = m2
     if k is not None:
-        return _affine_clouds(idx, vals, F, Nt, cfg, cfg.fs), chunk_mask
-    return _full_clouds(vals, Nt, F, cfg, cfg.fs), chunk_mask
+        with span("pipeline.select"):
+            if approx:
+                select = approx_topk_chunks_plain if plain else approx_topk_chunks
+                vals2, idx = select(m2.reshape(B * C, Nt * F), k, cfg.approx_recall)
+            else:
+                select = exact_topk_chunks_plain if plain else exact_topk_chunks
+                vals2, idx = select(m2.reshape(B * C, Nt, F), k)
+            vals2, idx = vals2.reshape(B, C, k), idx.reshape(B, C, k)
+    with span("pipeline.clouds"):
+        if cfg.stft_precision == "highest":
+            vals = torch.log(1.0e-8 + torch.sqrt(vals2.float()) / cfg.n_fft).to(cdt)
+        else:
+            # 0.5·log(v) − log(n) equals log(1e-8 + sqrt(v)/n) up to
+            # O(1e-8·n/sqrt(v)); the floor pins silent points near log(1e-8)
+            floor = (1.0e-8 * cfg.n_fft) ** 2
+            vals = (0.5 * torch.log(vals2.float().clamp_min(floor))
+                    - math.log(cfg.n_fft)).to(cdt)
+        if k is not None:
+            return _affine_clouds(idx, vals, F, Nt, cfg, cfg.fs), chunk_mask
+        return _full_clouds(vals, Nt, F, cfg, cfg.fs), chunk_mask
 
 
 def _full_clouds(grid, Nt, F, cfg, fs):
@@ -214,36 +224,45 @@ def _clouds_xla(waves, lengths, cfg, plain):
     on the chunks' bf16 keys in approx mode (the points take the bf16
     values, cast back to the chunk dtype), or the full grid: ``(clouds
     [B, C, K, 3], chunk_mask)``."""
-    logmag, frame_mask = featurize_batch(waves, lengths, cfg.featurize_config())
-    chunks, chunk_mask = batched_temporal_chunks(logmag, frame_mask,
-                                                 cfg.num_frames)
+    with span("pipeline.featurize"):
+        logmag, frame_mask = featurize_batch(waves, lengths, cfg.featurize_config())
+        chunks, chunk_mask = batched_temporal_chunks(logmag, frame_mask,
+                                                     cfg.num_frames)
     B, C, Nt, F = chunks.shape
     eff_fs = cfg.target_fs or cfg.fs
     k = cfg.top_k
-    if k is not None and k < Nt * F and cfg.extraction == "approx":
-        select = approx_topk_chunks_plain if plain else approx_topk_chunks
-        keys = chunks.reshape(B * C, Nt * F).to(torch.bfloat16)
-        bvals, idx = select(keys, k, cfg.approx_recall)
-        vals = bvals.to(chunks.dtype).reshape(B, C, k)
-        return _affine_clouds(idx.reshape(B, C, k), vals, F, Nt, cfg, eff_fs), chunk_mask
-    if k is not None and k < Nt * F:
-        vals, idx = topk_stable(chunks.reshape(B, C, Nt * F), k)
+    if k is None or k >= Nt * F:
+        with span("pipeline.clouds"):
+            return _full_clouds(chunks, Nt, F, cfg, eff_fs), chunk_mask
+    with span("pipeline.select"):
+        if cfg.extraction == "approx":
+            select = approx_topk_chunks_plain if plain else approx_topk_chunks
+            keys = chunks.reshape(B * C, Nt * F).to(torch.bfloat16)
+            bvals, idx = select(keys, k, cfg.approx_recall)
+            idx = idx.reshape(B, C, k)
+        else:
+            vals, idx = topk_stable(chunks.reshape(B, C, Nt * F), k)
+    with span("pipeline.clouds"):
+        if cfg.extraction == "approx":
+            vals = bvals.to(chunks.dtype).reshape(B, C, k)
         return _affine_clouds(idx, vals, F, Nt, cfg, eff_fs), chunk_mask
-    return _full_clouds(chunks, Nt, F, cfg, eff_fs), chunk_mask
 
 
 def _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain):
     cloud, chunk_mask = extract_chunk_clouds(waves, lengths, cfg, plain=plain)
     B, C = chunk_mask.shape
-    if use_fused_st:
-        # mask=None: every cloud here (top K or the full grid) is all
-        # valid or (invalid chunk) all invalid; invalid chunks give finite
-        # logits that the chunk-mask weighting drops.  K1 takes the full
-        # 5,120-point grids in its scratch form
-        st = fused_st_forward_plain if plain else fused_st_forward
-        logits = st(model, cloud.points, None)
-    else:
-        logits = model(cloud.points.float(), cloud.mask)
+    count("pipeline.clouds_st", B * C)
+    count_device("pipeline.clouds_valid", chunk_mask)
+    with span("pipeline.st"):
+        if use_fused_st:
+            # mask=None: every cloud here (top K or the full grid) is all
+            # valid or (invalid chunk) all invalid; invalid chunks give
+            # finite logits that the chunk-mask weighting drops.  K1 takes
+            # the full 5,120-point grids in its scratch form
+            st = fused_st_forward_plain if plain else fused_st_forward
+            logits = st(model, cloud.points, None)
+        else:
+            logits = model(cloud.points.float(), cloud.mask)
     return logits.reshape(B, C, -1), chunk_mask
 
 
@@ -256,10 +275,12 @@ def make_temporal_classifier(model, cfg: TemporalPipelineConfig,
 
     @torch.no_grad()
     def fn(waves: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        logits, chunk_mask = _chunk_logits(model, waves, lengths, cfg,
-                                           use_fused_st, plain)
-        w = chunk_mask[..., None].to(logits.dtype)
-        return (logits * w).sum(1) / w.sum(1).clamp_min(1.0)
+        with span("pipeline.classify"):
+            logits, chunk_mask = _chunk_logits(model, waves, lengths, cfg,
+                                               use_fused_st, plain)
+            with span("pipeline.mean"):
+                w = chunk_mask[..., None].to(logits.dtype)
+                return (logits * w).sum(1) / w.sum(1).clamp_min(1.0)
 
     return fn
 
@@ -272,6 +293,7 @@ def make_chunk_logits(model, cfg: TemporalPipelineConfig,
 
     @torch.no_grad()
     def fn(waves: torch.Tensor, lengths: torch.Tensor):
-        return _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain)
+        with span("pipeline.classify"):
+            return _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain)
 
     return fn

@@ -4,6 +4,14 @@ Cross-entropy on the model's logits and one optimizer step.  PyTorch runs
 eagerly, so a step updates the model and the optimizer in place instead of
 returning a new state; the metrics stay device tensors, so a loop that does
 not read them each step does not wait for the device.
+
+Under a ``torch.profiler`` a train step is a span ``train.step`` over
+``train.forward`` (forward and loss), ``train.backward`` (``zero_grad`` and
+``loss.backward()``) and ``train.optimizer`` (``utils/profiling.py``).
+The autograd engine launches the backward's kernels from a thread of its
+own, so the trace puts them under no device range of ``train.backward``:
+on one stream they are the kernels between a step's forward and its
+optimizer.
 """
 from __future__ import annotations
 
@@ -16,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 from torch.utils.checkpoint import checkpoint
+
+from pcaudio_torch.utils.profiling import span
 
 Batch = Dict[str, torch.Tensor]
 
@@ -143,14 +153,18 @@ def make_train_step(apply_fn: Callable[[Batch], torch.Tensor],
             return apply_fn(batch, train=True)
 
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
-        logits = forward(batch)
-        labels = batch["labels"].long()
-        loss = F.cross_entropy(logits, labels)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        optimizer.step()
-        acc = (logits.detach().argmax(-1) == labels).float().mean()
-        return {"loss": loss.detach(), "accuracy": acc}
+        with span("train.step"):
+            with span("train.forward"):
+                logits = forward(batch)
+                labels = batch["labels"].long()
+                loss = F.cross_entropy(logits, labels)
+            with span("train.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            with span("train.optimizer"):
+                optimizer.step()
+            acc = (logits.detach().argmax(-1) == labels).float().mean()
+            return {"loss": loss.detach(), "accuracy": acc}
 
     return step
 

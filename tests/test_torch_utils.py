@@ -27,6 +27,7 @@ from pcaudio_torch.utils import (
     MetricsWriter, assert_finite_tree, check_jit_purity, count_parameters,
     device_sync, enable_nan_debugging, named_parameters, read_metrics,
     time_fn, trace)
+from pcaudio_torch.utils.profiling import count, count_device, span
 
 
 def _jax_build_params(build, cfg):
@@ -175,7 +176,21 @@ def test_time_fn_and_trace(tmp_path):
     device_sync({"none": []})
     log_dir = str(tmp_path / "trace")
     with trace(log_dir):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("utils.block"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+        count("utils.items", 5)
+        count_device("utils.nonzero", torch.tensor([1, 0, 2]))
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    assert any(e.get("name") == "utils.block" and e.get("cat") == "user_annotation"
+               for e in events)
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        got = json.load(f)
+    assert got["utils.items"] == 5 and got["utils.nonzero"] == 3
+    count("utils.items", 5)  # no profiler: not counted
+    with trace(log_dir):  # a second block holds its own counts only
+        count("utils.items", 2)
+    with open(os.path.join(log_dir, "counters.json")) as f:
+        got = json.load(f)
+    assert got["utils.items"] == 2 and got["utils.nonzero"] == 0

@@ -2593,6 +2593,32 @@ def main():
         f"{st_err:.3e} against the plain version (bar {K1_TOL} abs + rel), "
         f"{f32_err:.3e} against the f32 ST (bar {ST_F32_TOL})")
     errs["fused_st_forward"] = st_err
+    # the form the serving path launches: cloud.mask, the chunk mask
+    # broadcast along K, reaches K1 as a flag a cloud; the clouds of
+    # invalid chunks take the empty cloud's row without a pass, the bits
+    # the passes give a dense all-false row
+    valid = cloud.mask[:, 0]
+    check(cloud.mask.stride(1) == 0 and bool(valid.any()) and not bool(valid.all()),
+          "K1: the serving batch's cloud mask is not a ragged flag a cloud")
+    before = fused_st_forward.launches
+    got_m = fused_st_forward(model, cloud.points, cloud.mask)
+    ref_m = fused_st_forward_plain(model, cloud.points, cloud.mask)
+    dense_m = fused_st_forward(model, cloud.points, cloud.mask.contiguous())
+    torch.cuda.synchronize()
+    check(fused_st_forward.launches == before + 2, "K1 cloud mask: not one launch a call")
+    check(torch.equal(got_m[valid], got[valid]),
+          "K1 cloud mask: the valid clouds' logits differ from mask None's")
+    empty = got_m[~valid]
+    check(torch.equal(empty, empty[:1].expand_as(empty)),
+          "K1 cloud mask: the invalid clouds' logits are not one row")
+    check(torch.equal(dense_m[~valid], empty),
+          "K1 cloud mask: the invalid clouds' row differs from the dense all-false rows'")
+    mask_err = k1_check(got_m, ref_m, f"3ST {tuple(cloud.points.shape)} cloud mask")
+    log(f"[K1] 3ST {tuple(cloud.points.shape)} bf16 points, cloud mask "
+        f"({int(valid.sum())} of {valid.numel()} clouds valid): valid rows equal "
+        f"mask None's bit for bit, the invalid rows one row, equal to the dense "
+        f"all-false rows'; max |err| {mask_err:.3e} against the plain version")
+    errs["fused_st_forward"] = max(st_err, mask_err)
     # every K the kernel must take: FST's 1025-point frames, the serving
     # default 256, odd sizes; din 2 and 3; f32 and bf16 points; no mask,
     # ragged masks (one cloud full, one empty) and every key masked

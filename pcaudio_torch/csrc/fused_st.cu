@@ -9,6 +9,16 @@
 // softmax is the exact max-subtract one with v4's mask semantics: masked
 // keys are skipped, and a query whose keys are all masked attends to nothing
 // (MAB0 and the PMA then give the projected query).  MAB1 is unmasked.
+// The mask comes in two forms: a flag a point (mask, [N, K]), which the
+// passes read, or a flag a cloud (cloud_mask, [N]; the serving pipeline's
+// chunk mask, which masks a chunk's points all or none).  A cloud whose
+// flag is clear skips the passes: its MAB0s and its PMA would see no keys,
+// so the PMA's output is the projected seed query sq and its logits are
+// Linear(sq + relu(bf16(sq) Wo + bo)) whatever its points.  The wrapper
+// packs that row after the weights, computed in the kernel's order (the
+// same bits as the passes give a dense all-false row), and the block
+// copies it (st_empty).  A cloud whose flag is set runs the mask-free
+// forward.
 //
 // Precision is the JAX kernel's: bf16 operands, f32 sums, f32 softmax
 // statistics, with bf16 rounding of the points, of each MAB's projected K
@@ -69,24 +79,28 @@ namespace {
 template <int DIN, int NW>
 __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1)
 fused_st_kernel(const void* __restrict__ points, int points_bf16,
-                const uint8_t* __restrict__ mask, const bf16* __restrict__ wbuf,
-                const float* __restrict__ fbuf, float* __restrict__ out, int K, int M,
-                int ncls, int passes) {
+                const uint8_t* __restrict__ mask, const uint8_t* __restrict__ cloud_mask,
+                const bf16* __restrict__ wbuf, const float* __restrict__ fbuf,
+                float* __restrict__ out, int K, int M, int ncls, int passes) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (!has_points(blockIdx.x, cloud_mask)) {
+    st_empty<NW>(blockIdx.x, fbuf, out, M, ncls);
+    return;
+  }
   st_forward<DIN, NW, false>(blockIdx.x, points, points_bf16, mask, wbuf, fbuf, out, K, M,
                              ncls, passes, smem, nullptr);
 }
 
 template <int DIN, int NW>
-int launch(const void* points, int points_bf16, const uint8_t* mask, const bf16* wb,
-           const float* wf, float* out, int N, int K, int M, int ncls, int passes,
-           cudaStream_t stream) {
+int launch(const void* points, int points_bf16, const uint8_t* mask, const uint8_t* cm,
+           const bf16* wb, const float* wf, float* out, int N, int K, int M, int ncls,
+           int passes, cudaStream_t stream) {
   const size_t smem = smem_bytes(K, NW);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       fused_st_kernel<DIN, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_st_kernel<DIN, NW><<<N, NW * 32, smem, stream>>>(points, points_bf16, mask, wb, wf,
+  fused_st_kernel<DIN, NW><<<N, NW * 32, smem, stream>>>(points, points_bf16, mask, cm, wb, wf,
                                                          out, K, M, ncls, passes);
   return (int)cudaGetLastError();
 }
@@ -103,27 +117,30 @@ extern "C" int pcaudio_fused_st_max_points(int M) {
   return k;
 }
 
+// mask: nullptr or [N, K] flags (one a point); cloud_mask: nullptr or [N]
+// flags (one a cloud); at most one of them.
 extern "C" int pcaudio_fused_st(const void* points, int points_bf16, const void* mask,
-                                const void* wb, long long n_bf16, const void* wf,
-                                long long n_f32, void* out, int N, int K, int din, int M,
-                                int ncls, int passes, void* stream) {
+                                const void* cloud_mask, const void* wb, long long n_bf16,
+                                const void* wf, long long n_f32, void* out, int N, int K,
+                                int din, int M, int ncls, int passes, void* stream) {
   if (N < 1 || K < 1 || ncls < 1 || ncls > 256 || passes < 1 || passes > 3 ||
-      K > pcaudio_fused_st_max_points(M))
+      (mask != nullptr && cloud_mask != nullptr) || K > pcaudio_fused_st_max_points(M))
     return (int)cudaErrorInvalidValue;
   if (n_bf16 != packed_bf16(din, M, ncls) || n_f32 != packed_f32(M, ncls))
     return (int)cudaErrorInvalidValue;
   const auto m = (const uint8_t*)mask;
+  const auto cm = (const uint8_t*)cloud_mask;
   const auto b = (const bf16*)wb;
   const auto f = (const float*)wf;
   const auto st = (cudaStream_t)stream;
   const bool wide = M > 64;
   if (din == 2) {
-    return wide ? launch<2, 8>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, passes, st)
-                : launch<2, 4>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, passes, st);
+    return wide ? launch<2, 8>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, passes, st)
+                : launch<2, 4>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, passes, st);
   }
   if (din == 3) {
-    return wide ? launch<3, 8>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, passes, st)
-                : launch<3, 4>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, passes, st);
+    return wide ? launch<3, 8>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, passes, st)
+                : launch<3, 4>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, passes, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -613,14 +613,37 @@ __device__ __forceinline__ void st_forward(int n, const void* __restrict__ point
   }
 }
 
+// Whether cloud n may have a valid point: false only where cloud_mask ([N],
+// a flag a cloud) is given and cloud n's flag is clear.  The same answer in
+// every thread of the block.
+__device__ __forceinline__ bool has_points(int n, const uint8_t* __restrict__ cloud_mask) {
+  return cloud_mask == nullptr || cloud_mask[n];
+}
+
 // Packed sizes, bf16 and f32; must match fused_st.py::_packed_weights.
 long long packed_bf16(int din, int M, int ncls) {
   auto isab = [&](int ks0) { return (long long)M * kDV + (3LL * ks0 + 16) * kFrag; };
   return isab((din + 15) / 16) + isab(4) + kDV + 8LL * kFrag + kDV * kDV +
          (long long)kDV * ncls;
 }
-long long packed_f32(int M, int ncls) {
-  return 2 * ((long long)M * kDV + 7 * kDV) + 4 * kDV + ncls;
+__host__ __device__ inline long long packed_f32(int M, int ncls) {   // ends with st_empty's row
+  return 2 * ((long long)M * kDV + 7 * kDV) + 4 * kDV + 2LL * ncls;
+}
+
+// The logits of cloud n when its cloud flag is clear, out of the packed f32
+// buffer, which ends with them.  Every MAB0 and the PMA attend to nothing,
+// so the PMA's output is its projected seed query sq and the logits are
+// Linear(sq + relu(bf16(sq) Wo + bo)), whatever the points; the wrapper
+// computes them in st_forward's order (fused_st.py::_empty_logits), and
+// they are the bits st_forward gives a dense all-false row.  Computed here
+// instead, a block beside valid clouds held its SM slot about as long as
+// they did (the tail's dependent chains wait behind their warps; measured,
+// PERF.md).
+template <int NW>
+__device__ __forceinline__ void st_empty(int n, const float* __restrict__ fbuf,
+                                         float* __restrict__ out, int M, int ncls) {
+  const float* row = fbuf + packed_f32(M, ncls) - ncls;
+  for (int c = threadIdx.x; c < ncls; c += NW * 32) out[(size_t)n * ncls + c] = row[c];
 }
 
 }  // namespace

@@ -29,14 +29,20 @@ namespace {
 template <int DIN, int NW>
 __global__ void __launch_bounds__(NW * 32, NW == 4 ? 3 : 1)
 fused_st_scratch_kernel(const void* __restrict__ points, int points_bf16,
-                        const uint8_t* __restrict__ mask, const bf16* __restrict__ wbuf,
-                        const float* __restrict__ fbuf, float* __restrict__ out, int N,
-                        int K, int M, int ncls, uint4* __restrict__ scratch) {
+                        const uint8_t* __restrict__ mask,
+                        const uint8_t* __restrict__ cloud_mask,
+                        const bf16* __restrict__ wbuf, const float* __restrict__ fbuf,
+                        float* __restrict__ out, int N, int K, int M, int ncls,
+                        uint4* __restrict__ scratch) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint4* slab = scratch + blockIdx.x * slab_uint4(K, NW);
   for (int n = blockIdx.x; n < N; n += gridDim.x) {
-    st_forward<DIN, NW, true>(n, points, points_bf16, mask, wbuf, fbuf, out, K, M, ncls, 3,
-                              smem, slab);
+    if (has_points(n, cloud_mask)) {
+      st_forward<DIN, NW, true>(n, points, points_bf16, mask, wbuf, fbuf, out, K, M, ncls, 3,
+                                smem, slab);
+    } else {
+      st_empty<NW>(n, fbuf, out, M, ncls);
+    }
     __syncthreads();   // the next cloud's flags overwrite this one's
   }
 }
@@ -65,14 +71,14 @@ int scratch_blocks(int K, int* blocks) {
 }
 
 template <int DIN, int NW>
-int launch_scratch(const void* points, int points_bf16, const uint8_t* mask, const bf16* wb,
-                   const float* wf, float* out, int N, int K, int M, int ncls, int grid,
-                   uint4* scratch, cudaStream_t stream) {
+int launch_scratch(const void* points, int points_bf16, const uint8_t* mask, const uint8_t* cm,
+                   const bf16* wb, const float* wf, float* out, int N, int K, int M, int ncls,
+                   int grid, uint4* scratch, cudaStream_t stream) {
   size_t smem;
   const int e = scratch_attrs<DIN, NW>(K, &smem);
   if (e != 0) return e;
   fused_st_scratch_kernel<DIN, NW><<<grid, NW * 32, smem, stream>>>(
-      points, points_bf16, mask, wb, wf, out, N, K, M, ncls, scratch);
+      points, points_bf16, mask, cm, wb, wf, out, N, K, M, ncls, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -97,14 +103,16 @@ extern "C" int pcaudio_fused_st_scratch_blocks(int din, int M, int K, int* block
 }
 
 // The scratch form on `grid` blocks; scratch holds n_scratch bf16, at least
-// grid slabs of Kp x 64 (Kp: K rounded up to 16 x warps).
+// grid slabs of Kp x 64 (Kp: K rounded up to 16 x warps).  mask and
+// cloud_mask as pcaudio_fused_st's.
 extern "C" int pcaudio_fused_st_scratch(const void* points, int points_bf16, const void* mask,
-                                        const void* wb, long long n_bf16, const void* wf,
-                                        long long n_f32, void* out, int N, int K, int din,
-                                        int M, int ncls, int grid, void* scratch,
-                                        long long n_scratch, void* stream) {
+                                        const void* cloud_mask, const void* wb,
+                                        long long n_bf16, const void* wf, long long n_f32,
+                                        void* out, int N, int K, int din, int M, int ncls,
+                                        int grid, void* scratch, long long n_scratch,
+                                        void* stream) {
   if (N < 1 || K < 1 || ncls < 1 || ncls > 256 || grid < 1 || scratch == nullptr ||
-      K > pcaudio_fused_st_scratch_max_points(M))
+      (mask != nullptr && cloud_mask != nullptr) || K > pcaudio_fused_st_scratch_max_points(M))
     return (int)cudaErrorInvalidValue;
   if (n_bf16 != packed_bf16(din, M, ncls) || n_f32 != packed_f32(M, ncls))
     return (int)cudaErrorInvalidValue;
@@ -112,17 +120,18 @@ extern "C" int pcaudio_fused_st_scratch(const void* points, int points_bf16, con
   if ((long long)grid * (long long)slab_uint4(K, wide ? 8 : 4) * 8 > n_scratch)
     return (int)cudaErrorInvalidValue;
   const auto m = (const uint8_t*)mask;
+  const auto cm = (const uint8_t*)cloud_mask;
   const auto b = (const bf16*)wb;
   const auto f = (const float*)wf;
   const auto st = (cudaStream_t)stream;
   const auto x = (uint4*)scratch;
   if (din == 2) {
-    return wide ? launch_scratch<2, 8>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, grid, x, st)
-                : launch_scratch<2, 4>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, grid, x, st);
+    return wide ? launch_scratch<2, 8>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, grid, x, st)
+                : launch_scratch<2, 4>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, grid, x, st);
   }
   if (din == 3) {
-    return wide ? launch_scratch<3, 8>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, grid, x, st)
-                : launch_scratch<3, 4>(points, points_bf16, m, b, f, (float*)out, N, K, M, ncls, grid, x, st);
+    return wide ? launch_scratch<3, 8>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, grid, x, st)
+                : launch_scratch<3, 4>(points, points_bf16, m, cm, b, f, (float*)out, N, K, M, ncls, grid, x, st);
   }
   return (int)cudaErrorInvalidValue;
 }

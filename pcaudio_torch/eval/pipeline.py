@@ -255,12 +255,15 @@ def _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain):
     count_device("pipeline.clouds_valid", chunk_mask)
     with span("pipeline.st"):
         if use_fused_st:
-            # mask=None: every cloud here (top K or the full grid) is all
-            # valid or (invalid chunk) all invalid; invalid chunks give
-            # finite logits that the chunk-mask weighting drops.  K1 takes
-            # the full 5,120-point grids in its scratch form
+            # every cloud here (top K or the full grid) is all valid or
+            # (invalid chunk) all invalid, and cloud.mask is the chunk mask
+            # broadcast: K1 takes it as a flag a cloud, runs the valid
+            # chunks' clouds unmasked and gives the invalid ones the logits
+            # of an empty cloud without a forward; the chunk-mask weighting
+            # drops those.  K1 takes the full 5,120-point grids in its
+            # scratch form
             st = fused_st_forward_plain if plain else fused_st_forward
-            logits = st(model, cloud.points, None)
+            logits = st(model, cloud.points, cloud.mask)
         else:
             logits = model(cloud.points.float(), cloud.mask)
     return logits.reshape(B, C, -1), chunk_mask
@@ -289,7 +292,13 @@ def make_chunk_logits(model, cfg: TemporalPipelineConfig,
                       use_fused_st: bool = False, plain: bool = False):
     """Like :func:`make_temporal_classifier` but returns ``(chunk logits
     [B, C, nclass], chunk_mask [B, C])``, the reference's unit of
-    evaluation."""
+    evaluation.
+
+    With ``use_fused_st`` an invalid chunk (``chunk_mask`` false) gets the
+    logits of an empty cloud, the masked ST's: this departs from the JAX
+    reference's fused path (``pcaudio/eval/pipeline.py``), which runs it
+    unmasked, and matches its ``use_fused_st=False`` path.  Valid chunks'
+    logits and the clip logits are the same either way."""
 
     @torch.no_grad()
     def fn(waves: torch.Tensor, lengths: torch.Tensor):

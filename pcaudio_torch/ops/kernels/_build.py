@@ -44,10 +44,10 @@ _SIGNATURES = {
     "pcaudio_chunk_mag2": [_P, _P, _P, _I, _I, _I, _I, _P],
     "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
     "pcaudio_approx_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pcaudio_fused_st": [_P, _I, _P, _P, _L, _P, _L, _P,
+    "pcaudio_fused_st": [_P, _I, _P, _P, _P, _L, _P, _L, _P,
                          _I, _I, _I, _I, _I, _I, _P],
     "pcaudio_fused_st_max_points": [_I],
-    "pcaudio_fused_st_scratch": [_P, _I, _P, _P, _L, _P, _L, _P,
+    "pcaudio_fused_st_scratch": [_P, _I, _P, _P, _P, _L, _P, _L, _P,
                                  _I, _I, _I, _I, _I, _I, _P, _L, _P],
     "pcaudio_fused_st_scratch_max_points": [_I],
     "pcaudio_fused_st_scratch_blocks": [_I, _I, _I, ctypes.POINTER(_I)],

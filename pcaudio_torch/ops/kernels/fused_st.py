@@ -4,12 +4,15 @@ PyTorch version.
 
 ISAB → ISAB → PMA(1 seed) → Linear, one thread block per cloud.  The
 softmax is the exact max-subtract one with v4's mask semantics (a fully
-masked cloud attends to nothing), so one kernel serves both the mask-free
-serving call and the masked one.  Precision is the JAX kernel's: bf16
-operands and f32 sums, rounding to bf16 the points, each MAB's projected K
-and V, the probabilities before A·V (unnormalised, in an online softmax
-over 64-key chunks; the PMA's stay f32), the input of every product and
-each ISAB's output.  The f32 ``ST`` module stays the model (``use_fused_st=False``
+masked cloud attends to nothing), so one kernel serves the mask-free call,
+the masked one and the serving call, whose chunk mask masks a cloud's
+points all or none and reaches the kernel as a flag a cloud: a cloud whose
+flag is clear takes the logits of an empty cloud, packed with the
+weights.  Precision is the JAX kernel's: bf16 operands and f32 sums,
+rounding to bf16 the points, each MAB's projected K and V, the
+probabilities before A·V (unnormalised, in an online softmax over 64-key
+chunks; the PMA's stay f32), the input of every product and each ISAB's
+output.  The f32 ``ST`` module stays the model (``use_fused_st=False``
 and training); it sits about 5e-2 from this function (docs/ACCURACY.md).
 
 Two forms of the kernel: clouds of at most :func:`max_points` points (1,280
@@ -216,13 +219,35 @@ def _fragments(w_t: torch.Tensor) -> torch.Tensor:
     return wp.reshape(-1)[_fragment_index(k_in, str(w_t.device))]
 
 
+def _empty_logits(sq: torch.Tensor, fc_o: torch.nn.Linear,
+                  dense: torch.nn.Linear) -> torch.Tensor:
+    """The logits K1 gives a cloud with no valid point, from the PMA's
+    projected seed query ``sq`` (f32): every MAB0 and the PMA attend to
+    nothing, so the PMA's output is ``sq + 0``, then its rFF and the output
+    Linear, each output a chain over the 64 inputs in order from its bias,
+    as ``fused_st.cuh::st_forward`` computes them.  Each step adds the
+    product of two bf16 values, exact in f32, so its one f32 rounding is
+    the kernel's ``fmaf``'s: the same bits."""
+    def chain(x, layer):   # bias + Σ_k bf16(x_k)·bf16(W[k]), k in order
+        a, w = _r(x), _r(layer.weight.T.float())
+        r = layer.bias.detach().float().clone()
+        for k in range(a.numel()):
+            r.addcmul_(a[k], w[k])   # fused or not: the product is exact
+        return r
+    v = sq.reshape(-1).float() + 0.0
+    v = v + chain(v, fc_o).clamp_min(0.0)
+    return chain(v, dense)
+
+
 def _packed_weights(model: ST, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(bf16 buffer, f32 buffer)`` of every weight, in the order
     K1 reads them (``fused_st.cuh``): per ISAB the projected inducing queries
     (bf16, then f32 in the second buffer), MAB0's K, V, O and MAB1's Q, K,
     V, O weights in B-fragment order (:func:`_fragments`) and their biases;
     then the PMA's seed query, its K and V weights as fragments, its O
-    weight and the output Linear's as bf16 ``[in, out]``, and their biases.
+    weight and the output Linear's as bf16 ``[in, out]``, and their biases;
+    last the logits of a cloud with no valid point (:func:`_empty_logits`),
+    which K1 copies for such a cloud.
     The batch-invariant queries are computed here in f32.  Cached on the
     module, keyed by each parameter's storage and version counter, so
     ``load_state_dict`` or an optimizer step repacks."""
@@ -245,7 +270,8 @@ def _packed_weights(model: ST, device) -> Tuple[torch.Tensor, torch.Tensor]:
         pma, dense = model.dec[0].mab, model.dec[1]
         sq = pma.fc_q(model.dec[0].S[0]).float()
         wb += [sq, frag(pma.fc_k), frag(pma.fc_v), pma.fc_o.weight.T, dense.weight.T]
-        wf += [sq, pma.fc_k.bias, pma.fc_v.bias, pma.fc_o.bias, dense.bias]
+        wf += [sq, pma.fc_k.bias, pma.fc_v.bias, pma.fc_o.bias, dense.bias,
+               _empty_logits(sq, pma.fc_o, dense)]
         bufs = tuple(torch.cat([p.detach().float().reshape(-1) for p in parts])
                      .to(device=device, dtype=dt).contiguous()
                      for parts, dt in ((wb, torch.bfloat16), (wf, torch.float32)))
@@ -264,6 +290,15 @@ def fused_st_forward(model: ST, points: torch.Tensor,
     max_scratch_points(num_inds)``; anything else raises before a launch.
     Up to ``max_points(num_inds)`` points (1,280 at 64 inducing points) the
     shared-memory form runs, above it the scratch form.
+
+    The mask reaches the kernel in one of two forms.  A mask broadcast
+    along K (stride 0 there, as ``extract_chunk_clouds`` builds it from the
+    chunk mask) goes as its ``[N]`` column, a flag a cloud, with no copy
+    when that column is contiguous; any other mask as ``[N, K]`` flags,
+    which the kernel's passes read.  A cloud whose flag is clear takes the
+    logits of an empty cloud from the packed weights (:func:`_empty_logits`)
+    without a pass, the same bits as the passes give a dense all-false
+    row; a cloud whose flag is set runs the mask-free forward.
     """
     if points.device.type == "cpu":
         return fused_st_forward_plain(model, points, mask)
@@ -272,6 +307,8 @@ def fused_st_forward(model: ST, points: torch.Tensor,
     if not (points.is_cuda and points.is_contiguous()):
         raise ValueError("points must be a contiguous CUDA tensor")
     if mask is not None:
+        if mask.stride(1) == 0:   # one flag a cloud
+            mask = mask[:, 0]
         mask = mask.to(device=points.device, dtype=torch.bool).contiguous()
     w = _packed_weights(model, points.device)
     out = torch.empty((points.shape[0], model.dec[1].out_features),
@@ -281,11 +318,21 @@ def fused_st_forward(model: ST, points: torch.Tensor,
     return out
 
 
+def _mask_args(mask: Optional[torch.Tensor]) -> Tuple[Optional[int], Optional[int]]:
+    """The kernel's two mask arguments, ``[N, K]`` flags (one a point) and
+    ``[N]`` flags (one a cloud): the address of the form ``mask`` has, None
+    for the other."""
+    if mask is None:
+        return None, None
+    return (None, mask.data_ptr()) if mask.dim() == 1 else (mask.data_ptr(), None)
+
+
 def launch_packed(points: torch.Tensor, mask: Optional[torch.Tensor],
                   w: Tuple[torch.Tensor, torch.Tensor], out: torch.Tensor,
                   num_inds: int, passes: int = 3) -> None:
     """One launch of K1 on checked operands: ``points [N, K, din]``
-    contiguous on the card, ``mask`` contiguous bool or None, ``w`` from
+    contiguous on the card, ``mask`` contiguous bool, ``[N, K]`` (a flag a
+    point), ``[N]`` (a flag a cloud) or None, ``w`` from
     :func:`_packed_weights`, ``out [N, ncls]`` f32.  ``passes`` < 3 stops
     the kernel after that many of its passes over the points (ISAB 1's
     MAB0; ISAB 1's MAB1 with ISAB 2's MAB0; the third is ISAB 2's MAB1,
@@ -295,8 +342,7 @@ def launch_packed(points: torch.Tensor, mask: Optional[torch.Tensor],
     N, K, din = points.shape
     wb, wf = w
     _build.launch("pcaudio_fused_st", points.data_ptr(),
-                  int(points.dtype == torch.bfloat16),
-                  None if mask is None else mask.data_ptr(),
+                  int(points.dtype == torch.bfloat16), *_mask_args(mask),
                   wb.data_ptr(), wb.numel(), wf.data_ptr(), wf.numel(),
                   out.data_ptr(), N, K, din, num_inds, out.shape[1], passes,
                   _build.stream_of(points))
@@ -342,8 +388,7 @@ def launch_scratch(points: torch.Tensor, mask: Optional[torch.Tensor],
     scratch = torch.empty(grid * slab, dtype=torch.bfloat16, device=points.device)
     wb, wf = w
     _build.launch("pcaudio_fused_st_scratch", points.data_ptr(),
-                  int(points.dtype == torch.bfloat16),
-                  None if mask is None else mask.data_ptr(),
+                  int(points.dtype == torch.bfloat16), *_mask_args(mask),
                   wb.data_ptr(), wb.numel(), wf.data_ptr(), wf.numel(),
                   out.data_ptr(), N, K, din, num_inds, out.shape[1], grid,
                   scratch.data_ptr(), scratch.numel(), _build.stream_of(points))

@@ -175,7 +175,7 @@ def main(argv=None) -> None:
         fn.argtypes = _build._SIGNATURES["pcaudio_fused_st"]
 
         def launch(passes):
-            code = fn(pts.data_ptr(), 1, None, wb.data_ptr(), wb.numel(), wf.data_ptr(),
+            code = fn(pts.data_ptr(), 1, None, None, wb.data_ptr(), wb.numel(), wf.data_ptr(),
                       wf.numel(), out.data_ptr(), N, K, DIN, M, NCLS, passes, stream)
             if code:
                 raise RuntimeError(f"{name}: launch failed ({code})")

@@ -171,11 +171,101 @@ def test_fused_st_scratch_form_refuses(cuda):
     small = torch.empty(slab_bytes(2048, 64) // 2 - 1, dtype=torch.bfloat16, device=cuda)
     for grid, scratch in ((1, small), (0, small)):
         with pytest.raises(RuntimeError, match="pcaudio_fused_st_scratch"):
-            _build.launch("pcaudio_fused_st_scratch", pts.data_ptr(), 0, None,
+            _build.launch("pcaudio_fused_st_scratch", pts.data_ptr(), 0, None, None,
                           wb.data_ptr(), wb.numel(), wf.data_ptr(), wf.numel(),
                           out.data_ptr(), 2, 2048, 3, 64, 10, grid,
                           scratch.data_ptr(), scratch.numel(),
                           _build.stream_of(pts))
+
+
+def _record_k1_masks(monkeypatch):
+    """What each K1 launch hands its kernel of the mask: ``(the [N, K]
+    flags' address, the [N] flags' address)``, whichever form runs."""
+    seen = []
+    launch = _build.launch
+
+    def record(name, *args):
+        if name in ("pcaudio_fused_st", "pcaudio_fused_st_scratch"):
+            seen.append((args[2], args[3]))
+        return launch(name, *args)
+    monkeypatch.setattr(_build, "launch", record)
+    return seen
+
+
+@pytest.mark.parametrize("K,M", [(128, 64), (1025, 64), (200, 128), (2048, 64), (5120, 64)])
+def test_fused_st_empty_clouds(cuda, monkeypatch, K, M):
+    """K1 on a mask of one flag a cloud (broadcast along K, as the serving
+    pipeline builds it) and on a dense mask with all-false rows, in the
+    shared form (K <= max_points) and the scratch form (on more clouds than
+    its grid has blocks): the valid clouds' logits are the mask-free ones
+    bit for bit; every invalid cloud gets one row, the packed row of an
+    empty cloud, bit for bit the logits that the kernel's masked passes
+    give the dense all-false rows, and within K1's bar of the plain
+    version; one launch each, and the flags reach the kernel as the cloud
+    mask's own storage, with no [N, K] copy."""
+    torch.manual_seed(2)
+    model = ST(dim_input=3, dim_output=10, num_inds=M, dim_hidden=64,
+               num_heads=8).to(cuda).eval()
+    scratch = K > max_points(M)
+    N = 2 * resident_blocks(torch.cuda.current_device(), 3, M, K) + 3 if scratch else 300
+    gen = torch.Generator(cuda).manual_seed(K)
+    pts = torch.randn(N, K, 3, generator=gen, device=cuda)
+    cloud_mask = torch.rand(N, generator=gen, device=cuda) < 0.5
+    cloud_mask[:3] = torch.tensor([True, False, True])
+    mask = cloud_mask[:, None].expand(N, K)
+    seen = _record_k1_masks(monkeypatch)
+    counters = lambda: (fused_st_forward.launches, launch_scratch.launches)
+    before = counters()
+    got = fused_st_forward(model, pts, mask)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + (not scratch), before[1] + scratch)
+    assert seen == [(None, cloud_mask.data_ptr())]
+    assert torch.isfinite(got).all()
+    free = fused_st_forward(model, pts, None)
+    assert torch.equal(got[cloud_mask], free[cloud_mask])
+    dense = mask.contiguous()
+    dense_out = fused_st_forward(model, pts, dense)
+    assert seen[-1] == (dense.data_ptr(), None)
+    empty = got[~cloud_mask]
+    assert torch.equal(dense_out[~cloud_mask], empty)
+    assert torch.equal(empty, empty[:1].expand_as(empty))
+    assert torch.equal(empty[0], _packed_weights(model, cuda)[1][-10:])
+    idx = torch.nonzero(~cloud_mask)[:6, 0]
+    torch.testing.assert_close(empty[:len(idx)],
+                               fused_st_forward_plain(model, pts[idx], mask[idx]),
+                               atol=1e-2, rtol=1e-2)
+
+
+def test_serving_hands_k1_the_chunk_mask(cuda, monkeypatch):
+    """The serving pipeline on a ragged batch: one K1 launch, handed the
+    chunk mask itself as a flag a cloud (no copy); the valid chunks'
+    logits are the mask-free forward's bit for bit, the invalid chunks'
+    one row, and the clip logits those of the mask-free forward."""
+    from pcaudio_torch.eval import extract_chunk_clouds, make_chunk_logits
+
+    model = _full_st(3, cuda)
+    cfg = TemporalPipelineConfig(top_k=128, stft_precision="default",
+                                 compute_dtype="bfloat16")
+    rng = np.random.default_rng(9)
+    B, L = 6, 65536
+    w = torch.from_numpy((0.1 * rng.standard_normal((B, L))).astype(np.float32)).to(cuda)
+    ln = torch.tensor([L, 50000, 30000, 12000, 3000, 600], dtype=torch.int32).to(cuda)
+    seen = _record_k1_masks(monkeypatch)
+    before = fused_st_forward.launches
+    logits, chunk_mask = make_chunk_logits(model, cfg, use_fused_st=True)(w, ln)
+    torch.cuda.synchronize()
+    assert fused_st_forward.launches == before + 1
+    assert seen == [(None, chunk_mask.data_ptr())]
+    assert chunk_mask.any() and not chunk_mask.all()
+    cloud, _ = extract_chunk_clouds(w, ln, cfg)
+    free = fused_st_forward(model, cloud.points, None).reshape(logits.shape)
+    assert torch.equal(logits[chunk_mask], free[chunk_mask])
+    empty = logits[~chunk_mask]
+    assert torch.equal(empty, empty[:1].expand_as(empty))
+    wt = chunk_mask[..., None].float()
+    pooled = (free * wt).sum(1) / wt.sum(1).clamp_min(1.0)
+    clip = make_temporal_classifier(model, cfg, use_fused_st=True)(w, ln)
+    assert torch.equal(clip, pooled)
 
 
 def test_full_grid_serving_through_the_scratch_form(cuda):

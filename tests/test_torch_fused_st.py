@@ -105,6 +105,49 @@ def test_plain_matches_f32_st(din, K, pattern):
                                k1.fused_st_forward_plain(tm, pts, mask), atol=0, rtol=0)
 
 
+def _empty_cloud_logits(tm):
+    """The logits of a cloud with no valid point, from the weights: every
+    MAB0 and the PMA attend to nothing, so the PMA's output is its
+    projected seed query sq, and the logits Linear(sq + relu(bf16(sq) Wo +
+    bo)), bf16 products with f32 sums."""
+    pma = tm.dec[0]
+    with torch.no_grad():
+        sq = pma.mab.fc_q(pma.S[0])
+        p = sq + torch.relu(k1._lin(sq, pma.mab.fc_o))
+        return k1._lin(p, tm.dec[1])[0]
+
+
+@pytest.mark.parametrize("din,K,width", [(3, 128, "full_3st"), (2, 1025, "full_3st"),
+                                         (3, 40, "small")])
+def test_plain_per_cloud_mask(din, K, width):
+    """A mask broadcast along K (one flag a cloud, as the serving pipeline
+    builds it): the valid clouds' logits are the mask-free ones bit for
+    bit; every invalid cloud gets the one logit row of an empty cloud,
+    whatever its points, the row a dense all-false mask gives and the one
+    the weights alone give."""
+    _, dim, inds, heads = WIDTHS[width]
+    _, tm = _pair(din, dim, inds, heads, seed=K)
+    rng = np.random.default_rng(K)
+    N = 9
+    pts = torch.from_numpy(rng.standard_normal((N, K, din)).astype(np.float32))
+    valid = torch.from_numpy(rng.random(N) < 0.5)
+    valid[:2] = torch.tensor([True, False])
+    mask = valid[:, None].expand(N, K)
+    assert mask.stride(1) == 0
+    got = k1.fused_st_forward_plain(tm, pts, mask)
+    assert torch.equal(got[valid], k1.fused_st_forward_plain(tm, pts, None)[valid])
+    empty = got[~valid]
+    assert torch.equal(empty, empty[:1].expand_as(empty))
+    moved = pts.clone()
+    moved[~valid] = torch.from_numpy(
+        rng.standard_normal((int((~valid).sum()), K, din)).astype(np.float32)) * 10
+    assert torch.equal(k1.fused_st_forward_plain(tm, moved, mask)[~valid], empty)
+    dense = mask.contiguous()
+    assert dense.stride(1) == 1 and not dense[~valid].any()
+    assert torch.equal(k1.fused_st_forward_plain(tm, pts, dense), got)
+    torch.testing.assert_close(empty[0], _empty_cloud_logits(tm), atol=1e-6, rtol=1e-6)
+
+
 def _unfragment(frags, k_in):
     """Inverse of the mma B-fragment order, from the PTX layout of
     m16n8k16's B operand: lane 4·(n % 8) + (k % 8) // 2 of column tile n // 8
@@ -169,7 +212,34 @@ def test_packed_weights_unpack_to_parameters(din, inds):
         assert torch.equal(take_f(64), sq.reshape(-1))
         for layer in (pma.fc_k, pma.fc_v, pma.fc_o, dense):
             assert torch.equal(take_f(layer.bias.numel()), layer.bias)
+        assert torch.equal(take_f(10), k1._empty_logits(sq, pma.fc_o, dense))
     assert ib == wb.numel() and iff == wf.numel()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_empty_logits_round_as_fma(seed):
+    """The packed logits of an empty cloud are the kernel's chain of fmaf
+    steps: each step emulated as one exact float64 sum of an exact product
+    rounded once to f32 gives the same bits; and they are the plain
+    version's empty-cloud logits up to the summation order."""
+    _, tm = _pair(3, 64, 64, 8, seed=seed)
+    pma, dense = tm.dec[0].mab, tm.dec[1]
+    bf = lambda t: t.detach().float().to(torch.bfloat16).double()
+
+    def fma_chain(x, layer):
+        a, w = bf(x), bf(layer.weight.T)
+        r = layer.bias.detach().float()
+        for k in range(a.numel()):
+            r = (a[k] * w[k] + r.double()).float()
+        return r
+    with torch.no_grad():
+        sq = pma.fc_q(tm.dec[0].S[0]).reshape(-1)
+        v = sq + 0.0
+        v = v + fma_chain(v, pma.fc_o).clamp_min(0.0)
+        want = fma_chain(v, dense)
+        got = k1._empty_logits(sq, pma.fc_o, dense)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, _empty_cloud_logits(tm), atol=1e-6, rtol=1e-6)
 
 
 @pytest.mark.parametrize("inds,K,ok", [(64, 256, True), (64, 512, True),

@@ -22,6 +22,7 @@ from pcaudio_torch.eval import (
     make_temporal_classifier)
 from pcaudio_torch.nn import ST
 from pcaudio_torch.ops.kernels.featurize import fused_chunk_mag2_plain
+from pcaudio_torch.ops.kernels.fused_st import fused_st_forward_plain
 from pcaudio_torch.serve import AudioClassifier
 
 TOP_K = 128
@@ -258,6 +259,42 @@ def test_full_grid_fused_st_matches_jax():
         np.testing.assert_allclose(got, ref, atol=3e-2, rtol=3e-2, err_msg=fz)
     chunk_logits, chunk_mask = make_chunk_logits(tm, cfg, use_fused_st=True)(tw, tl)
     assert chunk_mask.shape == (1, 4) and int(chunk_mask.sum()) == 4
+
+
+@pytest.mark.parametrize("featurize", ["fused", "xla"])
+def test_chunk_mask_reaches_the_fused_st(featurize):
+    """``use_fused_st`` hands K1 (its plain version here) the chunk mask as
+    the clouds' mask: on a ragged batch, whose short clips leave most of
+    their chunks invalid, the valid chunks' logits and the pooled clip
+    logits are those of the mask-free forward bit for bit, and every
+    invalid chunk gets the one logit row of an empty cloud."""
+    torch.manual_seed(0)
+    tm = ST(dim_input=3, dim_output=10, num_inds=64, dim_hidden=64,
+            num_heads=8).eval()
+    cfg = TemporalPipelineConfig(top_k=TOP_K, stft_precision="default",
+                                 compute_dtype="bfloat16", featurize=featurize)
+    rng = np.random.default_rng(7)
+    L = 32768
+    lengths = torch.tensor([L, 20000, 9000, 3000], dtype=torch.int32)
+    waves = torch.zeros(4, L)
+    for i, n in enumerate(lengths.tolist()):
+        waves[i, :n] = torch.from_numpy((0.1 * rng.standard_normal(n)).astype(np.float32))
+    cloud, chunk_mask = extract_chunk_clouds(waves, lengths, cfg)
+    assert chunk_mask.any() and not chunk_mask.all()
+    B, C = chunk_mask.shape
+    free = fused_st_forward_plain(tm, cloud.points, None).reshape(B, C, -1)
+    w = chunk_mask[..., None].float()
+    pooled = (free * w).sum(1) / w.sum(1).clamp_min(1.0)
+
+    got, got_mask = make_chunk_logits(tm, cfg, use_fused_st=True)(waves, lengths)
+    assert torch.equal(got_mask, chunk_mask)
+    assert torch.equal(got[chunk_mask], free[chunk_mask])
+    empty = got[~chunk_mask]
+    assert torch.equal(empty, empty[:1].expand_as(empty))
+    for plain in (False, True):
+        clip = make_temporal_classifier(tm, cfg, use_fused_st=True, plain=plain)(
+            waves, lengths)
+        assert torch.equal(clip, pooled), plain
 
 
 def test_audio_classifier_full_width_ragged_request():

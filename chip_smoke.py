@@ -180,7 +180,14 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    single-process step, then two more steps after which the ranks'
    parameters are bit-identical; 1 rank takes the same step over NCCL.  The
    ms of a sharded forward and of a DP step are printed (ranks sharing one
-   card; not a scaling number).  Any rank's failure fails the run.
+   card; not a scaling number).  Any rank's failure fails the run;
+14. holds K5 (the AST's attention, ``csrc/attn.cu``) against its plain
+   twin at the AST's serving shape (128 clips x 1,214 tokens x 12 heads of
+   64), times it beside the twin and beside SDPA (``library_ms``) with its
+   bound; then serves one AST batch (128 clips of 10 s, full width, seeded
+   weights) through ``AudioClassifier``: K5 launches once a layer there
+   (the count reported), the logits sit within 0.25 x their deviation RMS
+   of the plain path's, and that batch is profiled by kernel.
 
 Beside each kernel's time at the main path's shapes it prints the least
 time the card could take for that work (``bound_ms``: bytes over 3.35 TB/s
@@ -215,14 +222,14 @@ from pcaudio_torch.data import generate_esc_corpus, load_esc_split_waves, pad_ba
 from pcaudio_torch.data.synthetic import synth_clip
 from pcaudio_torch.core.config import ExperimentConfig
 from pcaudio_torch.eval import (
-    TemporalPipelineConfig, extract_chunk_clouds, framewise_expt1,
-    framewise_expt2, make_3st_chunk_classifier, make_cloud_classifier,
+    SpectrogramPipelineConfig, TemporalPipelineConfig, extract_chunk_clouds,
+    framewise_expt1, framewise_expt2, make_3st_chunk_classifier, make_cloud_classifier,
     make_chunk_logits, make_cnn_chunk_classifier, make_fb_frame_classifier,
-    make_temporal_classifier, rebut_importance_expt, temporal_expt1,
-    temporal_expt2)
+    make_spectrogram_classifier, make_temporal_classifier, rebut_importance_expt,
+    temporal_expt1, temporal_expt2)
 from pcaudio_torch.eval.experiments import (
     _MB_CHUNKS, _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
-from pcaudio_torch.nn import ST
+from pcaudio_torch.nn import AST, ST
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
@@ -234,6 +241,7 @@ from pcaudio_torch.ops.kernels.mha import (
     fused_mha_bwd_plain, fused_mha_fwd, fused_mha_plain)
 from pcaudio_torch.ops.kernels.select import (
     exact_topk_chunks, exact_topk_chunks_plain)
+from pcaudio_torch.ops.kernels.attn import attn_fwd, attn_fwd_plain
 from pcaudio_torch.ops.kernels.approx_select import (
     approx_topk_chunks, approx_topk_chunks_plain, approx_topk_plan)
 from pcaudio_torch.probes import PROBES, ingest, probe_stages
@@ -273,6 +281,8 @@ KERNELS = {  # wrapper, source, the TPU kernel's entry point it replaces
                       "pcaudio/ops/kernels/mha.py:377"),
     "fused_mha_bwd": (fused_mha_bwd, "pcaudio_torch/csrc/mha.cu",
                       "pcaudio/ops/kernels/mha.py:377"),
+    # K5 replaces no TPU kernel: the JAX package has no AST
+    "attn_fwd": (attn_fwd, "pcaudio_torch/csrc/attn.cu", "none (the AST is port-only)"),
 }
 SERVE_KERNELS = ("fused_chunk_mag2", "exact_topk_chunks", "fused_st_forward")
 # approx serving (extraction="approx") on each featurize path: K2a, no K2
@@ -2462,6 +2472,83 @@ def parallel_phase(job, name_limit):
     return fwd, bwd
 
 
+# the AST's attention at its serving shape: 128 clips of 1,214 tokens, 12
+# heads of 64
+K5_SHAPE = (128, 1214, 12)
+
+
+def k5_phase(name_limit):
+    """K5 against its plain twin at the AST's serving shape, timed beside it
+    and beside SDPA (the ``library_ms`` yardstick, which the port never
+    calls); then one AST serving batch (full width, 12 layers, seeded
+    weights) through ``AudioClassifier``, with K5's launches counted over
+    that call alone (one a layer) and its logits held against the plain
+    path's, and that batch profiled by kernel.  Returns ``(max |err|,
+    (kernel ms, plain ms), bound, SDPA ms, launches)``."""
+    dev = torch.device("cuda")
+    B, N, H = K5_SHAPE
+    g = torch.Generator(device=dev).manual_seed(24)
+    qkv = (2.0 * torch.randn(B, N, 3 * H * 64, device=dev, generator=g)).to(torch.bfloat16)
+    got = attn_fwd(qkv, H, 0.125)
+    plain = attn_fwd_plain(qkv, H, 0.125)
+    torch.cuda.synchronize()
+    err = (got.float() - plain.float()).abs().max().item()
+    scale = plain.float().abs().max().item()
+    check(err < 1.2e-2 * scale, f"K5: max |err| {err} against the twin (scale {scale})")
+    q, k, v = qkv.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4)
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125), 10)
+    k_ms, p_ms = paired_ms(lambda: attn_fwd(qkv, H, 0.125),
+                           lambda: attn_fwd_plain(qkv, H, 0.125), 10, 1)
+    flops, exps = 4.0 * B * H * N * N * 64, float(B) * H * N * N
+    bound = bound_ms({"bf16": flops}, 4.0 * B * N * H * 64 * 2)
+    log(f"[time] K5 at {B} x {N} tokens x {H} heads: kernel {k_ms:.3f} ms, plain "
+        f"{p_ms:.3f} ms, sdpa {lib:.3f} ms, bound {bound[0]:.3f} ms by {bound[1]} "
+        f"(exps alone {bound_ms({'sfu': exps}, 0)[0]:.3f} ms), max |err| {err:.3e} "
+        f"of {scale:.3f} ({name_limit})")
+    del qkv, got, plain, q, k, v
+    torch.manual_seed(24)
+    model = AST().to(dev).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02)
+    cfg = SpectrogramPipelineConfig()
+    clf = AudioClassifier(model=model, pipeline=cfg, batch_size=B, buffer_len=160000,
+                          device="cuda")
+    # the synthetic ESC-10 stand-ins at 16 kHz, 10 s each: the bar below is
+    # a share of the logits' spread over the clips, which clips of one
+    # white noise would all but take away
+    clips = [synth_clip(i % 10, i // 10, n=160000, fs=16000).astype(np.float32)
+             for i in range(B)]
+    waves = torch.from_numpy(np.stack(clips)).to(dev)
+    lengths = torch.full((B,), 160000, device=dev, dtype=torch.int32)
+    attn_fwd.launches = 0
+    out = torch.from_numpy(clf.logits(clips))
+    n = attn_fwd.launches
+    check(n == len(model.blocks), f"K5: {n} launches over one AST serving batch, not "
+          f"one a layer ({len(model.blocks)})")
+    ref = make_spectrogram_classifier(model, cfg, plain=True)(waves, lengths).cpu()
+    dev_rms = (ref - ref.mean(0)).pow(2).mean().sqrt().item()
+    gap = (out - ref).abs().max().item()
+    check(out.shape == (B, 527) and bool(torch.isfinite(out).all()),
+          "AST serving batch: logits not [B, 527] and finite")
+    check(gap < 0.25 * dev_rms, f"AST serving batch: max |logit gap| {gap:.3e} from the "
+          f"plain path, not under 0.25 x its deviation RMS {dev_rms:.3e}")
+    log(f"[serve] one AST batch through AudioClassifier ({B} clips of 10 s): {n} K5 "
+        f"launches, max |logit gap| {gap:.3e} from the plain path (deviation RMS "
+        f"{dev_rms:.3e}) ({name_limit})")
+    fn = clf._fn
+    per, idle = profile_device(lambda: fn(waves, lengths), 2)
+    total = sum(per.values())
+    log(f"[profile] one AST batch ({B} clips of 10 s): {total:.2f} ms device, idle "
+        f"{100 * idle:.2f} % ({name_limit})")
+    for name, ms in list(per.items())[:12]:
+        log(f"[profile]   {ms:8.3f} ms  {name[:110]}")
+    del model, clf, fn
+    torch.cuda.empty_cache()
+    return err, (k_ms, p_ms), bound, lib, n
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this smoke run needs an NVIDIA GPU")
@@ -3061,6 +3148,10 @@ def main():
     fwd, bwd = parallel_phase(parallel_job, name_limit)
     launches["fused_mha_fwd"] += fwd
     launches["fused_mha_bwd"] += bwd
+    # ---- 14. K5, the AST's attention ------------------------------------
+    phase("14. K5, the AST's attention, and one AST serving batch")
+    (errs["attn_fwd"], times["attn_fwd"], bounds["attn_fwd"], lib_ms["attn_fwd"],
+     launches["attn_fwd"]) = k5_phase(name_limit)
     log(f"[done] {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [

@@ -157,6 +157,45 @@ def load_reference_pth(path: str) -> StateDict:
     return {k.removeprefix("module."): v for k, v in sd.items()}
 
 
+_HF_AST = "audio_spectrogram_transformer."
+# per encoder layer: the port's name, then transformers' under
+# ``encoder.layer.<i>.``
+_HF_AST_LAYER = (("ln1", "layernorm_before"), ("proj", "attention.output.dense"),
+                 ("ln2", "layernorm_after"), ("fc1", "intermediate.dense"),
+                 ("fc2", "output.dense"))
+
+
+def ast_state_dict_from_hf(sd: Mapping[str, torch.Tensor]) -> StateDict:
+    """``transformers``' ``ASTForAudioClassification`` state dict → the
+    port ``AST``'s (``nn/ast.py``): the patch convolution's ``[D, 1, 16,
+    16]`` kernel as the patch Linear's ``[D, 256]`` weight (``(f, t)``
+    flattened), the query, key and value Linears stacked into the fused
+    ``qkv`` (in that order), and the other names mapped one to one."""
+    e = _HF_AST + "embeddings."
+    out: StateDict = {
+        "patch.weight": sd[e + "patch_embeddings.projection.weight"].flatten(1).clone(),
+        "patch.bias": sd[e + "patch_embeddings.projection.bias"].clone(),
+        "cls_token": sd[e + "cls_token"].clone(),
+        "dist_token": sd[e + "distillation_token"].clone(),
+        "pos": sd[e + "position_embeddings"].clone(),
+    }
+    i = 0
+    while f"{_HF_AST}encoder.layer.{i}.attention.attention.query.weight" in sd:
+        hf = f"{_HF_AST}encoder.layer.{i}."
+        att = hf + "attention.attention."
+        for kind in ("weight", "bias"):
+            out[f"blocks.{i}.qkv.{kind}"] = torch.cat(
+                [sd[f"{att}{n}.{kind}"] for n in ("query", "key", "value")])
+            for port, theirs in _HF_AST_LAYER:
+                out[f"blocks.{i}.{port}.{kind}"] = sd[f"{hf}{theirs}.{kind}"].clone()
+        i += 1
+    for port, theirs in (("norm", _HF_AST + "layernorm"), ("head_norm", "classifier.layernorm"),
+                         ("head", "classifier.dense")):
+        for kind in ("weight", "bias"):
+            out[f"{port}.{kind}"] = sd[f"{theirs}.{kind}"].clone()
+    return out
+
+
 def export_reference_pth(model: torch.nn.Module, path: str,
                          config: ExperimentConfig) -> None:
     """Write ``model``'s weights as a reference-convention ``.pth`` of

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (probe_mma.cu's windowed GEMM and bf16 chain, probe_attend.cu's v6
-// attend, probe_featurize.cu's DFT):
+// attend, probe_featurize.cu's DFT, attn.cu's attention, K5):
 //
 //   - mbarriers: init, arrive, arrive with an expected byte count, wait on
 //     a phase parity;
@@ -237,6 +237,28 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64], const uint32_t (&a
       ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : PCAUDIO_D64("+f")
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d), "n"(kTransB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A from shared memory (K-major), as
+// for wgmma_bf16_ss: thread t holds d[4j + 2h + e] = D[16w + g + 8h][8j + 2q + e],
+// j < 8.
+template <int kTransB, bool kZero = false>
+__device__ __forceinline__ void wgmma_bf16_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                                  uint32_t scale_d = 1) {
+  if constexpr (kZero)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCAUDIO_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : PCAUDIO_D32("=f")
+        : "l"(a), "l"(b), "n"(0), "n"(kTransB));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " PCAUDIO_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : PCAUDIO_D32("+f")
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
 }
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64] with A from registers, as for

@@ -15,14 +15,17 @@ from pcaudio_torch.eval.experiments import (
     temporal_expt2,
 )
 from pcaudio_torch.eval.pipeline import (
+    SpectrogramPipelineConfig,
     TemporalPipelineConfig,
     extract_chunk_clouds,
     make_chunk_logits,
+    make_spectrogram_classifier,
     make_temporal_classifier,
 )
 
 __all__ = ["TemporalPipelineConfig", "extract_chunk_clouds",
            "make_chunk_logits", "make_temporal_classifier",
+           "SpectrogramPipelineConfig", "make_spectrogram_classifier",
            "default_list_Fs", "default_list_K", "default_list_N",
            "sweep_featurize_config", "framewise_expt1", "framewise_expt2",
            "temporal_expt1", "temporal_expt2", "rebut_importance_expt",

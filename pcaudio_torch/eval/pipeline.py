@@ -1,5 +1,7 @@
-"""The temporal 3ST serving pipeline: waveform → point clouds → clip logits
-(counterpart of ``pcaudio/eval/pipeline.py``).
+"""The serving pipelines: the temporal 3ST's, waveform → point clouds → clip
+logits (counterpart of ``pcaudio/eval/pipeline.py``), and the Audio
+Spectrogram Transformer's, waveform → Kaldi log-mel grid → clip logits
+(:func:`make_spectrogram_classifier`, port-only: the JAX package has no AST).
 
 Two featurize paths, as in the JAX package:
 
@@ -33,10 +35,15 @@ Under a ``torch.profiler`` each call is a span ``pipeline.classify`` over
 the stages' spans ``pipeline.featurize``, ``pipeline.select``,
 ``pipeline.clouds``, ``pipeline.st`` and ``pipeline.mean``, and it counts
 the clouds handed to the ST (``pipeline.clouds_st``) and the valid ones
-among them (``pipeline.clouds_valid``; ``utils/profiling.py``).
+among them (``pipeline.clouds_valid``; ``utils/profiling.py``).  An AST call
+is a span ``pipeline.classify`` over ``pipeline.fbank``, ``pipeline.embed``,
+``pipeline.encoder`` (holding a ``pipeline.attn`` a K5 call) and
+``pipeline.head``, and it counts the tokens (``pipeline.tokens``) and the
+frames made from the clips' samples (``pipeline.frames_valid``).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional, Tuple
@@ -44,11 +51,13 @@ from typing import Optional, Tuple
 import torch
 
 from pcaudio_torch.core.types import PointCloud
+from pcaudio_torch.dsp.fbank import AUDIOSET_MEAN, AUDIOSET_STD, fbank_batch
 from pcaudio_torch.dsp.featurize import (
     FeaturizeConfig, batched_temporal_chunks, featurize_batch)
 from pcaudio_torch.ops.cloud import freq_coords, grid_cloud, time_coords
 from pcaudio_torch.ops.kernels.approx_select import (
     approx_topk_chunks, approx_topk_chunks_plain)
+from pcaudio_torch.ops.kernels.attn import attn_fwd, attn_fwd_plain
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
@@ -304,5 +313,55 @@ def make_chunk_logits(model, cfg: TemporalPipelineConfig,
     def fn(waves: torch.Tensor, lengths: torch.Tensor):
         with span("pipeline.classify"):
             return _chunk_logits(model, waves, lengths, cfg, use_fused_st, plain)
+
+    return fn
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectrogramPipelineConfig:
+    """The AST's front end: 16 kHz clips, ``num_mel_bins`` Kaldi log-mel
+    bins, ``max_length`` frames, normalised by ``mean`` and ``std``
+    (``dsp/fbank.py``)."""
+
+    fs: int = 16000
+    num_mel_bins: int = 128
+    max_length: int = 1024
+    mean: float = AUDIOSET_MEAN
+    std: float = AUDIOSET_STD
+
+
+def make_spectrogram_classifier(model, cfg: SpectrogramPipelineConfig,
+                                plain: bool = False):
+    """Build ``fn(waves [B, L], lengths [B]) -> logits [B, num_labels]`` f32
+    for an ``AST`` (``nn/ast.py``): the log-mel grid, then the model in bf16
+    (a bf16 copy of ``model`` where its parameters are in another type).
+    Attention runs through kernel K5 (its plain twin on CPU tensors);
+    ``plain=True`` takes the twin whatever the device.  ``waves`` may be raw
+    PCM int16 (divided by 32768 here)."""
+    if model.num_mel_bins != cfg.num_mel_bins or model.max_length != cfg.max_length:
+        raise ValueError(f"the model takes {model.max_length} x {model.num_mel_bins} grids, "
+                         f"the pipeline makes {cfg.max_length} x {cfg.num_mel_bins}")
+    net = model
+    if any(p.dtype != torch.bfloat16 for p in model.parameters()):
+        net = copy.deepcopy(model).to(torch.bfloat16)
+    net.eval()
+    attend = attn_fwd_plain if plain else attn_fwd
+
+    @torch.no_grad()
+    def fn(waves: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        with span("pipeline.classify"):
+            if waves.dtype == torch.int16:
+                waves = waves.float() * (1.0 / 32768.0)
+            with span("pipeline.fbank"):
+                feats, frames = fbank_batch(waves, lengths, cfg.num_mel_bins,
+                                            cfg.max_length, cfg.mean, cfg.std, cfg.fs)
+            count("pipeline.tokens", waves.shape[0] * net.num_tokens)
+            count_device("pipeline.frames_valid", frames)
+            with span("pipeline.embed"):
+                x = net.embed(feats)
+            with span("pipeline.encoder"):
+                x = net.encode(x, attend)
+            with span("pipeline.head"):
+                return net.classify(x)
 
     return fn

@@ -25,8 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
 SOURCES = ("featurize.cu", "select.cu", "approx_select.cu", "fused_st.cu",
-           "fused_st_scratch.cu", "mha.cu", "probe_mma.cu", "probe_attend.cu",
-           "probe_stream.cu", "probe_featurize.cu")
+           "fused_st_scratch.cu", "mha.cu", "attn.cu", "probe_mma.cu",
+           "probe_attend.cu", "probe_stream.cu", "probe_featurize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # a source's options beside NVCC_FLAGS: K1's two forms, four instantiations
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "pcaudio_fused_st_scratch_blocks": [_I, _I, _I, ctypes.POINTER(_I)],
     "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
     "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
+    "pcaudio_attn_fwd": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
     "pcaudio_probe_matmul": [_P] * 5,
     "pcaudio_probe_chain": [_P] * 5,
     "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],

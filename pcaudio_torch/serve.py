@@ -1,7 +1,10 @@
 """Batched wave → class serving (counterpart of ``pcaudio/serve.py``).
 
 Requests are padded to a fixed batch bucket: padded slots get length 1 and
-are sliced off, so every call runs the same shapes.
+are sliced off, so every call runs the same shapes.  The classifier serves
+the temporal 3ST (a ``TemporalPipelineConfig``) and the Audio Spectrogram
+Transformer (an ``AST`` with a ``SpectrogramPipelineConfig``, port-only):
+it dispatches on the pipeline config's type.
 
     clf = AudioClassifier.from_reference_checkpoint(cfg_json, pth, device="cuda")
     labels, probs = clf.classify(list_of_float32_clips)
@@ -14,10 +17,11 @@ import dataclasses
 import os
 import queue
 import threading
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from pcaudio_torch.checkpoint import CONFIG_FILE, load_checkpoint, load_reference_pth
 from pcaudio_torch.core.config import ARCH_3ST, ExperimentConfig
@@ -25,8 +29,8 @@ from pcaudio_torch.core.device import resolve_device
 from pcaudio_torch.data import pad_batch
 from pcaudio_torch.data.audio_io import load_wav_batch
 from pcaudio_torch.eval.pipeline import (
-    TemporalPipelineConfig, make_temporal_classifier)
-from pcaudio_torch.nn import ST
+    SpectrogramPipelineConfig, TemporalPipelineConfig,
+    make_spectrogram_classifier, make_temporal_classifier)
 
 
 def _served_config(cfg: ExperimentConfig, top_k: Optional[int]
@@ -42,10 +46,13 @@ def _served_config(cfg: ExperimentConfig, top_k: Optional[int]
 
 @dataclasses.dataclass
 class AudioClassifier:
-    """Batched end-to-end classifier for the temporal 3ST model."""
+    """Batched end-to-end classifier for the temporal 3ST model, or for an
+    ``AST`` given a ``SpectrogramPipelineConfig`` (then give ``buffer_len``
+    in samples at its 16 kHz, 160,000 for 10 s clips; ``use_fused_st``
+    plays no part, and attention runs through kernel K5 unless ``plain``)."""
 
-    model: ST
-    pipeline: TemporalPipelineConfig
+    model: nn.Module
+    pipeline: Union[TemporalPipelineConfig, SpectrogramPipelineConfig]
     batch_size: int = 64
     buffer_len: int = 220672  # 5 s at 44.1 kHz
     use_fused_st: bool = True
@@ -68,9 +75,13 @@ class AudioClassifier:
                              f"{self.wave_dtype!r}")
         self.device = resolve_device(self.device)
         self.model = self.model.to(self.device).eval()
-        self._fn = make_temporal_classifier(self.model, self.pipeline,
-                                            use_fused_st=self.use_fused_st,
-                                            plain=self.plain)
+        if isinstance(self.pipeline, SpectrogramPipelineConfig):
+            self._fn = make_spectrogram_classifier(self.model, self.pipeline,
+                                                   plain=self.plain)
+        else:
+            self._fn = make_temporal_classifier(self.model, self.pipeline,
+                                                use_fused_st=self.use_fused_st,
+                                                plain=self.plain)
         self._pf = None
         self._copy_stream = None
 

@@ -1790,3 +1790,77 @@ def test_cnn_output_ignores_cudnn_tf32(cuda):
         ref = model.cpu()(x.cpu())
     err = (on.cpu() - ref).abs().max().item()
     assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("B,N,heads", [(12, 1214, 12), (12, 63, 12), (12, 64, 12),
+                                       (12, 1025, 12), (1, 1214, 132), (3, 200, 2)])
+def test_k5_matches_plain(cuda, B, N, heads):
+    """K5 against its plain twin and the f32 softmax of the same bf16
+    operands, at the AST's 1,214 tokens and at tails of 63, 64 and 1,025
+    keys, with at least as many (clip, head) pairs as SMs (and one run of
+    fewer); a wrong scale is told apart."""
+    from pcaudio_torch.ops.kernels.attn import attn_fwd, attn_fwd_plain
+
+    g = torch.Generator(device=cuda).manual_seed(N)
+    qkv = (2.0 * torch.randn(B, N, 3 * heads * 64, device=cuda, generator=g)).to(torch.bfloat16)
+    before = attn_fwd.launches
+    got = attn_fwd(qkv, heads, 0.125)
+    torch.cuda.synchronize()
+    assert attn_fwd.launches == before + 1
+    plain = attn_fwd_plain(qkv, heads, 0.125)
+    x = qkv.float().reshape(B, N, 3, heads, 64).permute(2, 0, 3, 1, 4)
+    want = torch.cat([(torch.softmax(x[0][i:i + 2] @ x[1][i:i + 2].transpose(-1, -2) * 0.125, -1)
+                       @ x[2][i:i + 2]) for i in range(0, B, 2)]
+                     ).transpose(1, 2).reshape(B, N, heads * 64)
+    scale = want.abs().max().item()
+    assert torch.isfinite(got.float()).all()
+    # both round P and the output to bf16 (the kernel against running
+    # maxima); 1.2e-2 of the largest output, as the CPU test of the twin
+    assert (got.float() - plain.float()).abs().max().item() < 1.2e-2 * scale
+    assert (got.float() - want).abs().max().item() < 1.2e-2 * scale
+    wrong = attn_fwd_plain(qkv, heads, 0.125 / 2 ** 0.5)
+    assert (got.float() - wrong.float()).abs().max().item() > 1.2e-2 * scale
+    # the kernel is deterministic
+    assert torch.equal(attn_fwd(qkv, heads, 0.125), got)
+
+
+def test_k5_refuses_what_it_does_not_take(cuda):
+    from pcaudio_torch.ops.kernels.attn import attn_fwd
+
+    with pytest.raises(ValueError):
+        attn_fwd(torch.zeros(2, 8, 3 * 2 * 64, device=cuda), 2, 0.125)   # f32
+    with pytest.raises(ValueError):
+        attn_fwd(torch.zeros(2, 8, 3 * 2 * 32, device=cuda, dtype=torch.bfloat16), 2, 0.125)
+
+
+def test_spectrogram_pipeline_kernel_matches_plain(cuda):
+    """The AST's serving pipeline through K5 against its plain twin on the
+    card (width 768, 12 heads, 2 layers, the published grid), and through
+    ``AudioClassifier``."""
+    from pcaudio_torch.eval.pipeline import (
+        SpectrogramPipelineConfig, make_spectrogram_classifier)
+    from pcaudio_torch.nn import AST
+    from pcaudio_torch.ops.kernels.attn import attn_fwd
+
+    torch.manual_seed(0)
+    model = AST(depth=2).to(cuda).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() > 1:
+                p.normal_(0.0, 0.02)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    waves = 0.1 * torch.randn(4, 160000, device=cuda, generator=g)
+    lengths = torch.tensor([160000, 80000, 401, 30000], device=cuda)
+    cfg = SpectrogramPipelineConfig()
+    before = attn_fwd.launches
+    got = make_spectrogram_classifier(model, cfg)(waves, lengths)
+    assert attn_fwd.launches == before + 2
+    plain = make_spectrogram_classifier(model, cfg, plain=True)(waves, lengths)
+    dev = (plain - plain.mean(0)).pow(2).mean().sqrt().item()
+    assert got.shape == (4, 527) and got.dtype == torch.float32
+    assert (got - plain).abs().max().item() < 0.25 * dev
+    clf = AudioClassifier(model=model, pipeline=cfg, batch_size=4, buffer_len=160000,
+                          device="cuda")
+    clips = [waves[i, :int(n)].cpu().numpy() for i, n in enumerate(lengths.tolist())]
+    out = torch.from_numpy(clf.logits(clips))
+    assert (out - got.cpu()).abs().max().item() < 0.25 * dev

@@ -1,6 +1,6 @@
 """The port's spans and counters (``pcaudio_torch/utils/profiling.py``) on
 the CPU: off without a profiler (no ``record_function`` entered, no counter
-moved); under ``torch.profiler`` the serving pipeline's, the expt-2
+moved); under ``torch.profiler`` the serving pipelines' (3ST, AST), the expt-2
 sweep's and the train step's spans in the exported Chrome trace, nested as
 the paths nest them, and their counters equal to what the paths handled."""
 import json
@@ -12,8 +12,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from pcaudio_torch.eval import experiments as ex
 from pcaudio_torch.eval.pipeline import (
-    TemporalPipelineConfig, extract_chunk_clouds, make_temporal_classifier)
-from pcaudio_torch.nn import ST
+    SpectrogramPipelineConfig, TemporalPipelineConfig, extract_chunk_clouds,
+    make_spectrogram_classifier, make_temporal_classifier)
+from pcaudio_torch.nn import AST, ST
 from pcaudio_torch.train.glue import pointcloud_apply
 from pcaudio_torch.train.step import make_train_step
 from pcaudio_torch.utils import profiling
@@ -26,6 +27,10 @@ SERVE_PARENTS = {"pipeline.classify": {None}, "pipeline.featurize": {"pipeline.c
                  "pipeline.select": {"pipeline.classify"},
                  "pipeline.clouds": {"pipeline.classify"},
                  "pipeline.st": {"pipeline.classify"}, "pipeline.mean": {"pipeline.classify"}}
+AST_PARENTS = {"pipeline.classify": {None}, "pipeline.fbank": {"pipeline.classify"},
+               "pipeline.embed": {"pipeline.classify"},
+               "pipeline.encoder": {"pipeline.classify"},
+               "pipeline.attn": {"pipeline.encoder"}, "pipeline.head": {"pipeline.classify"}}
 SWEEP_PARENTS = {"expt2.call": {None}, "expt2.featurize": {"expt2.call", "expt2.microbatch"},
                  "expt2.microbatch": {"expt2.call"}, "expt2.ranks": {"expt2.microbatch"},
                  "expt2.forward": {"expt2.microbatch"}, "expt2.results": {"expt2.call"}}
@@ -155,6 +160,23 @@ def test_serving_spans_and_counters(tmp_path):
     assert delta["pipeline.clouds_st"] == B * C
     assert delta["pipeline.clouds_valid"] == int(chunk_mask.sum())
     assert 0 < int(chunk_mask.sum()) < B * C  # the shorter clip leaves chunks invalid
+
+
+def test_spectrogram_spans_and_counters(tmp_path):
+    torch.manual_seed(0)
+    model = AST(num_mel_bins=32, max_length=64, dim=128, depth=2, heads=2, mlp=256,
+                num_labels=10).eval()
+    fn = make_spectrogram_classifier(model, SpectrogramPipelineConfig(num_mel_bins=32,
+                                                                      max_length=64))
+    # 9,000 samples make 54 frames; 5,000 make 29
+    waves, lengths = torch.randn(2, 9000) * 0.1, torch.tensor([9000, 5000])
+    out, spans, delta = _run(lambda: fn(waves, lengths), tmp_path)
+    assert out.shape == (2, 10) and out.dtype == torch.float32
+    _check_nesting(spans, AST_PARENTS)
+    names = [n for n, _, _ in spans]
+    assert names.count("pipeline.classify") == 1 and names.count("pipeline.attn") == 2
+    assert delta["pipeline.tokens"] == 2 * model.num_tokens == 2 * (2 * 5 + 2)
+    assert delta["pipeline.frames_valid"] == 54 + 29
 
 
 def test_sweep_spans_and_counters(tmp_path):

@@ -25,14 +25,20 @@ the K largest log-magnitudes (maxK) and ``nruns`` uniform random K-subsets
 grid's other bins instead (``baseline_eval.py:105-183``), the grid ranked
 by its own values and, for CNN_temp, flattened frequency-fastest.
 
-Expt 2 is a rank mask over the full cloud in original point order:
-``rank < K`` where ``rank`` is a point's place in a stable descending sort
-of its log-magnitude (maxK; ties to the lower index, as ``lax.top_k``) or of
-uniform noise (randK: sampling without replacement), and the model takes
-the mask as its key mask.  One set of ranks serves every K.  The random
-draws come from a ``torch.Generator`` seeded from ``seed`` and the
-microbatch index, so they cannot match ``jax.random``'s bit for bit; the
-maxK counts are deterministic.
+Expt 2 is a rank mask over the cloud in original point order: ``rank <
+K`` where ``rank`` is a point's place in a stable descending sort of its
+log-magnitude (maxK; ties to the lower index, as ``lax.top_k``) or of
+uniform noise (randK: sampling without replacement).  One set of ranks
+serves every K.  The cloud models run each mask on its kept points alone:
+every row keeps exactly min(K, n) points, so the engine gathers them,
+``[rows, min(K, n), d]`` in ascending point order, and runs the model with
+no key mask.  A dropped point only ever enters the ST as a masked key
+(MAB0, the PMA) or as a row of a row-wise layer (MAB1, the rFFs, every
+Linear) that feeds such keys, so this is the masked forward over the full
+cloud, the GEMMs' rounding order aside.  The random draws come from a
+``torch.Generator`` seeded from ``seed`` and the microbatch index, so they
+cannot match ``jax.random``'s bit for bit; the maxK counts are
+deterministic.
 
 Under a ``torch.profiler`` the expt-2 sweeps record spans
 (``utils/profiling.py``): ``expt2.call`` over a call, in it
@@ -41,7 +47,8 @@ clouds), ``expt2.microbatch``, ``expt2.ranks`` (the random draws and the
 ranks), ``expt2.forward`` (a masked forward and its hits) and
 ``expt2.results`` (the counts to the host, the dicts); and they count the
 points each mask keeps (``expt2.points_kept``) against the points the
-cloud classifier runs (``expt2.points_run``).
+cloud classifier runs (``expt2.points_run``): equal since the cloud models
+run the kept points alone.
 
 Not ported, because each works around an XLA compile or a TPU dispatch
 cost that eager PyTorch does not have: ``_SweepPrefetcher`` and
@@ -218,42 +225,71 @@ def _ranks_desc(x: torch.Tensor) -> torch.Tensor:
     so ``rank < K`` selects exactly ``jax.lax.top_k(x, K)``'s elements
     (ties to the lower index, -0.0 tying with 0.0)."""
     _, order = topk_stable(x, x.shape[-1])
-    iota = torch.arange(x.shape[-1], device=x.device).expand_as(order)
-    return torch.empty_like(order).scatter_(-1, order, iota)
+    return _inverse(order)
 
 
-def _mask_counts(apply_masked: Callable, x: torch.Tensor, rmax: torch.Tensor,
+def _inverse(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of the permutations ``perm [..., n]`` of the last axis:
+    a rank set's order (point ``order[..., j]`` has rank j), or an order's
+    ranks."""
+    iota = torch.arange(perm.shape[-1], device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(-1, perm, iota)
+
+
+def _kept_points(x: torch.Tensor, order: torch.Tensor, K: int) -> torch.Tensor:
+    """The points of ``x [rows, n, d]`` that ``rank < K`` keeps,
+    ``[rows, min(K, n), d]``: each row's first ``K`` entries of ``order``
+    (the ranks' inverse), sorted into point order, the order in which K4
+    stages a key mask's valid keys, so the attention sums as under the
+    mask.  Shapes come from ``K`` alone, so nothing waits for the
+    device."""
+    idx = order[:, :K].sort(dim=-1).values
+    return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def _mask_counts(classify: Callable, x: torch.Tensor, rmax: torch.Tensor,
                  rrand: torch.Tensor, labels: torch.Tensor,
                  valid: Optional[torch.Tensor], list_K: Sequence[int],
-                 x_rand: Optional[torch.Tensor] = None
+                 x_rand: Optional[torch.Tensor] = None, replace: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Correct predictions for each K of ``list_K``, keeping ``rmax < K``
     (maxK) and each of the ``R`` rank sets ``rrand [R, ...] < K`` (randK),
     the randK masks over ``x_rand [R, ...]`` where given (run r's own
     inputs), else over ``x``.
 
-    ``apply_masked(x, keep [..., n] bool) -> logits``.  Returns
-    ``(counts_max [nK], counts_rand [nK, R])``, int64 on ``x``'s device."""
+    The cloud models' form (``replace`` False): ``classify(points [rows,
+    min(K, n), d]) -> logits`` on each row's kept points of ``x [rows, n,
+    d]`` (:func:`_kept_points`).  Mode "replace": ``classify(x, keep [rows,
+    n] bool) -> logits`` on the whole input.  Returns ``(counts_max [nK],
+    counts_rand [nK, R])``, int64 on ``x``'s device."""
     R = rrand.shape[0]
     cmax = torch.zeros(len(list_K), dtype=torch.int64, device=x.device)
     crand = torch.zeros(len(list_K), R, dtype=torch.int64, device=x.device)
     rows, n = rmax.shape[0], rmax.shape[-1]
+    if replace:
+        def forward(xr, rank, K):
+            return classify(xr, rank < K)
+        smax, srand = rmax, rrand
+    else:
+        def forward(xr, order, K):
+            return classify(_kept_points(xr, order, K))
+        smax, srand = _inverse(rmax), _inverse(rrand)
     for j, K in enumerate(list_K):
         with span("expt2.forward"):
             count("expt2.points_kept", rows * min(K, n))
-            cmax[j] = _hits(apply_masked(x, rmax < K), labels, valid)
+            cmax[j] = _hits(forward(x, smax, K), labels, valid)
         for r in range(R):
             xr = x if x_rand is None else x_rand[r]
             with span("expt2.forward"):
                 count("expt2.points_kept", rows * min(K, n))
-                crand[j, r] = _hits(apply_masked(xr, rrand[r] < K), labels, valid)
+                crand[j, r] = _hits(forward(xr, srand[r], K), labels, valid)
     return cmax, crand
 
 
-def _prefix_mask_counts(apply_masked: Callable, x: torch.Tensor,
+def _prefix_mask_counts(classify: Callable, x: torch.Tensor,
                         rank_src: torch.Tensor, labels: torch.Tensor,
                         valid: Optional[torch.Tensor], gen: torch.Generator,
-                        list_K: Sequence[int], R: int):
+                        list_K: Sequence[int], R: int, replace: bool = False):
     """The K sweep of one microbatch: maxK ranks from ``rank_src [..., n]``,
     randK ranks from ``R`` draws of uniform noise from ``gen`` (ranking the
     noise samples without replacement), then :func:`_mask_counts`."""
@@ -261,7 +297,8 @@ def _prefix_mask_counts(apply_masked: Callable, x: torch.Tensor,
         noise = torch.rand((R,) + tuple(rank_src.shape), generator=gen,
                            device=rank_src.device)
         rmax, rrand = _ranks_desc(rank_src), _ranks_desc(noise)
-    return _mask_counts(apply_masked, x, rmax, rrand, labels, valid, list_K)
+    return _mask_counts(classify, x, rmax, rrand, labels, valid, list_K,
+                        replace=replace)
 
 
 def _microbatch_generator(seed, mb_index: int,
@@ -407,11 +444,11 @@ def framewise_expt2(frame_classifier: Optional[Callable],
     ``Code/baseline_eval.py:105-183``).  Returns ``(randK_dict,
     maxK_dict)``.
 
-    Mode "cloud" (FST): ``cloud_classifier(points [Nb, n, 2], mask [Nb, n])
-    -> logits``; every K and run reuses the microbatch's clouds with
-    another key mask (the engine note above).  Mode "replace" (FB):
-    ``frame_classifier(frames [Nb, bins], farr)`` on the frames with the
-    unkept bins zeroed, the kept ones chosen by the same ranks."""
+    Mode "cloud" (FST): ``cloud_classifier(points [Nb, min(K, n), 2]) ->
+    logits``, each K and run on the kept points of the microbatch's clouds
+    (the engine note above).  Mode "replace" (FB): ``frame_classifier(frames
+    [Nb, bins], farr)`` on the frames with the unkept bins zeroed, the kept
+    ones chosen by the same ranks."""
     if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
     with span("expt2.call"):
@@ -434,7 +471,7 @@ def framewise_expt2(frame_classifier: Optional[Callable],
                                            labels_mb, None, gen, Ks, R)
             return _prefix_mask_counts(
                 lambda fr, keep: frame_classifier(torch.where(keep, fr, 0.0), farr),
-                frames_mb, frames_mb, labels_mb, None, gen, Ks, R)
+                frames_mb, frames_mb, labels_mb, None, gen, Ks, R, replace=True)
 
         return _run_masked_sweep(mb_counts, [frames], flabels, seed,
                                  list_K, _MB_FRAMES, R)
@@ -451,9 +488,9 @@ def temporal_expt2(cloud_classifier: Callable,
     ``Code/baseline_temp_eval.py:104-197``), the engine of
     :func:`framewise_expt2` over temporal clouds and grids flattened
     frequency-fastest (the reference's row order).  Mode "cloud" (3ST):
-    ``cloud_classifier``; mode "replace" (CNN_temp): ``grid_classifier(
-    chunks [Nb, Ntemp, bins])`` on the chunks with the unkept bins
-    zeroed."""
+    ``cloud_classifier(points [Nb, min(K, n), 3])`` on the kept points;
+    mode "replace" (CNN_temp): ``grid_classifier(chunks [Nb, Ntemp,
+    bins])`` on the chunks with the unkept bins zeroed."""
     if mode not in ("cloud", "replace"):
         raise ValueError(f"mode must be 'cloud' or 'replace', got {mode!r}")
     with span("expt2.call"):
@@ -477,7 +514,7 @@ def temporal_expt2(cloud_classifier: Callable,
             return _prefix_mask_counts(
                 lambda fl, keep: grid_classifier(
                     torch.where(keep.reshape(fl.shape), fl, 0.0)),
-                flat_mb, vals, labels_mb, None, gen, Ks, R)
+                flat_mb, vals, labels_mb, None, gen, Ks, R, replace=True)
 
         return _run_masked_sweep(mb_counts, [rows], row_labels, seed,
                                  list_K, _MB_CHUNKS, R)
@@ -504,6 +541,8 @@ def rebut_importance_expt(cloud_classifier: Callable, waves, lengths, labels,
     ``Nfft·Ntemp/2`` indices with probability heat / Σ heat, the clouds
     are gathered in draw order, duplicates and all, and each K keeps the
     first K draws (a prefix of i.i.d. draws is distributed as K draws).
+    Every forward runs on its kept points alone, as in
+    :func:`temporal_expt2`.
     Each (winF, microbatch) has its own generator, from ``(seed, winF)``
     and the microbatch index."""
     with span("expt2.call"):
@@ -581,9 +620,10 @@ def make_3st_chunk_classifier(model):
 
 
 def make_cloud_classifier(model):
-    """points ``[Nb, n, d]`` (+ a key mask) → logits: the expt-2 engine
-    passes the mask, so unselected points never enter the attention.
-    Counts the points handed to the model (``expt2.points_run``)."""
+    """points ``[Nb, n, d]`` (+ an optional key mask) → logits.  The expt-2
+    engine hands it each mask's kept points alone, ``n = min(K, n_cloud)``,
+    with no mask.  Counts the points handed to the model
+    (``expt2.points_run``)."""
     def fn(points, mask=None):
         count("expt2.points_run", points.shape[0] * points.shape[1])
         return model(points, mask)

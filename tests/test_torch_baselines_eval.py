@@ -157,6 +157,55 @@ def test_expt2_replace_matches_jax(setup):
         assert 0.0 <= mean <= 1.0 and var >= 0.0
 
 
+def test_expt2_replace_runs_the_zeroed_full_grid(setup):
+    """Mode "replace" hands FB and CNN_temp their full input, ``[rows,
+    bins]`` frames or ``[rows, Ntemp, bins]`` chunks, with the bins outside
+    ``rank < K`` zeroed, for maxK (ranked by the grid's values) and each
+    randK run (ranked by the microbatch generator's noise), and counts the
+    hits of those inputs: the cloud models' kept-point forwards leave this
+    path as it was."""
+    framewise, w, n, labels, jm, params, model = setup
+    list_K, R, seed = ([1, 64, 129] if framewise else [1, 640, 1280]), 2, 7
+    seen = []
+
+    def recording(x, *rest):
+        seen.append(x.clone())
+        return model(x)
+
+    kw = dict(fsog=FS, Nfft=NFFT, nruns=R, mode="replace", list_K=list_K, seed=seed,
+              device="cpu")
+    with torch.no_grad():
+        if framewise:
+            rnd, mx = ex.framewise_expt2(recording, None, w, n, labels, **kw)
+        else:
+            rnd, mx = ex.temporal_expt2(None, recording, w, n, labels, Ntemp=NTEMP, **kw)
+    assert len(seen) == len(list_K) * (R + 1)
+    full = seen[(len(list_K) - 1) * (R + 1)]  # maxK at K = every bin
+    rows = full.shape[0]
+    assert full.shape[1:] == ((NFFT // 2 + 1,) if framewise else (NTEMP, NFFT // 2))
+    flat = full.reshape(rows, -1)
+    noise = torch.rand((R,) + tuple(flat.shape),
+                       generator=ex._microbatch_generator(seed, 0, torch.device("cpu")))
+    ranks = [ex._ranks_desc(flat), *ex._ranks_desc(noise)]
+    cfg = FeaturizeConfig(fs=FS, n_fft=NFFT, top_db=60.0, trim=True)
+    grid = ex._featurize(ex._kept(torch.from_numpy(w), torch.from_numpy(n), cfg), cfg)
+    _, valid, row_labels = (ex._valid_frames(*grid, torch.from_numpy(labels).long())
+                            if framewise else
+                            ex._temporal_rows(*grid, torch.from_numpy(labels).long(), NTEMP))
+    row_labels = row_labels[valid]
+    assert row_labels.shape[0] == rows
+    for j, K in enumerate(list_K):
+        hits = []
+        for r, rank in enumerate(ranks):
+            want = torch.where((rank < K).reshape(full.shape), full, 0.0)
+            assert torch.equal(seen[j * (R + 1) + r], want)
+            with torch.no_grad():
+                hits.append(int((model(want).argmax(-1) == row_labels).sum()))
+        assert mx["data"][K] == [hits[0] / rows, 0]
+        accs = np.array(hits[1:]) / rows
+        assert rnd["data"][K] == [float(np.mean(accs)), float(np.var(accs))]
+
+
 @pytest.mark.parametrize("F", [FS, 0.5 * FS])
 @pytest.mark.parametrize("N", [204, 1433, 2048])
 def test_pinned_nfft_featurizer_matches_jax(F, N):

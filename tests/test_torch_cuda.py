@@ -1720,6 +1720,61 @@ def test_expt2_microbatch_on_both_engines(cuda):
         assert abs(rnd["data"][K][0] - rnd_p["data"][K][0]) <= slack
 
 
+def test_expt2_kept_point_forwards_on_the_card(cuda):
+    """One FST ``framewise_expt2`` call through K4 (4 clips: 864 frames of
+    1025 points; 21 K x (1 + 2 runs)) runs each mask on its kept points
+    alone: every forward's logits lie within 1e-4 of their RMS of the same
+    mask run as a key mask over the full cloud, and the accuracies are
+    those masked forwards' but for rows whose top-2 gap is within twice
+    the logit deviation.  Then one engine microbatch waits for the device
+    nowhere (``set_sync_debug_mode("error")``)."""
+    from pcaudio_torch.dsp import FeaturizeConfig
+    from pcaudio_torch.eval.experiments import (
+        _featurize, _kept, _microbatch_generator, _prefix_mask_counts, _valid_frames)
+    from pcaudio_torch.ops.cloud import frame_cloud, freq_coords
+
+    w, n, lab = _clips(4)
+    model, R = _fst(True), 2
+    got = []
+    rnd, mx = framewise_expt2(None, _recording(make_cloud_classifier(model), got),
+                              w, n, lab, mode="cloud", nruns=R, device="cuda")
+    cfg = FeaturizeConfig(fs=44100, n_fft=2048, top_db=60.0, trim=True)
+    wv, nv = torch.from_numpy(w).to(cuda), torch.from_numpy(n).to(cuda)
+    frames, valid, labels = _valid_frames(*_featurize(_kept(wv, nv, cfg), cfg),
+                                          torch.from_numpy(lab).to(cuda).long())
+    frames, labels = frames[valid], labels[valid]
+    rows = frames.shape[0]
+    assert rows == 864 and len(got) == 21 * (R + 1)
+    clouds = frame_cloud(frames, freq_coords(frames.shape[-1], 44100, device=cuda))
+    noise = torch.rand((R,) + tuple(frames.shape),
+                       generator=_microbatch_generator(0, 0, cuda), device=cuda)
+    ranks = [_ranks_desc(frames), *_ranks_desc(noise)]
+    for j, K in enumerate(mx["list_K"]):
+        hits, slack = [], []
+        for r, rank in enumerate(ranks):
+            a = got[j * (R + 1) + r]
+            assert tuple(a.shape) == (rows, 10)
+            with torch.no_grad():
+                b = model(clouds, rank < K)
+            dev = float((a - b).abs().max())
+            assert dev <= 1e-4 * float(b.pow(2).mean().sqrt()), (K, r, dev)
+            top2 = b.sort(dim=-1).values[:, -2:]
+            slack.append(int(((top2[:, 1] - top2[:, 0]) < 2 * dev).sum()))
+            hits.append(int((b.argmax(-1) == labels).sum()))
+        assert abs(mx["data"][K][0] * rows - hits[0]) <= slack[0] + 1e-6
+        assert abs(rnd["data"][K][0] * rows * R - sum(hits[1:])) <= sum(slack[1:]) + 1e-6
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            cmax, crand = _prefix_mask_counts(make_cloud_classifier(model), clouds, frames,
+                                              labels, None, gen, mx["list_K"], R)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert cmax.shape == (21,) and crand.shape == (21, R)
+
+
 def test_k4_launches_rise_during_a_sweep(cuda):
     """An expt-1 sweep through the K4 model launches K4's forward five times
     a classifier call (two ISABs' two attends, PMA), and the backward

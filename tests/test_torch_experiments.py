@@ -16,6 +16,7 @@ within twice the logit deviation) excuses no row, so the accuracies and
 counts must be identical.  The random-K draws cannot match ``jax.random``
 bit for bit: the engine test feeds the port the ranks made from JAX's noise,
 and the whole-slice tests compare randK where K keeps every point."""
+import copy
 import dataclasses
 
 import numpy as np
@@ -178,6 +179,55 @@ def test_mask_counts_with_jax_ranks(setup):
     np.testing.assert_array_equal(got_max.numpy(), np.asarray(ref_max))
     np.testing.assert_array_equal(got_rand.numpy(), np.asarray(ref_rand))
     assert 0 < int(got_max[-1]) < int(np.asarray(valid).sum())
+
+
+@pytest.mark.parametrize("x_rand", [False, True], ids=["own", "x_rand"])
+@pytest.mark.parametrize("K_of_n", [lambda n: 1, lambda n: 40, lambda n: n - 1,
+                                    lambda n: n, lambda n: n + 50],
+                         ids=["1", "40", "n-1", "n", "n+50"])
+def test_kept_point_forwards_equal_the_masked_forward(setup, K_of_n, x_rand):
+    """The engine's cloud forwards run each mask's kept points alone,
+    ``[rows, min(K, n), d]`` with no key mask, and compute the model on the
+    full cloud under the key mask ``rank < K``: for maxK and randK, on the
+    clouds themselves and on each run's own clouds (``x_rand``, the
+    rebuttal's draws with duplicates), the logits agree within 1e-9 of
+    their RMS and the hit counts are the masked forwards'.
+
+    The model and clouds run in float64: these narrow seeded models carry
+    f32 rounding to 3e-4 of the logits' RMS and more (the masked f32
+    forward against the float64 one), which would hide a few wrong points;
+    in float64 the two forms differ only by the order of their sums."""
+    din, w, n, labels, jm, params, model = setup
+    model = copy.deepcopy(model).double()
+    clouds, clip = _train_rows(w, n, din)
+    clouds = clouds.double()
+    rows, npts = clouds.shape[:2]
+    K, R = K_of_n(npts), 2
+    labels = torch.from_numpy(labels).long()[clip]
+    gen = torch.Generator().manual_seed(din)
+    rmax = ex._ranks_desc(clouds[..., -1])
+    rrand = ex._ranks_desc(torch.rand((R, rows, npts), generator=gen))
+    draws = torch.randint(npts, (R, rows, npts, 1), generator=gen)
+    xr = (torch.stack([clouds.gather(1, d.expand(rows, npts, din)) for d in draws])
+          if x_rand else None)
+    got = []
+
+    def recording(points, mask=None):
+        assert mask is None and tuple(points.shape) == (rows, min(K, npts), din)
+        got.append(model(points))
+        return got[-1]
+
+    with torch.no_grad():
+        cmax, crand = ex._mask_counts(recording, clouds, rmax, rrand, labels, None, [K],
+                                      x_rand=xr)
+        inputs = [clouds] + [clouds if xr is None else xr[r] for r in range(R)]
+        ref = [model(x, rank < K) for x, rank in zip(inputs, [rmax, *rrand])]
+    assert len(got) == R + 1
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-9 * float(b.pow(2).mean().sqrt())
+    hits = [int((b.argmax(-1) == labels).sum()) for b in ref]
+    assert [int(cmax[0])] + crand[0].tolist() == hits
+    assert 0 < hits[0] < rows
 
 
 def _jax_and_port(setup):

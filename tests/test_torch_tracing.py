@@ -197,12 +197,15 @@ def test_sweep_spans_and_counters(tmp_path):
     names = [n for n, _, _ in spans]
     assert names.count("expt2.call") == 1
     assert names.count("expt2.forward") == len(shapes) == len(list_K) * (R + 1)
-    n = shapes[0][1]
-    assert n == 129
-    kept = sum(rows * min(list_K[(i // (R + 1)) % len(list_K)], n)
-               for i, (rows, _, _) in enumerate(shapes))
+    n = 256 // 2 + 1  # the frame cloud's points
+    rows = shapes[0][0]
+    # each forward runs its mask's kept points alone: [rows, min(K, n), 2]
+    assert shapes == [(rows, min(list_K[i // (R + 1)], n), 2) for i in range(len(shapes))]
+    kept = sum(r * min(list_K[(i // (R + 1)) % len(list_K)], n)
+               for i, (r, _, _) in enumerate(shapes))
     assert delta["expt2.points_kept"] == kept
-    assert delta["expt2.points_run"] == sum(rows * pts for rows, pts, _ in shapes)
+    assert delta["expt2.points_run"] == sum(r * pts for r, pts, _ in shapes)
+    assert delta["expt2.points_run"] == delta["expt2.points_kept"]
 
 
 def test_train_step_spans(tmp_path):

@@ -6,8 +6,9 @@ Each phase's start is logged in seconds of script time (``[phase]``).
 
 0. prints the card (name, power limit), torch and CUDA versions, and turns
    TF32 off for the plain references;
-1. builds the kernels from pcaudio_torch/csrc (one nvcc per source, sm_90a;
-   each source's compile time is logged), while processes of their own
+1. builds the path's library and the probe kernels' library side by side
+   from pcaudio_torch/csrc (``_build.build``: one nvcc per source, sm_90a;
+   each path source's compile time is logged), while processes of their own
    write phase 6's corpus and phase 9's WAV files, run phase 12's training
    runs on the card (no kernel is on their path; phase 4 waits for them)
    and compute phase 12's CPU gradients, and a thread makes phase 4's
@@ -95,14 +96,13 @@ Each phase's start is logged in seconds of script time (``[phase]``).
    and printing each probe's answer beside the card's name and power limit;
    then the redesigned probe kernels (the wgmma windowed GEMM of P1 and
    P2, the v6 attend of P3, the bf16 chain of P4a and the DFT of P8 and
-   P9; the tiled int16 gram of P6a) beside their earlier design
-   (pcaudio_torch/probes/earlier/, built while phase 1 builds) at every
-   P1, P2a-c, P3, P4a, P6a shape, P8 form and P9 variant in this process
-   (plain, old, new, new, old, plain, the library call; TFLOP/s and % of
-   peak; P4a held exactly at the signed permutation), ptxas' registers
-   and spills for the wgmma kernels, and the HGMMA / IGMMA count of their
-   SASS (every instantiation must hold one; cuobjdump reads it in a
-   process of its own from the end of phase 1 on);
+   P9; the tiled int16 gram of P6a) at every P1, P2a-c, P3, P4a, P6a
+   shape, P8 form and P9 variant (plain, kernel, kernel, plain, the
+   library call; TFLOP/s and % of peak; P4a held exactly at the signed
+   permutation), ptxas' registers and spills for the wgmma kernels (the
+   probe library's build log), and the HGMMA / IGMMA count of their SASS
+   (every instantiation must hold one; cuobjdump reads the probe library
+   in a process of its own from the end of phase 1 on);
 9. serves WAV files (the ingest probe's corpus: 2,048 PCM16 files of 5 s,
    written by a process of its own during phase 1; batch 512) through ``AudioClassifier.classify_paths``: the native ring
    with pinned slots and a copy stream, K3-K2-K1 on the card; checks that
@@ -230,7 +230,7 @@ from pcaudio_torch.eval import (
 from pcaudio_torch.eval.experiments import (
     _MB_CHUNKS, _MB_FRAMES, _prefix_mask_counts, _ranks_desc, default_list_K)
 from pcaudio_torch.nn import AST, ST
-from pcaudio_torch.ops.kernels import _build
+from pcaudio_torch.ops.kernels import _build, probes
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
@@ -352,10 +352,9 @@ def wgmma_kernel_of(mangled):
 
 
 def start_sass_dump(lib_path):
-    """Start ``cuobjdump -sass`` of the built library in a process of its
-    own, into a file (about 15 s on one core, 42 MB of text), so that it
-    runs beside phases 2-7 and not in phase 8, which reads it; None where
-    cuobjdump does not exist."""
+    """Start ``cuobjdump -sass`` of the built probe library in a process of
+    its own, into a file, so that it runs beside phases 2-7 and not in
+    phase 8, which reads it; None where cuobjdump does not exist."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -371,17 +370,12 @@ def start_sass_dump(lib_path):
 
 def wgmma_report(sass_job):
     """Phase 8: ptxas' registers, shared memory and spills of the wgmma
-    kernels (build.log), and, where cuobjdump exists, how many HGMMA /
-    IGMMA instructions each one's SASS holds (``start_sass_dump``'s file);
-    fails unless every instantiation of WGMMA_INSTANCES holds one."""
-    lines, current = [], None
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "Compiling entry function" in line:
-            current = wgmma_kernel_of(line)
-            if current:
-                lines.append(f"ptxas {line.split(chr(39))[1][:90]}")
-        elif current and ("registers" in line or "spill" in line or "C75" in line):
-            lines.append(f"ptxas   {line.strip()[:160]}")
+    kernels (the probe library's build log), and, where cuobjdump exists,
+    how many HGMMA / IGMMA instructions each one's SASS holds
+    (``start_sass_dump``'s file); fails unless every instantiation of
+    WGMMA_INSTANCES holds one."""
+    lines = [f"ptxas {line}" for k in WGMMA_KERNELS
+             for line in _build.ptxas_lines(probes.NAME, f"{len(k)}{k}")]
     if sass_job is None:
         return lines + ["cuobjdump: not found, SASS not read"]
     proc, path = sass_job
@@ -2568,9 +2562,10 @@ def main():
     # ---- 1. build ----------------------------------------------------------
     phase("1. build")
     t0 = time.perf_counter()
-    # the earlier design of the redesigned probe kernels (phase 8),
-    # its compilers started beside the main build's
-    old_jobs = probe_stages.start_old_builds()
+    # the probe kernels' library (phase 8), its compilers started beside
+    # the path's
+    build_pool = concurrent.futures.ThreadPoolExecutor(1)
+    probe_build = build_pool.submit(probes.library)
     # phase 6's and phase 9's corpora, written beside the compilers
     train_corpus = tempfile.mkdtemp(prefix="pcaudio_train_corpus_")
     atexit.register(shutil.rmtree, train_corpus, True)
@@ -2584,17 +2579,14 @@ def main():
     # phase 4's synthetic clips, in a thread
     synth_pool = concurrent.futures.ThreadPoolExecutor(1)
     synth_job = synth_pool.submit(synth_clips)
-    try:
-        lib_path = _build.build()
-        _build.library()
-    except BaseException:
-        for *_, proc in old_jobs.values():
-            proc.kill()
-        raise
-    log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    lib_path = _build.library()._name
+    log(f"[build] {os.path.basename(lib_path)} in {time.perf_counter() - t0:.1f} s")
+    probe_path = probe_build.result()._name
+    build_pool.shutdown()
+    log(f"[build] {os.path.basename(probe_path)} in {time.perf_counter() - t0:.1f} s")
     parallel_job = release_parallel_worlds(parallel_ctx)   # beside phases 2-3
-    sass_job = start_sass_dump(lib_path)
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+    sass_job = start_sass_dump(probe_path)
+    for line in _build.log_path(_build.NAME).read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[ptxas] {line.strip()}")
         elif line.startswith("[nvcc]"):
@@ -3124,15 +3116,13 @@ def main():
         log(f"[probe] {name}: {time.perf_counter() - t0:.1f} s")
         del res
         torch.cuda.empty_cache()
-    # the redesigns of P1, P2, P3, P4a, P6a, P8 and P9 beside their earlier
-    # design, in this process: ms, the library call, the bound, rates and %
-    # of peak
+    # the redesigns of P1, P2, P3, P4a, P6a, P8 and P9: ms, the library
+    # call, the bound, rates and % of peak
     t0 = time.perf_counter()
-    old = probe_stages.finish_old_builds(old_jobs)
-    probe_stages.compare(dev, old, name_limit)
+    probe_stages.compare(dev, name_limit)
     for line in wgmma_report(sass_job):
         log(f"[probe] {line}")
-    log(f"[probe] old against new: {time.perf_counter() - t0:.1f} s")
+    log(f"[probe] the redesigned probes: {time.perf_counter() - t0:.1f} s")
     # ---- 9. the serving ingest: WAV files through classify_paths -----------
     phase("9. the serving ingest: WAV files through classify_paths")
     ingest_phase(name_limit, ingest_job)

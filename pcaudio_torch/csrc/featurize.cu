@@ -454,8 +454,4 @@ int pcaudio_chunk_mag2(const void* waves, const void* info, void* out,
   return (int)cudaGetLastError();
 }
 
-const char* pcaudio_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
-
 }  // extern "C"

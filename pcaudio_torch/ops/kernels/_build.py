@@ -1,14 +1,19 @@
-"""Build the port's CUDA kernels and bind them with ctypes.
+"""Build the port's CUDA libraries and bind them with ctypes.
 
-All kernels live in ``pcaudio_torch/csrc/*.cu`` behind a plain C interface
-(no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  The first
-call compiles them for Hopper (``sm_90a``), one ``nvcc`` per source, all
-started together, and links them into one shared library under
-``build/pcaudio_torch/`` at the repository root, named by a hash of the
-sources and flags, so an edited source rebuilds.  The compiler's output,
-register and shared-memory counts included, is kept in ``build.log`` there.
-Nothing here falls back: without ``nvcc``, or when the build fails, the
-caller gets a ``RuntimeError``.
+Every kernel lives in ``pcaudio_torch/csrc/*.cu`` behind a plain C interface
+(no PyTorch headers, so ``nvcc`` takes seconds, not minutes).  :func:`build`
+is the one place that runs ``nvcc``: it compiles a library's sources for
+Hopper (``sm_90a``), one ``nvcc`` per source, all started together, links
+them into one shared library under ``build/pcaudio_torch/`` at the
+repository root, named by the library's name and a hash of its flags, its
+sources and ``csrc/*.cuh``, so an edited source rebuilds the libraries that
+hold it and no other.  The compiler's output, register, shared-memory and
+spill counts included, is kept in ``<name>.build.log`` there, ending with
+each source's seconds.  Nothing here falls back: without ``nvcc``, or when
+the build fails, the caller gets a ``RuntimeError``.
+
+This module's own library, :func:`library`, holds the serving, sweep and
+training path's kernels; :func:`launch` calls its entry points.
 """
 from __future__ import annotations
 
@@ -21,47 +26,54 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import Mapping, Optional
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "pcaudio_torch"
-SOURCES = ("featurize.cu", "select.cu", "approx_select.cu", "fused_st.cu",
-           "fused_st_scratch.cu", "mha.cu", "attn.cu", "probe_mma.cu",
-           "probe_attend.cu", "probe_stream.cu", "probe_featurize.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# a source's options beside NVCC_FLAGS: K1's two forms, four instantiations
-# of the whole ST each, are the build's longest compiles, so their kernels
-# are compiled on as many threads as the host has (the same SASS)
+# a source's options beside NVCC_FLAGS, wherever it is built: K1's two
+# forms, four instantiations of the whole ST each, are the longest
+# compiles, so their kernels are compiled on as many threads as the host
+# has (the same SASS)
 SOURCE_FLAGS = {"fused_st.cu": ("--split-compile=0",),
                 "fused_st_scratch.cu": ("--split-compile=0",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C signatures: every pointer and the stream as void*, counts as int
-_SIGNATURES = {
-    "pcaudio_trim_bounds": [_P, _P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "pcaudio_chunk_mag2": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "pcaudio_topk_chunks": [_P, _I, _P, _P, _I, _I, _I, _P],
-    "pcaudio_approx_topk": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "pcaudio_fused_st": [_P, _I, _P, _P, _P, _L, _P, _L, _P,
-                         _I, _I, _I, _I, _I, _I, _P],
-    "pcaudio_fused_st_max_points": [_I],
-    "pcaudio_fused_st_scratch": [_P, _I, _P, _P, _P, _L, _P, _L, _P,
-                                 _I, _I, _I, _I, _I, _I, _P, _L, _P],
-    "pcaudio_fused_st_scratch_max_points": [_I],
-    "pcaudio_fused_st_scratch_blocks": [_I, _I, _I, ctypes.POINTER(_I)],
-    "pcaudio_mha_fwd": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
-    "pcaudio_mha_bwd": [_P] * 13 + [_I] * 7 + [ctypes.c_float, _P],
-    "pcaudio_attn_fwd": [_P, _P, _I, _I, _I, ctypes.c_float, _P],
-    "pcaudio_probe_matmul": [_P] * 5,
-    "pcaudio_probe_chain": [_P] * 5,
-    "pcaudio_probe_exp_chain": [_P, _P] + [_I] * 4 + [_P],
-    "pcaudio_probe_attend": [_P] * 5 + [_I] * 5 + [_P],
-    "pcaudio_probe_int16_gram": [_P, _P, _I, _I, _P],
-    "pcaudio_probe_wave_sums": [_P, _P, _I, _I, _I, _P],
-    "pcaudio_probe_relayout": [_P, _P] + [_I] * 5 + [_P],
-    "pcaudio_probe_dft_mag2": [_P] * 5 + [_I] * 9 + [_P],
+
+
+def entry(*argtypes):
+    """The C prototype of an entry point that returns a CUDA error code:
+    every pointer and the stream as void*, counts as int."""
+    return ctypes.CFUNCTYPE(_I, *argtypes)
+
+
+# csrc/error.cu, which every library that :func:`launch_in` calls into
+# compiles: the text of a code an entry point returned
+ERROR_SOURCE = "error.cu"
+ERROR_SIGNATURE = {"pcaudio_error_string": ctypes.CFUNCTYPE(ctypes.c_char_p, _I)}
+
+NAME = "pcaudio_torch"
+SOURCES = dict.fromkeys((ERROR_SOURCE, "featurize.cu", "select.cu", "approx_select.cu",
+                         "fused_st.cu", "fused_st_scratch.cu", "mha.cu", "attn.cu"))
+SIGNATURES = {
+    **ERROR_SIGNATURE,
+    "pcaudio_trim_bounds": entry(_P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "pcaudio_chunk_mag2": entry(_P, _P, _P, _I, _I, _I, _I, _P),
+    "pcaudio_topk_chunks": entry(_P, _I, _P, _P, _I, _I, _I, _P),
+    "pcaudio_approx_topk": entry(_P, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pcaudio_fused_st": entry(_P, _I, _P, _P, _P, _L, _P, _L, _P,
+                              _I, _I, _I, _I, _I, _I, _P),
+    "pcaudio_fused_st_max_points": entry(_I),
+    "pcaudio_fused_st_scratch": entry(_P, _I, _P, _P, _P, _L, _P, _L, _P,
+                                      _I, _I, _I, _I, _I, _I, _P, _L, _P),
+    "pcaudio_fused_st_scratch_max_points": entry(_I),
+    "pcaudio_fused_st_scratch_blocks": entry(_I, _I, _I, ctypes.POINTER(_I)),
+    "pcaudio_mha_fwd": entry(*[_P] * 9, *[_I] * 8, ctypes.c_float, _P),
+    "pcaudio_mha_bwd": entry(*[_P] * 13, *[_I] * 7, ctypes.c_float, _P),
+    "pcaudio_attn_fwd": entry(_P, _P, _I, _I, _I, ctypes.c_float, _P),
 }
 
 
@@ -78,26 +90,65 @@ def _nvcc() -> str:
         "pcaudio_torch CUDA kernels cannot be built here")
 
 
-def build() -> Path:
-    """Compile the kernels unless this exact build exists; return its path."""
-    srcs = [CSRC / name for name in SOURCES]
+def library_path(name: str, sources: Mapping[str, Optional[str]],
+                 source_flags: Mapping[str, tuple] = SOURCE_FLAGS) -> Path:
+    """Where :func:`build` puts the library ``name`` of ``sources``: named by
+    a hash of the flags of its sources, its sources and ``csrc/*.cuh``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    for p in sorted(CSRC.glob("*.cu*")):  # sources and headers
-        h.update(p.name.encode())
+    h.update(repr(sorted((n, f) for n, f in source_flags.items() if n in sources)).encode())
+    for n, text in sorted(sources.items()):
+        h.update(f"\0{n}\0".encode())
+        h.update((CSRC / n).read_bytes() if text is None else text.encode())
+    for p in sorted(CSRC.glob("*.cuh")):
+        h.update(f"\0csrc/{p.name}\0".encode())
         h.update(p.read_bytes())
-    lib = BUILD_DIR / f"libpcaudio_torch_{h.hexdigest()[:16]}.so"
-    if lib.is_file():
-        return lib
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> Path:
+    """The compiler's output of the last build of the library ``name``."""
+    return BUILD_DIR / f"{name}.build.log"
+
+
+def build(name: str, sources: Mapping[str, Optional[str]], signatures: Mapping,
+          source_flags: Mapping[str, tuple] = SOURCE_FLAGS) -> ctypes.CDLL:
+    """The library ``name`` of ``sources``, built unless this exact build
+    exists, with each entry point of ``signatures`` ({name: ctypes
+    prototype}) bound to its prototype.
+
+    ``sources`` maps a file name to its text, or to None for the file of
+    that name in ``csrc/``.  Its ``.cu`` files are compiled (with
+    ``source_flags`` by file name); its other files are headers.  Files
+    given as text are written to the library's own directory under
+    ``build/`` and compiled there; the others compile in place.  Either
+    way ``-I csrc`` finds a header not handed in, and a quoted
+    ``#include`` looks first beside the file that includes it: a caller
+    that edits a header also hands in every file that includes it."""
+    lib = library_path(name, sources, source_flags)
+    if not lib.is_file():
+        _compile(name, sources, source_flags, lib)
+    dll = ctypes.CDLL(str(lib))
+    for fn, proto in signatures.items():
+        setattr(dll, fn, proto((fn, dll)))
+    return dll
+
+
+def _compile(name, sources, source_flags, lib: Path) -> None:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{lib.stem}.{os.getpid()}"
+    written = {n: t for n, t in sources.items() if t is not None}
+    here = BUILD_DIR / lib.stem[len("lib"):]
+    if written:
+        here.mkdir(exist_ok=True)
+        for n, text in written.items():
+            (here / n).write_text(text)
+    srcs = [(here if n in written else CSRC) / n for n in sources if n.endswith(".cu")]
     objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()),
-                               "-c", str(src), "-o", str(obj)],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *source_flags.get(src.name, ()),
+                               "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(srcs, objs)]
 
     def finish(p):  # its output, and the seconds to its end
@@ -116,38 +167,52 @@ def build() -> Path:
         logs.append(link.stdout + link.stderr)
         if link.returncode != 0:
             failed.append(("link", link.returncode))
-    (BUILD_DIR / "build.log").write_text("".join(logs))
+    log_path(name).write_text("".join(logs))
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
         tmp.unlink(missing_ok=True)
-        bad = "".join(log for src, p, log in zip(srcs, procs, logs) if p.returncode)
-        raise RuntimeError(f"nvcc failed ({failed}):\n{(bad or logs[-1])[-4000:]}")
+        bad = "".join(log for p, log in zip(procs, logs) if p.returncode)
+        raise RuntimeError(f"nvcc failed for {name} ({failed}):\n"
+                           f"{(bad or logs[-1])[-4000:]}")
     os.replace(tmp, lib)
-    return lib
+
+
+def ptxas_lines(name: str, kernel: str = "") -> list:
+    """ptxas' lines for every kernel of the library ``name`` whose mangled
+    name holds ``kernel`` (such as ``12chain_kernel``, which
+    ``exp_chain_kernel`` lacks), from its last build's log: ``entry
+    <mangled name>``, then its registers, spills and C75xx notes."""
+    lines, current = [], False
+    for line in log_path(name).read_text().splitlines():
+        if "Compiling entry function" in line:
+            current = kernel in line
+            if current:
+                lines.append(f"entry {line.split(chr(39))[1][:100]}")
+        elif current and ("registers" in line or "spill" in line or "C75" in line):
+            lines.append(line.strip()[:160])
+    return lines
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The built kernels, loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.pcaudio_error_string.argtypes = [ctypes.c_int]
-    lib.pcaudio_error_string.restype = ctypes.c_char_p
-    return lib
+    """The path's kernels, built and loaded once per process."""
+    return build(NAME, SOURCES, SIGNATURES)
 
 
-def launch(name: str, *args) -> None:
-    """Call the C entry point ``name``; raise if it reports an error (a
-    refused launch never runs, and a later synchronize would not say so)."""
-    lib = library()
+def launch_in(lib: ctypes.CDLL, name: str, *args) -> None:
+    """Call the C entry point ``name`` of ``lib``; raise if it reports an
+    error (a refused launch never runs, and a later synchronize would not
+    say so)."""
     code = getattr(lib, name)(*args)
     if code != 0:
         raise RuntimeError(
             f"{name}: {lib.pcaudio_error_string(code).decode()} ({code})")
+
+
+def launch(name: str, *args) -> None:
+    """Call the path library's entry point ``name``; raise on an error."""
+    launch_in(library(), name, *args)
 
 
 def stream_of(t) -> int:

@@ -30,7 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from pcaudio_torch.ops.kernels import _build
-from pcaudio_torch.ops.kernels.probes import U32, sm_count
+from pcaudio_torch.ops.kernels.probes import U32, launch, sm_count
 
 PCM_SCALE = 1.0 / 32768.0   # int16 PCM → [-1, 1): a power of two, exact
 LANES = 128                 # P7's chunk lane block
@@ -88,8 +88,8 @@ def int16_gram(x):
     _cuda_contiguous(x)
     n, L = _gram_call(x.shape, x.dtype)
     out = x.new_empty((n, n), dtype=torch.float32)
-    _build.launch("pcaudio_probe_int16_gram", x.data_ptr(), out.data_ptr(), n, L,
-                  _build.stream_of(x))
+    launch("pcaudio_probe_int16_gram", x.data_ptr(), out.data_ptr(), n, L,
+           _build.stream_of(x))
     int16_gram.launches += 1
     return out
 
@@ -127,8 +127,8 @@ def wave_block_sums(x):
     if (rows * L * x.element_size()) % 16:
         raise ValueError(f"a block of {rows}x{L} {x.dtype} is not whole 16-byte loads")
     out = torch.empty((n, 2), dtype=torch.float32, device=x.device)
-    _build.launch("pcaudio_probe_wave_sums", x.data_ptr(), out.data_ptr(), n,
-                  rows * L, int(x.dtype == torch.int16), _build.stream_of(x))
+    launch("pcaudio_probe_wave_sums", x.data_ptr(), out.data_ptr(), n,
+           rows * L, int(x.dtype == torch.int16), _build.stream_of(x))
     wave_block_sums.launches += 1
     return out
 
@@ -173,8 +173,8 @@ def chunk_relayout(x, C, Nt, reshape):
         raise ValueError(f"the kernel takes F a multiple of 4, got {F}")
     out = torch.empty(_relayout_shape(x, C, Nt, reshape), dtype=torch.float32,
                       device=x.device)
-    _build.launch("pcaudio_probe_relayout", x.data_ptr(), out.data_ptr(),
-                  x.shape[0], C, Nt, F, int(reshape), _build.stream_of(x))
+    launch("pcaudio_probe_relayout", x.data_ptr(), out.data_ptr(),
+           x.shape[0], C, Nt, F, int(reshape), _build.stream_of(x))
     chunk_relayout.launches += 1
     return out
 
@@ -377,9 +377,9 @@ def dft_mag2(x3, w0, w1, C, Nt, mode="direct", s0=None, G=1, stacked=False):
         _cuda_contiguous(s0)
     out = torch.empty((B, C, Nt, F), dtype=torch.bfloat16, device=x3.device)
     s0_ptr = s0.data_ptr() if s0 is not None else None
-    _build.launch("pcaudio_probe_dft_mag2", x3.data_ptr(), w0.data_ptr(), w1.data_ptr(),
-                  s0_ptr, out.data_ptr(), B, R, hop, F, C * Nt, G, int(stacked),
-                  DFT_MODES.index(mode), plan.blocks, _build.stream_of(x3))
+    launch("pcaudio_probe_dft_mag2", x3.data_ptr(), w0.data_ptr(), w1.data_ptr(),
+           s0_ptr, out.data_ptr(), B, R, hop, F, C * Nt, G, int(stacked),
+           DFT_MODES.index(mode), plan.blocks, _build.stream_of(x3))
     dft_mag2.launches += 1
     return out
 

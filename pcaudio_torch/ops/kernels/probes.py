@@ -25,6 +25,10 @@ chain is held exactly at a :func:`signed_permutation` w and on
 wgmma kernels' plans (their grids and how each block's run of work units
 is cut), which the kernels follow and the CPU tests hold to covering every
 product once.
+
+The probe kernels of both families (these and ``featurize_probes``'s) make
+a library of their own, :func:`library`, apart from the path's: built
+through ``_build.build`` on a probe's first launch.
 """
 from __future__ import annotations
 
@@ -59,6 +63,33 @@ MAX_STAGES = 4
 MIN_STAGES = 3
 MAX_SLAB_ROWS = 256    # a TMA box's rows
 MAX_GROUP = 8          # windows one slab serves
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+NAME = "pcaudio_probes"
+SOURCES = dict.fromkeys((_build.ERROR_SOURCE, "probe_mma.cu", "probe_attend.cu",
+                         "probe_stream.cu", "probe_featurize.cu"))
+SIGNATURES = {
+    **_build.ERROR_SIGNATURE,
+    "pcaudio_probe_matmul": _build.entry(*[_P] * 5),
+    "pcaudio_probe_chain": _build.entry(*[_P] * 5),
+    "pcaudio_probe_exp_chain": _build.entry(_P, _P, *[_I] * 4, _P),
+    "pcaudio_probe_attend": _build.entry(*[_P] * 5, *[_I] * 5, _P),
+    "pcaudio_probe_int16_gram": _build.entry(_P, _P, _I, _I, _P),
+    "pcaudio_probe_wave_sums": _build.entry(_P, _P, _I, _I, _I, _P),
+    "pcaudio_probe_relayout": _build.entry(_P, _P, *[_I] * 5, _P),
+    "pcaudio_probe_dft_mag2": _build.entry(*[_P] * 5, *[_I] * 9, _P),
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The probe kernels, built and loaded once per process."""
+    return _build.build(NAME, SOURCES, SIGNATURES)
+
+
+def launch(name: str, *args) -> None:
+    """Call the probe library's entry point ``name``; raise on an error."""
+    _build.launch_in(library(), name, *args)
 
 
 @functools.lru_cache(maxsize=None)
@@ -235,8 +266,8 @@ def probe_matmul(a, b, reps=1, shift=0, repeats=1):
     call = _matmul_call(a.shape, b.shape, a.dtype, b.dtype, reps, shift, repeats,
                         a.get_device())
     out = (a.new_zeros if call.zeroed else a.new_empty)(call.shape, dtype=call.dtype)
-    _build.launch("pcaudio_probe_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                  call.params_ptr, _build.stream_of(a))
+    launch("pcaudio_probe_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+           call.params_ptr, _build.stream_of(a))
     probe_matmul.launches += 1
     return out
 
@@ -373,8 +404,8 @@ def probe_chain(x, w, reps=64, repeats=1):
         raise ValueError("x and w must be contiguous CUDA tensors")
     _, ptr = _chain_call(x.shape, w.shape, x.dtype, w.dtype, reps, repeats, x.get_device())
     out = x.new_zeros(x.shape, dtype=torch.float32)
-    _build.launch("pcaudio_probe_chain", x.data_ptr(), w.data_ptr(), out.data_ptr(), ptr,
-                  _build.stream_of(x))
+    launch("pcaudio_probe_chain", x.data_ptr(), w.data_ptr(), out.data_ptr(), ptr,
+           _build.stream_of(x))
     probe_chain.launches += 1
     return out
 
@@ -414,8 +445,8 @@ def probe_exp_chain(x, reps=64, repeats=1):
     if not (x.is_cuda and x.is_contiguous()):
         raise ValueError("x must be a contiguous CUDA tensor")
     out = torch.zeros_like(x)
-    _build.launch("pcaudio_probe_exp_chain", x.data_ptr(), out.data_ptr(), x.numel(),
-                  reps, repeats, _per(repeats), _build.stream_of(x))
+    launch("pcaudio_probe_exp_chain", x.data_ptr(), out.data_ptr(), x.numel(),
+           reps, repeats, _per(repeats), _build.stream_of(x))
     probe_exp_chain.launches += 1
     return out
 
@@ -593,9 +624,9 @@ def probe_attend(iq, kmat, mode, pairs=8, keys=128, steps=1024):
     int8 = mode == "int8"
     iq8 = torch.empty((rows, dv) if int8 else (16,), dtype=torch.int8, device=iq.device)
     sq = torch.empty(1, dtype=torch.float32, device=iq.device)
-    _build.launch("pcaudio_probe_attend", iq.data_ptr(), kmat.data_ptr(), iq8.data_ptr(),
-                  sq.data_ptr(), out.data_ptr(), int(int8), rows, pairs, steps,
-                  plan.blocks, _build.stream_of(iq))
+    launch("pcaudio_probe_attend", iq.data_ptr(), kmat.data_ptr(), iq8.data_ptr(),
+           sq.data_ptr(), out.data_ptr(), int(int8), rows, pairs, steps,
+           plan.blocks, _build.stream_of(iq))
     probe_attend.launches += 1
     return out
 

@@ -3,26 +3,23 @@
 load (``kStopAfter = 1``) and once tau is found (``kStopAfter = 2``), on
 three grids: K3's grid of the bench's noise clips, a tie-heavy
 grid (16 levels) and K3's grid of ragged clips (``clips.ragged_waves``;
-about half the chunks invalid).  Given the source of an earlier design
-(``--old-source``, e.g. from ``git show
-472eb60:pcaudio_torch/csrc/select.cu``), it cuts and times that one the
-same way, on the same grids, in the same process, and runs both on a grid
+about half the chunks invalid), after running the whole kernel on a grid
 with -0.0 entries against the plain version.  Given an earlier source of
 the current design (``--earlier-source``, a ``select.cu`` with its
 ``kStopAfter``, e.g. from ``git show REV:pcaudio_torch/csrc/select.cu``), it
 cuts that one as the current source and also times the two whole kernels
 in turns (earlier, current, current, earlier) on each grid.  Each variant
-is its own shared library, built with ``nvcc`` into ``build/k2_stages/``
-beside copies of ``csrc/*.cuh``.
+is its own shared library, built through ``_build.build`` (the headers
+from ``csrc/``), all at once.
 
-    python -m pcaudio_torch.probes.k2_stages [--old-source PATH] [--old-only]
-        [--earlier-source PATH]
+    python -m pcaudio_torch.probes.k2_stages [--earlier-source PATH]
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
+import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -35,7 +32,6 @@ from pcaudio_torch.probes.clips import L, negzero_grid, ragged_waves
 from pcaudio_torch.probes.timing import bound_ms, card, cuda_ms
 
 B, NT, F, K = 1024, 10, 512, 128
-OUT = _build.BUILD_DIR.parent / "k2_stages"
 STAGES = ("load", "tau", "whole")   # each design's cuts
 Edit = Tuple[str, str]
 
@@ -44,26 +40,6 @@ CURRENT_EDITS: Dict[str, List[Edit]] = {
     "load": [("constexpr int kStopAfter = 0;", "constexpr int kStopAfter = 1;")],
     "tau": [("constexpr int kStopAfter = 0;", "constexpr int kStopAfter = 2;")],
 }
-
-# the design before this one (one 256-thread block a chunk, keys in shared
-# memory, 472eb60): returns after the load or
-# once tau is found, each reading what it computed so that the compiler
-# keeps it (the condition never holds for finite keys)
-_OLD_CONST = ("constexpr int kSelectThreads = 256;\n",
-              "constexpr int kSelectThreads = 256;\nconstexpr int kStopAfter = {n};\n")
-_OLD_LOAD = ("  unsigned prefix = 0, known = 0;  // digits found so far, and their bits\n",
-             "  if (kStopAfter == 1) {\n    __syncthreads();\n"
-             "    if (keys[(threadIdx.x * 7) % L] == 0xffffffffu) out_i[blockIdx.x] = 0;\n"
-             "    return;\n  }\n"
-             "  unsigned prefix = 0, known = 0;  // digits found so far, and their bits\n")
-_OLD_TAU = ("  const int need = krem;  // keys == tau to take; keys > tau number K - need\n",
-            "  const int need = krem;  // keys == tau to take; keys > tau number K - need\n"
-            "  if (kStopAfter == 2) {\n"
-            "    if (tau == 0xffffffffu && threadIdx.x == 0) out_i[blockIdx.x] = need;\n"
-            "    return;\n  }\n")
-OLD_EDITS: Dict[str, List[Edit]] = {
-    stage: [(_OLD_CONST[0], _OLD_CONST[1].format(n=n)), _OLD_LOAD, _OLD_TAU]
-    for stage, n in (("load", 1), ("tau", 2))}
 
 
 def apply_edits(text: str, edits: List[Edit], what: str) -> str:
@@ -86,32 +62,29 @@ def stage_sources(text: str, edits: Dict[str, List[Edit]], what: str) -> Dict[st
     return out
 
 
-def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """One shared library a variant, all ``nvcc`` started together."""
-    procs = {}
-    for name, text in sources.items():
-        d = OUT / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for header in _build.CSRC.glob("*.cuh"):   # select.cuh, common.cuh
-            (d / header.name).write_text(header.read_text())
-        (d / "select.cu").write_text(text)
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "select.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (lib, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        for line in log.splitlines():
-            if ("registers" in line or "spill" in line) and name.endswith("whole"):
-                print(f"[ptxas] {name}: {line.strip()}")
-        fn = ctypes.CDLL(str(lib))
-        fn.pcaudio_topk_chunks.argtypes = _build._SIGNATURES["pcaudio_topk_chunks"]
-        fn.pcaudio_topk_chunks.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
+def variant_name(prefix: str, name: str) -> str:
+    """The library name of the variant ``name``: ``prefix`` and its words."""
+    return prefix + re.sub(r"[^A-Za-z0-9]+", "_", name).strip("_")
+
+
+def build_variants(prefix: str, variants: Dict[str, Dict[str, str]],
+                   signatures: dict) -> Dict[str, ctypes.CDLL]:
+    """Each variant's sources ({file name: text}) built through
+    ``_build.build`` as the library ``variant_name(prefix, name)``, all at
+    once (a thread each); the libraries by variant name."""
+    with ThreadPoolExecutor(len(variants)) as pool:
+        libs = pool.map(lambda kv: _build.build(variant_name(prefix, kv[0]), kv[1],
+                                                signatures), variants.items())
+        return dict(zip(variants, libs))
+
+
+def print_ptxas(prefix: str, names, kernel: str = "") -> None:
+    """ptxas' registers and spills of each variant of ``names`` (those of
+    its kernels whose mangled name holds ``kernel``)."""
+    for name in names:
+        for line in _build.ptxas_lines(variant_name(prefix, name), kernel):
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas] {name}: {line}")
 
 
 def _select(lib: ctypes.CDLL, name: str, grid: torch.Tensor, k: int):
@@ -150,29 +123,22 @@ def grids(dev) -> Dict[str, torch.Tensor]:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-source", help="an earlier design's select.cu")
-    ap.add_argument("--old-only", action="store_true",
-                    help="time only the --old-source design")
     ap.add_argument("--earlier-source",
                     help="an earlier select.cu of the current design")
     args = ap.parse_args(argv)
-    if args.old_only and not args.old_source:
-        ap.error("--old-only needs --old-source")
     dev = torch.device("cuda")
     name_limit = card()
-    designs = {}
-    if not args.old_only:
-        designs["current"] = stage_sources((_build.CSRC / "select.cu").read_text(),
-                                           CURRENT_EDITS, "csrc/select.cu")
-    if args.old_source:
-        with open(args.old_source) as f:
-            designs["old"] = stage_sources(f.read(), OLD_EDITS, args.old_source)
+    designs = {"current": stage_sources((_build.CSRC / "select.cu").read_text(),
+                                        CURRENT_EDITS, "csrc/select.cu")}
     if args.earlier_source:
         with open(args.earlier_source) as f:
             designs["earlier"] = stage_sources(f.read(), CURRENT_EDITS,
                                                args.earlier_source)
-    libs = _build_all({f"{d} {s}": text for d, srcs in designs.items()
-                       for s, text in srcs.items()})
+    libs = build_variants("k2_", {f"{d} {s}": {"select.cu": text}
+                                  for d, srcs in designs.items()
+                                  for s, text in srcs.items()},
+                          {"pcaudio_topk_chunks": _build.SIGNATURES["pcaudio_topk_chunks"]})
+    print_ptxas("k2_", [n for n in libs if n.endswith("whole")])
 
     neg = torch.from_numpy(negzero_grid(512, F, seed=3)).to(dev)
     for flat in (False, True):
@@ -203,7 +169,7 @@ def main(argv=None) -> None:
                   f"{t['tau'] - t['load']:.4f} ms (cut at tau {t['tau']:.4f}), "
                   f"compaction {t['whole'] - t['tau']:.4f} ms, whole {t['whole']:.4f} "
                   f"ms; bound {b:.4f} ms by bytes ({name_limit})", flush=True)
-        if "earlier" in designs and "current" in designs:
+        if "earlier" in designs:
             turns = [cuda_ms(_select(libs[f"{d} whole"], d, grid, K)[0], 10)
                      for d in ("earlier", "current", "current", "earlier")]
             print(f"[K2 stages] {gname} grid, whole kernel in turns (earlier, current, "

@@ -4,16 +4,15 @@ after its load (``kStopAfter = 1``), after the window maxima (2), once tau
 is found (3) and after the compaction (4), on K2's three grids (the bench's
 noise, a tie-heavy grid, ragged clips: ``k2_stages.grids``) at the plans of
 recall 0.8, 0.9, 0.95 and 0.99, with K2 timed beside it.  Each variant is
-its own shared library, built with ``nvcc`` into ``build/k2a_stages/``
-beside copies of ``csrc/*.cuh``; the whole kernel is first held against
-its plain version.
+its own shared library, built through ``_build.build`` (the headers from
+``csrc/``), all at once; the whole kernel is first held against its plain
+version.
 
     python -m pcaudio_torch.probes.k2a_stages
 """
 from __future__ import annotations
 
 import ctypes
-import subprocess
 from typing import Dict
 
 import torch
@@ -22,10 +21,9 @@ from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.approx_select import (
     approx_topk_chunks_plain, approx_topk_plan)
 from pcaudio_torch.ops.kernels.select import exact_topk_chunks
-from pcaudio_torch.probes.k2_stages import K, apply_edits, grids
+from pcaudio_torch.probes.k2_stages import K, apply_edits, build_variants, grids, print_ptxas
 from pcaudio_torch.probes.timing import bound_ms, card, cuda_ms
 
-OUT = _build.BUILD_DIR.parent / "k2a_stages"
 STOP = "constexpr int kStopAfter = 0;"
 STAGES = {"load": 1, "windows": 2, "tau": 3, "compaction": 4, "whole": 0}
 RECALLS = (0.8, 0.9, 0.95, 0.99)
@@ -36,34 +34,6 @@ def stage_sources(text: str) -> Dict[str, str]:
     return {name: apply_edits(text, [(STOP, f"constexpr int kStopAfter = {n};")],
                               f"approx_select.cu, stage {name!r}") if n else text
             for name, n in STAGES.items()}
-
-
-def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    procs = {}
-    for name, text in sources.items():
-        d = OUT / name
-        d.mkdir(parents=True, exist_ok=True)
-        for header in _build.CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
-        (d / "approx_select.cu").write_text(text)
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "approx_select.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        if name == "whole":
-            for line in log.splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"[ptxas] K2a: {line.strip()}")
-        fn = ctypes.CDLL(str(lib))
-        fn.pcaudio_approx_topk.argtypes = _build._SIGNATURES["pcaudio_approx_topk"]
-        fn.pcaudio_approx_topk.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
 
 
 def _select(lib: ctypes.CDLL, keys: torch.Tensor, k: int, recall: float):
@@ -84,7 +54,11 @@ def _select(lib: ctypes.CDLL, keys: torch.Tensor, k: int, recall: float):
 def main(argv=None) -> None:
     dev = torch.device("cuda")
     name_limit = card()
-    libs = _build_all(stage_sources((_build.CSRC / "approx_select.cu").read_text()))
+    libs = build_variants(
+        "k2a_", {name: {"approx_select.cu": text} for name, text in
+                 stage_sources((_build.CSRC / "approx_select.cu").read_text()).items()},
+        {"pcaudio_approx_topk": _build.SIGNATURES["pcaudio_approx_topk"]})
+    print_ptxas("k2a_", ["whole"])
     for gname, grid in grids(dev).items():
         keys = grid.reshape(grid.shape[0], -1)
         n = keys.shape[0]

@@ -5,29 +5,21 @@ or the short kernel's query tiles, copied and waited for, nothing
 computed) and after Q·Kᵀ and the softmax (``3``: P·V left out), at the
 FST recipe's attends (B = 128, no mask), the 3ST recipe's (B = 16, the keys
 split over blocks) and the eval shape (one expt-2 forward: B = 1024 FST
-frames, rank masks at K 501 on MAB0 and PMA).  Given the source of an
-earlier design (``--old-source``, e.g. the SIMT one from ``git show
-705f139:pcaudio_torch/csrc/mha.cu``), it times that one whole at the same
-shapes in the same process.
+frames, rank masks at K 501 on MAB0 and PMA).
 
 Then the backward at the FST and 3ST step shapes: the planned one-pass
 kernels (``ops/kernels/mha.py::bwd_plan``) beside their bound (bytes, the
-3xTF32 products with S recomputed, the exps), and, given the source of an
-earlier backward (``--old-bwd-source``, e.g. the SIMT pair from ``git show
-c829fd7:pcaudio_torch/csrc/mha.cu``), that one on the same inputs in the
-same process.
+3xTF32 products with S recomputed, the exps).
 
-Each variant is its own shared library, built with ``nvcc`` into
-``build/k4_stages/``; every design's outputs are held against the plain
-version first.
+Each variant is its own shared library, built through ``_build.build``
+(the headers from ``csrc/``), all at once; the whole kernel's outputs are
+held against the plain version first.
 
-    python -m pcaudio_torch.probes.k4_stages [--old-source PATH] [--old-bwd-source PATH]
+    python -m pcaudio_torch.probes.k4_stages
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
-import subprocess
 from typing import Dict, List
 
 import torch
@@ -36,11 +28,10 @@ from pcaudio_torch.eval.experiments import _ranks_desc
 from pcaudio_torch.ops.kernels import _build
 from pcaudio_torch.ops.kernels.mha import (
     BWD_KINDS, _sm_count, bwd_plan, fused_mha_bwd_plain, fused_mha_plain, fwd_plan)
-from pcaudio_torch.probes.k2_stages import Edit, stage_sources
+from pcaudio_torch.probes.k2_stages import Edit, build_variants, print_ptxas, stage_sources
 from pcaudio_torch.probes.timing import bound_ms, card, cuda_ms
 
 HEADS, DV = 8, 64
-OUT = _build.BUILD_DIR.parent / "k4_stages"
 STAGES = ("compaction", "staging", "scores", "whole")
 CURRENT_EDITS: Dict[str, List[Edit]] = {
     stage: [("constexpr int kStopAfter = 0;", f"constexpr int kStopAfter = {n};")]
@@ -51,43 +42,10 @@ ST3 = {"MAB0": (64, 5120, None), "MAB1": (5120, 64, None), "PMA": (1, 5120, None
 EVAL = {"MAB0": (64, 1025, 501), "MAB1": (1025, 64, None), "PMA": (1, 1025, 501)}
 SHAPES = (("FST step", 128, FST), ("3ST step", 16, ST3), ("eval (expt 2, K 501)", 1024, EVAL))
 PER_FORWARD = {"MAB0": 2, "MAB1": 2, "PMA": 1}   # two ISABs, one PMA
-NEW_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
-OLD_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-NEW_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-OLD_BWD_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
 
 
-def _build_all(sources: Dict[str, str]) -> Dict[str, ctypes.CDLL]:
-    """One shared library a variant, all ``nvcc`` started together."""
-    procs = {}
-    for name, text in sources.items():
-        d = OUT / name.replace(" ", "_")
-        d.mkdir(parents=True, exist_ok=True)
-        for header in ("common.cuh", "mma.cuh"):
-            (d / header).write_text((_build.CSRC / header).read_text())
-        (d / "mha.cu").write_text(text)
-        procs[name] = (d / "lib.so", subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "mha.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    libs = {}
-    for name, (lib, p) in procs.items():
-        log = p.communicate()[0]
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log[-3000:]}")
-        for line in log.splitlines():
-            if ("registers" in line or "spill" in line) and name.endswith("whole"):
-                print(f"[ptxas] {name}: {line.strip()}")
-        fn = ctypes.CDLL(str(lib))
-        fn.pcaudio_mha_fwd.argtypes = OLD_ARGS if name == "old whole" else NEW_ARGS
-        fn.pcaudio_mha_bwd.argtypes = OLD_BWD_ARGS if name == "old bwd" else NEW_BWD_ARGS
-        fn.pcaudio_mha_fwd.restype = fn.pcaudio_mha_bwd.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
-
-
-def _forward(lib: ctypes.CDLL, old: bool, q, k, v, mask):
-    """A launcher of one design's forward on these inputs, its output and
+def _forward(lib: ctypes.CDLL, q, k, v, mask):
+    """A launcher of one variant's forward on these inputs, its output and
     its lse."""
     B, N, dv = q.shape
     M = k.shape[1]
@@ -97,32 +55,25 @@ def _forward(lib: ctypes.CDLL, old: bool, q, k, v, mask):
     mptr = None if mask is None else mask.data_ptr()
     plan = fwd_plan(B, N, M, HEADS, _sm_count(q.device.index or 0), dh=dv // HEADS)
     scratch = [None] * 3
-    if not old and plan.splits > 1:
+    if plan.splits > 1:
         scratch = [torch.empty(plan.splits, B, HEADS, N, device=q.device),
                    torch.empty(plan.splits, B, HEADS, N, device=q.device),
                    torch.empty(plan.splits, B, N, dv, device=q.device)]
 
     def launch():
-        stream = torch.cuda.current_stream().cuda_stream
-        if old:
-            code = lib.pcaudio_mha_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr,
-                                       out.data_ptr(), lse.data_ptr(), B, N, M, HEADS,
-                                       dv // HEADS, scale, stream)
-        else:
-            code = lib.pcaudio_mha_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
-                lse.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
-                B, N, M, HEADS, dv // HEADS, plan.parts, plan.rows, plan.splits, scale,
-                stream)
+        code = lib.pcaudio_mha_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mptr, out.data_ptr(),
+            lse.data_ptr(), *(None if t is None else t.data_ptr() for t in scratch),
+            B, N, M, HEADS, dv // HEADS, plan.parts, plan.rows, plan.splits, scale,
+            torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"pcaudio_mha_fwd failed ({code})")
     return launch, out, lse
 
 
-def _backward(lib: ctypes.CDLL, old: bool, q, k, v, out, lse, g):
-    """A launcher of one design's backward (no mask) on these inputs, and
-    its (dq, dk, dv): the current source's planned route, or the earlier
-    SIMT pair's entry point."""
+def _backward(lib: ctypes.CDLL, q, k, v, out, lse, g):
+    """A launcher of the backward (no mask) on these inputs, its planned
+    route, and its (dq, dk, dv)."""
     B, N, dv = q.shape
     M = k.shape[1]
     scale = 1.0 / dv ** 0.5
@@ -130,20 +81,17 @@ def _backward(lib: ctypes.CDLL, old: bool, q, k, v, out, lse, g):
     delta = torch.empty_like(lse)
     plan = bwd_plan(B, N, M, HEADS, _sm_count(q.device.index or 0), dv // HEADS)
     parts = [None, None]
-    if not old and plan.splits > 1:
+    if plan.splits > 1:
         shape = (plan.splits,) + tuple((q if plan.kind == "fewq" else k).shape)
         parts = [torch.empty(shape, device=q.device), torch.empty(shape, device=q.device)]
     ptrs = [t.data_ptr() for t in (q, k, v)] + [None] + [
         t.data_ptr() for t in (out, lse, g, delta, *grads)]
 
     def launch():
-        stream = torch.cuda.current_stream().cuda_stream
-        if old:
-            code = lib.pcaudio_mha_bwd(*ptrs, B, N, M, HEADS, dv // HEADS, scale, stream)
-        else:
-            code = lib.pcaudio_mha_bwd(
-                *ptrs, *(None if t is None else t.data_ptr() for t in parts), B, N, M,
-                HEADS, dv // HEADS, BWD_KINDS.index(plan.kind), plan.splits, scale, stream)
+        code = lib.pcaudio_mha_bwd(
+            *ptrs, *(None if t is None else t.data_ptr() for t in parts), B, N, M,
+            HEADS, dv // HEADS, BWD_KINDS.index(plan.kind), plan.splits, scale,
+            torch.cuda.current_stream().cuda_stream)
         if code:
             raise RuntimeError(f"pcaudio_mha_bwd failed ({code})")
     return launch, grads
@@ -182,43 +130,32 @@ def _work(B, N, M, keep):
             nb + (0 if keep is None else B * M))
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old-source", help="an earlier design's mha.cu")
-    ap.add_argument("--old-bwd-source", help="an earlier backward's mha.cu (its "
-                    "pcaudio_mha_bwd without plan arguments)")
-    args = ap.parse_args(argv)
+def main() -> None:
     name_limit = card()
-    sources = {f"new {s}": t for s, t in stage_sources(
-        (_build.CSRC / "mha.cu").read_text(), CURRENT_EDITS, "csrc/mha.cu").items()}
-    if args.old_source:
-        with open(args.old_source) as f:
-            sources["old whole"] = f.read()
-    if args.old_bwd_source:
-        with open(args.old_bwd_source) as f:
-            sources["old bwd"] = f.read()
-    libs = _build_all(sources)
-    designs = [d for d in ("new", "old") if f"{d} whole" in libs]
+    libs = build_variants(
+        "k4_", {stage: {"mha.cu": text} for stage, text in stage_sources(
+            (_build.CSRC / "mha.cu").read_text(), CURRENT_EDITS, "csrc/mha.cu").items()},
+        {n: _build.SIGNATURES[n] for n in ("pcaudio_mha_fwd", "pcaudio_mha_bwd")})
+    print_ptxas("k4_", ["whole"])
     gen = torch.Generator("cuda").manual_seed(0)
     for label, B, attends in SHAPES:
-        total = {f"{d} {s}": 0.0 for d in designs for s in STAGES if f"{d} {s}" in libs}
+        total = dict.fromkeys(STAGES, 0.0)
         work = [0.0, 0.0, 0.0]
         for name, (N, M, keep) in attends.items():
             q, k, v, mask = _inputs(B, N, M, keep, gen)
             ref = fused_mha_plain(q, k, v, mask, HEADS, 1.0 / DV ** 0.5)
             t = {}
-            for variant in total:
-                launch, out, _ = _forward(libs[variant], variant.startswith("old"), q, k,
-                                          v, mask)
-                if variant.endswith("whole"):
+            for stage in STAGES:
+                launch, out, _ = _forward(libs[stage], q, k, v, mask)
+                if stage == "whole":
                     launch()
                     torch.cuda.synchronize()
                     err = (out - ref).abs()
                     if not bool((err <= 1e-4 * ref.abs().max() + 1e-4 * ref.abs()).all()):
-                        raise AssertionError(f"{variant} at {label} {name}: max |err| "
+                        raise AssertionError(f"K4 at {label} {name}: max |err| "
                                              f"{err.max().item():.3e} outside K4's bound")
-                t[variant] = cuda_ms(launch, 20)
-                total[variant] += PER_FORWARD[name] * t[variant]
+                t[stage] = cuda_ms(launch, 20)
+                total[stage] += PER_FORWARD[name] * t[stage]
             w = _work(B, N, M, keep)
             work = [a + PER_FORWARD[name] * b for a, b in zip(work, w)]
             b = bound_ms({"sfu": w[0], "tf32": w[1]}, w[2])
@@ -233,70 +170,50 @@ def main(argv=None) -> None:
               f"{bound_ms({'sfu': work[0]}, 0)[0]:.4f}, 3xTF32 products "
               f"{bound_ms({'tf32': work[1]}, 0)[0]:.4f}, bytes "
               f"{bound_ms({}, work[2])[0]:.4f}) ({name_limit})", flush=True)
-    backward_times(libs, gen, name_limit)
+    backward_times(libs["whole"], gen, name_limit)
 
 
-def backward_times(libs, gen, name_limit) -> None:
-    """The backward at the FST and 3ST step shapes: the current design and,
-    where built, the earlier one, each held against the plain backward
-    within K4's bound first, on the current forward's out and lse."""
-    variants = [v for v in ("new whole", "old bwd") if v in libs]
+def backward_times(lib, gen, name_limit) -> None:
+    """The backward at the FST and 3ST step shapes, held against the plain
+    backward within K4's bound first, on the forward's out and lse."""
     for label, B, attends in SHAPES[:2]:
-        total = {v: 0.0 for v in variants}
+        total = 0.0
         work = [0.0, 0.0, 0.0]
         for name, (N, M, _) in attends.items():
             q, k, v, _ = _inputs(B, N, M, None, gen)
             g = torch.randn(q.shape, device="cuda", generator=gen)
-            fwd, out, lse = _forward(libs["new whole"], False, q, k, v, None)
+            fwd, out, lse = _forward(lib, q, k, v, None)
             fwd()
             ref = fused_mha_bwd_plain(q, k, v, None, g, HEADS, 1.0 / DV ** 0.5)
-            t = {}
-            for variant in variants:
-                launch, grads = _backward(libs[variant], variant == "old bwd", q, k, v, out,
-                                          lse, g)
-                launch()
-                torch.cuda.synchronize()
-                for got, r, d in zip(grads, ref, ("dq", "dk", "dv")):
-                    err = (got - r).abs()
-                    if not bool((err <= 1e-4 * r.abs().max() + 1e-4 * r.abs()).all()):
-                        raise AssertionError(f"{variant} backward at {label} {name}: {d} "
-                                             f"max |err| {err.max().item():.3e} outside "
-                                             f"K4's bound")
-                t[variant] = cuda_ms(launch, 20)
-                total[variant] += PER_FORWARD[name] * t[variant]
+            launch, grads = _backward(lib, q, k, v, out, lse, g)
+            launch()
+            torch.cuda.synchronize()
+            for got, r, d in zip(grads, ref, ("dq", "dk", "dv")):
+                err = (got - r).abs()
+                if not bool((err <= 1e-4 * r.abs().max() + 1e-4 * r.abs()).all()):
+                    raise AssertionError(f"K4's backward at {label} {name}: {d} max |err| "
+                                         f"{err.max().item():.3e} outside K4's bound")
+            t = cuda_ms(launch, 20)
+            total += PER_FORWARD[name] * t
             w = bwd_work(B, N, M)
             work = [a + PER_FORWARD[name] * b for a, b in zip(work, w)]
             plan = bwd_plan(B, N, M, HEADS, _sm_count(0))
             b = bound_ms({"sfu": w[0], "tf32": w[1]}, w[2])
             print(f"[K4 bwd] {label} {name} B={B} {N}x{M} ({plan.kind}, {plan.splits} "
-                  f"split{'s' if plan.splits > 1 else ''}): " + _bwd_line(t)
-                  + f"; bound {b[0]:.4f} ms by {b[1]} ({name_limit})", flush=True)
+                  f"split{'s' if plan.splits > 1 else ''}): {t:.4f} ms; bound {b[0]:.4f} "
+                  f"ms by {b[1]} ({name_limit})", flush=True)
             del q, k, v, g, out, lse, ref
             torch.cuda.empty_cache()
         b = bound_ms({"sfu": work[0], "tf32": work[1]}, work[2])
-        print(f"[K4 bwd] {label}, one step's five attends: " + _bwd_line(total)
-              + f"; bound {b[0]:.4f} ms by {b[1]} ({bwd_parts(*work)}) ({name_limit})",
-              flush=True)
-
-
-def _bwd_line(t: Dict[str, float]) -> str:
-    parts = [f"new design {t['new whole']:.4f} ms"]
-    if "old bwd" in t:
-        parts.append(f"earlier design {t['old bwd']:.4f} ms")
-    return ", ".join(parts)
+        print(f"[K4 bwd] {label}, one step's five attends: {total:.4f} ms; bound "
+              f"{b[0]:.4f} ms by {b[1]} ({bwd_parts(*work)}) ({name_limit})", flush=True)
 
 
 def _line(t: Dict[str, float]) -> str:
-    parts = []
-    if "new whole" in t:
-        parts.append(f"new design: compaction {t['new compaction']:.4f} ms, + staging "
-                     f"{t['new staging'] - t['new compaction']:.4f} ms, + Q·Kᵀ and "
-                     f"softmax {t['new scores'] - t['new staging']:.4f} ms, + P·V "
-                     f"{t['new whole'] - t['new scores']:.4f} ms, whole "
-                     f"{t['new whole']:.4f} ms")
-    if "old whole" in t:
-        parts.append(f"earlier design {t['old whole']:.4f} ms")
-    return "; ".join(parts)
+    return (f"compaction {t['compaction']:.4f} ms, + staging "
+            f"{t['staging'] - t['compaction']:.4f} ms, + Q·Kᵀ and softmax "
+            f"{t['scores'] - t['staging']:.4f} ms, + P·V {t['whole'] - t['scores']:.4f} "
+            f"ms, whole {t['whole']:.4f} ms")
 
 
 if __name__ == "__main__":

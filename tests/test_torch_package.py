@@ -13,7 +13,7 @@ import torch
 
 from pcaudio_torch.eval import TemporalPipelineConfig
 from pcaudio_torch.nn import ST
-from pcaudio_torch.ops.kernels import _build
+from pcaudio_torch.ops.kernels import _build, probes
 from pcaudio_torch.ops.kernels.featurize import (
     fused_chunk_mag2, fused_chunk_mag2_plain)
 from pcaudio_torch.ops.kernels.fused_st import (
@@ -203,12 +203,13 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
             call()
 
 
-def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+@pytest.mark.parametrize("library", [_build, probes], ids=["path", "probe"])
+def test_build_without_nvcc_raises(tmp_path, monkeypatch, library):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
-        _build.build()
+        library.library()
 
 
 def test_wrappers_send_cpu_tensors_to_plain_versions():

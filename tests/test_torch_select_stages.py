@@ -1,6 +1,8 @@
 """K2's stage probe (``pcaudio_torch.probes.k2_stages``) without a build:
 its source edits apply to the current ``csrc/select.cu`` and cut it where
 they say, and an edit that does not apply raises, naming the missing text."""
+import re
+
 import pytest
 
 from pcaudio_torch.ops.kernels import _build
@@ -20,17 +22,11 @@ def test_current_edits_apply_to_select_cu():
 
 @pytest.mark.parametrize("stage", ["load", "tau"])
 def test_an_edit_that_does_not_apply_names_the_missing_text(stage):
-    # the current source is not the earlier design: its constant is missing
-    with pytest.raises(ValueError, match="kSelectThreads = 256"):
-        k2_stages.apply_edits(SOURCE, k2_stages.OLD_EDITS[stage], stage)
-    with pytest.raises(ValueError, match="kStopAfter = 0"):
-        k2_stages.stage_sources(SOURCE.replace("kStopAfter = 0", "kStopAfter = 3"),
-                                k2_stages.CURRENT_EDITS, "edited select.cu")
-
-
-def test_old_edits_cut_after_the_load_and_at_tau():
-    anchors = "".join(old for old, _ in k2_stages.OLD_EDITS["load"])
-    srcs = k2_stages.stage_sources(anchors, k2_stages.OLD_EDITS, "anchors")
-    assert "kStopAfter = 1;" in srcs["load"] and "kStopAfter = 2;" in srcs["tau"]
-    for stage in ("load", "tau"):
-        assert srcs[stage].count("return;") == 2
+    # a source without the stage's anchor: its stop constant set otherwise
+    (anchor, _), = k2_stages.CURRENT_EDITS[stage]
+    source = SOURCE.replace(anchor, "constexpr int kStopAfter = 3;")
+    assert anchor not in source
+    with pytest.raises(ValueError, match=re.escape(anchor.strip())):
+        k2_stages.apply_edits(source, k2_stages.CURRENT_EDITS[stage], stage)
+    with pytest.raises(ValueError, match=re.escape(anchor.strip())):
+        k2_stages.stage_sources(source, k2_stages.CURRENT_EDITS, "edited select.cu")

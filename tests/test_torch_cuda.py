@@ -1727,7 +1727,8 @@ def test_expt2_kept_point_forwards_on_the_card(cuda):
     mask run as a key mask over the full cloud, and the accuracies are
     those masked forwards' but for rows whose top-2 gap is within twice
     the logit deviation.  Then one engine microbatch waits for the device
-    nowhere (``set_sync_debug_mode("error")``)."""
+    nowhere (``set_sync_debug_mode("error")``): the same classifier, whose
+    first call at each shape captured it, replays every forward."""
     from pcaudio_torch.dsp import FeaturizeConfig
     from pcaudio_torch.eval.experiments import (
         _featurize, _kept, _microbatch_generator, _prefix_mask_counts, _valid_frames)
@@ -1735,8 +1736,9 @@ def test_expt2_kept_point_forwards_on_the_card(cuda):
 
     w, n, lab = _clips(4)
     model, R = _fst(True), 2
+    clf = make_cloud_classifier(model)
     got = []
-    rnd, mx = framewise_expt2(None, _recording(make_cloud_classifier(model), got),
+    rnd, mx = framewise_expt2(None, _recording(clf, got),
                               w, n, lab, mode="cloud", nruns=R, device="cuda")
     cfg = FeaturizeConfig(fs=44100, n_fft=2048, top_db=60.0, trim=True)
     wv, nv = torch.from_numpy(w).to(cuda), torch.from_numpy(n).to(cuda)
@@ -1768,8 +1770,8 @@ def test_expt2_kept_point_forwards_on_the_card(cuda):
     torch.cuda.set_sync_debug_mode("error")
     try:
         with torch.no_grad():
-            cmax, crand = _prefix_mask_counts(make_cloud_classifier(model), clouds, frames,
-                                              labels, None, gen, mx["list_K"], R)
+            cmax, crand = _prefix_mask_counts(clf, clouds, frames, labels, None, gen,
+                                              mx["list_K"], R)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert cmax.shape == (21,) and crand.shape == (21, R)
@@ -1790,6 +1792,138 @@ def test_k4_launches_rise_during_a_sweep(cuda):
     assert len(calls) >= 4 and fused_mha_fwd.launches - f0 == 5 * len(calls)
     assert fused_mha_bwd.launches == b0
     assert all(0.0 <= a <= 1.0 for v in out["data"].values() for a in v)
+
+
+def _counted(fn):
+    """``fn()`` and what it added to the program's counters, which count
+    only while a profiler records (a CPU-only one here)."""
+    from torch.profiler import ProfilerActivity, profile
+    from pcaudio_torch.utils import profiling
+
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+
+
+@pytest.mark.parametrize("K", [1, 51, 1024])
+def test_cloud_classifier_replays_the_eager_forward_bitwise(cuda, K):
+    """The sweep's cloud classifier at an expt-2 shape, 864 clouds of
+    ``K`` kept points: the call that captures the shape and the calls that
+    replay it give the eager forward's logits bit for bit."""
+    model = _fst(True)
+    clf = make_cloud_classifier(model)
+    gen = torch.Generator(cuda).manual_seed(K)
+    xs = [torch.randn(864, K, 2, device=cuda, generator=gen) for _ in range(3)]
+    with torch.no_grad():
+        want = [model(x) for x in xs]
+        got = [clf(x) for x in xs]
+    for a, b in zip(got, want):
+        assert a.shape == (864, 10) and torch.equal(a, b)
+
+
+def test_replayed_logits_keep_their_values(cuda):
+    """Logits a replay returned are the caller's: later replays at the same
+    shape and at another shape leave them as they were."""
+    model = _fst(True)
+    clf = make_cloud_classifier(model)
+    gen = torch.Generator(cuda).manual_seed(5)
+    a, b = (torch.randn(864, 51, 2, device=cuda, generator=gen) for _ in range(2))
+    c = torch.randn(864, 1024, 2, device=cuda, generator=gen)
+    with torch.no_grad():
+        first = clf(a)
+        kept = first.clone()
+        second, third = clf(b), clf(c)
+        want = [model(x) for x in (a, b, c)]
+    assert torch.equal(first, kept) and torch.equal(first, want[0])
+    assert torch.equal(second, want[1]) and torch.equal(third, want[2])
+    assert not torch.equal(first, second)
+
+
+def test_cloud_classifier_counts_replays_and_k4_launches(cuda):
+    """``expt2.points_replayed`` counts the points of each replayed call and
+    ``expt2.points_run`` those of every call; a call with a key mask or with
+    gradients runs eagerly (its logits the eager forward's, the latter with
+    a graph for autograd).  K4's forward counts five launches a forward:
+    the capture's eager warm-up and its first replay, then each replay."""
+    model = _fst(True)
+    clf = make_cloud_classifier(model)
+    gen = torch.Generator(cuda).manual_seed(7)
+    x = torch.randn(864, 51, 2, device=cuda, generator=gen)
+    mask = torch.rand(864, 51, device=cuda, generator=gen) < 0.5
+    mask[:, 0] = True
+    f0 = fused_mha_fwd.launches
+    with torch.no_grad():
+        clf(x)
+    torch.cuda.synchronize()
+    assert fused_mha_fwd.launches - f0 == 2 * 5
+
+    def calls():
+        with torch.no_grad():
+            out = [clf(x), clf(x, mask)]
+        return out + [clf(x)]
+
+    f1 = fused_mha_fwd.launches
+    (replayed, masked, graded), delta = _counted(calls)
+    torch.cuda.synchronize()
+    assert fused_mha_fwd.launches - f1 == 3 * 5
+    assert delta["expt2.points_run"] == 3 * 864 * 51
+    assert delta["expt2.points_replayed"] == 864 * 51
+    assert not replayed.requires_grad and graded.requires_grad
+    with torch.no_grad():
+        assert torch.equal(masked, model(x, mask))
+        assert torch.equal(replayed, model(x))
+    assert torch.equal(graded.detach(), replayed)
+
+
+def test_cloud_classifier_pool_holds_about_one_forward(cuda):
+    """The 21 shapes of an FST expt-2 call (864 clouds, K rising from 1 to
+    1,024) captured in the engine's order: the graphs' memory stays within
+    four times one eager forward's intermediates at K 1,024 (one set a
+    shape would be about ten times), and every graph, recaptured or not,
+    still gives the eager logits bit for bit."""
+    model = _fst(True)
+    Ks = list(range(1, 1001, 50)) + [1024]
+    gen = torch.Generator(cuda).manual_seed(11)
+    xs = [torch.randn(864, K, 2, device=cuda, generator=gen) for K in Ks]
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        want = [model(x) for x in xs]
+        peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        clf = make_cloud_classifier(model)
+        first = [clf(x) for x in xs]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool = torch.cuda.memory_reserved() - held
+        again = [clf(x) for x in xs]
+    assert pool <= 4 * peak, (pool, peak)
+    for a, b, c in zip(first, again, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+def test_expt2_replayed_sweep_equals_the_eager_one(cuda):
+    """A whole ``framewise_expt2`` call (4 clips: 864 frames; 21 K x (1 + 2
+    runs)) through the replaying classifier gives the eager model's logits
+    bit for bit and the same dicts, and every forward replays."""
+    w, n, lab = _clips(4)
+    model = _fst(True)
+    logits, res, delta = {}, {}, {}
+    for name, clf in (("replay", make_cloud_classifier(model)),
+                      ("eager", lambda points, mask=None: model(points, mask))):
+        logits[name] = []
+        res[name], delta[name] = _counted(lambda: framewise_expt2(
+            None, _recording(clf, logits[name]), w, n, lab, mode="cloud", nruns=2,
+            device="cuda"))
+    assert len(logits["replay"]) == len(logits["eager"]) == 21 * 3
+    for a, b in zip(logits["replay"], logits["eager"]):
+        assert torch.equal(a, b)
+    assert res["replay"] == res["eager"]
+    run = 864 * 3 * sum(min(K, 1025) for K in res["eager"][1]["list_K"])
+    assert delta["replay"]["expt2.points_replayed"] == delta["replay"]["expt2.points_run"] == run
 
 
 def _baseline(recipe, device):

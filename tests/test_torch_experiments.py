@@ -326,3 +326,66 @@ def test_rebut_matches_jax(setup_3st, nfft):
     rnd2, mx2 = ex.rebut_importance_expt(ex.make_cloud_classifier(model), w, n,
                                          labels, device="cpu", seed=1, **kw)
     assert mx2 == mx
+
+
+def _counted(fn):
+    """``fn()`` and what it added to the program's counters, which count
+    only while a profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+    from pcaudio_torch.utils import profiling
+
+    before = profiling.counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        out = fn()
+    return out, {k: v - before.get(k, 0) for k, v in profiling.counters().items()}
+
+
+def test_cloud_classifier_runs_cpu_points_eagerly(setup):
+    """On CPU tensors the cloud classifier runs the model eagerly: the
+    model's logits bit for bit, every point counted in
+    ``expt2.points_run`` and none in ``expt2.points_replayed``, with or
+    without a key mask or gradients."""
+    din, w, n, labels, jm, params, model = setup
+    clouds, _ = _train_rows(w, n, din)
+    mask = torch.arange(clouds.shape[1]) < clouds.shape[1] // 2
+    mask = mask.expand(clouds.shape[0], -1)
+    clf = ex.make_cloud_classifier(model)
+
+    def calls():
+        with torch.no_grad():
+            out = [clf(clouds), clf(clouds[:, :5]), clf(clouds, mask)]
+        return out + [clf(clouds)]
+
+    got, delta = _counted(calls)
+    with torch.no_grad():
+        want = [model(clouds), model(clouds[:, :5]), model(clouds, mask), model(clouds)]
+    for a, b in zip(got, want):
+        assert torch.equal(a.detach(), b)
+    rows, npts = clouds.shape[:2]
+    assert delta["expt2.points_run"] == rows * (3 * npts + 5)
+    assert delta["expt2.points_replayed"] == 0
+    assert got[-1].requires_grad and not got[0].requires_grad
+
+
+def test_replay_share_reader(monkeypatch):
+    """``replay_share.sweep`` (``pcbench/metrics``) is 100 x the points
+    replayed over the points run, and None where the program keeps neither
+    counter, lacks the replay counter (a program without the replays) or
+    ran no point."""
+    from pcbench import run as bench_run
+    from pcaudio_torch.utils import profiling
+
+    reader = bench_run.reader("replay_share.sweep")
+    got = {"expt2.points_replayed": 201, "expt2.points_run": 400, "other": 1}
+    monkeypatch.setattr(profiling, "counters", lambda: got)
+    assert reader.read(None) == pytest.approx(50.25)
+    got["expt2.points_replayed"] = 400
+    assert reader.read(None) == pytest.approx(100.0)
+    got["expt2.points_replayed"] = 0
+    assert reader.read(None) == 0.0
+    got["expt2.points_run"] = 0
+    assert reader.read(None) is None
+    monkeypatch.setattr(profiling, "counters", lambda: {"expt2.points_run": 400})
+    assert reader.read(None) is None
+    monkeypatch.delattr(profiling, "counters")  # a program that keeps none
+    assert reader.read(None) is None
